@@ -1,0 +1,666 @@
+"""Executors of the dense BM25F path (counterpart of
+oramacore_tpu/index/search_exec.py).
+
+They pad query plans into fixed-shape descriptor arrays on the host, keep
+the posting slab and the champion / OMC / filter arrays cached on the
+device, and run the scoring functions of `ops/bm25.py`. Every executor
+takes an explicit `device`; a CUDA device on a host without CUDA raises.
+
+The host-side helpers (`host_bm25_reference`, `_PlanBatch`,
+`analyze_shared_batch`, `pack_shared_class`) are numpy code copied from
+the JAX module, whose import pulls in jax.
+
+Not ported yet: the sort-by, group-by, pruned and hybrid executors; the
+hybrid tails of `search_topk_shared` raise NotImplementedError.
+"""
+
+from __future__ import annotations
+
+import threading
+from collections import OrderedDict
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from oramacore_tpu.index.string_index import DEFAULT_B, QueryPlan, StringIndex
+
+from .. import resolve_device
+from ..ops.bm25 import (
+    MAX_RANGE_LEN,
+    PostingsDevice,
+    bm25_score_batch,
+    bm25_search_topk_packed,
+    bm25_shared_champions,
+    bm25_shared_champions_masked,
+    bm25_shared_partial,
+    bm25_shared_partial_masked,
+    finalize_topk,
+    round_up_pow2,
+)
+
+_MISS = object()
+
+
+class DeviceLru:
+    """Bounded keyed LRU for device-resident tensors, safe under
+    concurrent searches. `group` maps a key to a stale-group id:
+    inserting a key purges other keys of the same group first (stale
+    generations of one index can never be queried again)."""
+
+    def __init__(self, maxsize: int, group=None):
+        self._d: "OrderedDict" = OrderedDict()
+        self._lock = threading.Lock()
+        self.maxsize = maxsize
+        self._group = group
+
+    def get(self, key):
+        """Cached value, or the module-level _MISS sentinel."""
+        with self._lock:
+            if key in self._d:
+                self._d.move_to_end(key)
+                return self._d[key]
+            return _MISS
+
+    def put(self, key, value):
+        with self._lock:
+            if self._group is not None:
+                g = self._group(key)
+                for k in [
+                    k for k in self._d
+                    if k != key and self._group(k) == g
+                ]:
+                    del self._d[k]
+            self._d[key] = value
+            while len(self._d) > self.maxsize:
+                self._d.popitem(last=False)
+        return value
+
+
+class StringSearchExecutor:
+    """Caches device slabs and executes batched BM25F scoring."""
+
+    # one executor can serve several indexes, so the caches hold a few
+    MAX_CACHED_SLABS = 4
+
+    def __init__(self, device):
+        self.device = resolve_device(device)
+        # one thread uploads a missing slab; concurrent searches on the
+        # same fresh generation wait instead of uploading it twice
+        self._build_lock = threading.Lock()
+        self._slabs = DeviceLru(
+            self.MAX_CACHED_SLABS, group=lambda k: k[0]
+        )  # (uid, generation) -> PostingsDevice
+        # committed portion: stable between commits, so a live-layer
+        # generation bump uploads only the live rows
+        self._comms = DeviceLru(
+            self.MAX_CACHED_SLABS, group=lambda k: k[0]
+        )  # (uid, committed_key) -> PostingsDevice | None
+
+    def _to_dev(self, a: np.ndarray) -> torch.Tensor:
+        return torch.as_tensor(np.ascontiguousarray(a), device=self.device)
+
+    def _get_device_slab(self, index: StringIndex) -> PostingsDevice:
+        # keyed on (index uid, slab generation): generation alone collides
+        # across indexes, and id() of a freed array can be recycled
+        comm, live, ck = index.slab_split()
+        gen = (index.uid, index.generation)  # read AFTER the slab build
+        cached = self._slabs.get(gen)
+        if cached is not _MISS:
+            return cached
+        with self._build_lock:
+            cached = self._slabs.get(gen)
+            if cached is not _MISS:
+                return cached
+            ckey = (index.uid, ck)
+            comm_dev = self._comms.get(ckey)
+            if comm_dev is _MISS:
+                comm_dev = (
+                    PostingsDevice.from_numpy(comm, self.device, pad=0)
+                    if comm is not None else None
+                )
+                self._comms.put(ckey, comm_dev)
+            parts = [comm_dev] if comm_dev is not None else []
+            if live is not None:
+                parts.append(PostingsDevice.from_numpy(live, self.device, pad=0))
+            # MAX_RANGE_LEN trailing zeros: no range reads past the end
+            empty = (np.zeros(0, np.int32),) + (np.zeros(0, np.float32),) * 3
+            parts.append(PostingsDevice.from_numpy(empty, self.device))
+            return self._slabs.put(gen, PostingsDevice.concat(parts))
+
+    def score(
+        self,
+        index: StringIndex,
+        plans: Sequence[QueryPlan],
+        n_docs: Sequence[float],
+        cap: int,
+        exact: bool = False,
+        doc_masks: Optional[Sequence[Optional[np.ndarray]]] = None,
+    ) -> Tuple[np.ndarray, np.ndarray]:
+        """Score B queries; returns (scores f32[B, cap], matched f32[B, cap])
+        as numpy arrays. Champion slots of the plans are not used."""
+        slab = self._get_device_slab(index)
+        pb = _PlanBatch(plans, n_docs, cap, doc_masks)
+        scores, matched = bm25_score_batch(
+            *slab,
+            self._to_dev(pb.starts), self._to_dev(pb.lens),
+            self._to_dev(pb.weights), self._to_dev(pb.field_b),
+            self._to_dev(pb.avg_flen), self._to_dev(pb.nd),
+            self._to_dev(pb.masks),
+            lr=pb.LRb, exact=exact, cap=pb.capb,
+        )
+        return (
+            scores[: pb.B, :cap].cpu().numpy(),
+            matched[: pb.B, :cap].cpu().numpy(),
+        )
+
+
+# ---------------------------------------------------------------------------
+# Host reference scorer (numpy): the parity oracle for the device path.
+# Mirrors the reference algorithm literally (bm25.rs + token_score.rs).
+# ---------------------------------------------------------------------------
+
+def host_bm25_reference(
+    index: StringIndex,
+    tokens: Sequence[str],
+    properties: Sequence[str],
+    boost: Dict[str, float],
+    n_docs: float,
+    threshold: Optional[float] = None,
+    exact: bool = False,
+    tolerance: Optional[int] = None,
+    k1: float = 1.2,
+    doc_mask: Optional[np.ndarray] = None,
+) -> Dict[int, float]:
+    p_doc, p_tf, p_etf, p_flen = index.slab()
+    scores: Dict[int, float] = {}
+    masks: Dict[int, int] = {}
+
+    for term_index, token in enumerate(tokens):
+        # collect contributions across fields
+        contribs: Dict[int, float] = {}
+        for path in properties:
+            stats = index.field_stats(path)
+            if stats.doc_count == 0:
+                continue
+            w = boost.get(path, 1.0)
+            avg = stats.avg_len or 1.0
+            tol = 0 if exact else tolerance
+            for (start, length) in index._match_terms(path, token, tol):
+                for p in range(start, start + length):
+                    tf = float(p_etf[p] if exact else p_tf[p])
+                    if tf <= 0:
+                        continue
+                    if doc_mask is not None and not doc_mask[int(p_doc[p])]:
+                        continue
+                    flen = float(p_flen[p])
+                    ntf = tf / (1.0 - 0.75 + 0.75 * flen / avg)
+                    d = int(p_doc[p])
+                    contribs[d] = contribs.get(d, 0.0) + w * ntf
+        if not contribs:
+            continue
+        df = max(len(contribs), 1)
+        idf = float(np.log1p((n_docs - df + 0.5) / (df + 0.5)))
+        for d, s in contribs.items():
+            term_score = idf * (k1 + 1.0) * s / (k1 + s)
+            scores[d] = scores.get(d, 0.0) + term_score
+            masks[d] = masks.get(d, 0) | (1 << term_index)
+
+    if threshold is not None:
+        thr = int(np.floor(len(tokens) * threshold))
+        scores = {
+            d: s
+            for d, s in scores.items()
+            if bin(masks.get(d, 0)).count("1") >= thr
+        }
+    return scores
+
+
+class _PlanBatch:
+    """Padded descriptor arrays for a batch of plans (host side)."""
+
+    __slots__ = ("starts", "lens", "weights", "field_b", "avg_flen", "nd",
+                 "masks", "LRb", "capb", "B", "ch_idx", "ch_w", "has_champ")
+
+    def __init__(self, plans, n_docs, cap, doc_masks=None):
+        B = len(plans)
+        Bb = round_up_pow2(B, 1)
+        T = max(p.starts.shape[0] for p in plans)
+        Tb = round_up_pow2(T, 1)
+        NR = max(p.starts.shape[1] for p in plans)
+        NRb = round_up_pow2(NR, 1)
+        LR = max(p.max_range_len for p in plans)
+        self.LRb = round_up_pow2(LR, 8)
+        self.capb = round_up_pow2(cap, 128)
+        self.B = B
+        self.starts = np.zeros((Bb, Tb, NRb), np.int32)
+        self.lens = np.zeros((Bb, Tb, NRb), np.int32)
+        self.weights = np.zeros((Bb, Tb, NRb), np.float32)
+        self.field_b = np.full((Bb, Tb, NRb), 0.75, np.float32)
+        self.avg_flen = np.ones((Bb, Tb, NRb), np.float32)
+        self.nd = np.ones((Bb,), np.float32)
+        self.masks = np.ones((Bb, self.capb), bool)
+        # champion slots (heavy-term dense rows)
+        self.has_champ = any(p.champ_idx is not None for p in plans)
+        if self.has_champ:
+            NC = max(
+                p.champ_idx.shape[1] for p in plans
+                if p.champ_idx is not None
+            )
+            NCb = round_up_pow2(NC, 1)
+            self.ch_idx = np.full((Bb, Tb, NCb), -1, np.int32)
+            self.ch_w = np.zeros((Bb, Tb, NCb), np.float32)
+        else:
+            self.ch_idx = self.ch_w = None
+        for i, p in enumerate(plans):
+            t, r = p.starts.shape
+            self.starts[i, :t, :r] = p.starts
+            self.lens[i, :t, :r] = p.lens
+            self.weights[i, :t, :r] = p.weights
+            self.field_b[i, :t, :r] = p.field_b
+            self.avg_flen[i, :t, :r] = p.avg_flen
+            self.nd[i] = max(float(n_docs[i]), 1.0)
+            if self.has_champ and p.champ_idx is not None:
+                tc, nc = p.champ_idx.shape
+                self.ch_idx[i, :tc, :nc] = p.champ_idx
+                self.ch_w[i, :tc, :nc] = p.champ_w
+            if doc_masks is not None and doc_masks[i] is not None:
+                m = doc_masks[i]
+                self.masks[i, : len(m)] = m
+                self.masks[i, len(m):] = False
+
+
+class StringSearchTopK(StringSearchExecutor):
+    """Fused path: scoring + threshold + OMC + top-k on the device; only
+    (B, k) values / ids come back."""
+
+    @staticmethod
+    def _omc_group(key):
+        # omc_key is (index uid, omc version): stale versions of the
+        # same index can never be requested again
+        omc_key, _capb = key
+        if isinstance(omc_key, tuple) and len(omc_key) == 2:
+            return ("omc", omc_key[0])
+        return ("omc", omc_key)
+
+    def __init__(self, device):
+        super().__init__(device)
+        # OMC multipliers, keyed on (version, capb)
+        self._omc_dev = DeviceLru(
+            2 * self.MAX_CACHED_SLABS, group=self._omc_group
+        )
+        # champion matrices, keyed on (uid, generation, capb)
+        self._champ_dev = DeviceLru(
+            self.MAX_CACHED_SLABS, group=lambda k: k[0]
+        )
+        # filter masks, keyed on (caller key, capb); the group strips the
+        # trailing version so a put purges the stale version
+        self._fmask_dev = DeviceLru(
+            2 * self.MAX_CACHED_SLABS,
+            group=lambda k: (
+                k[0][:-1] if isinstance(k[0], tuple) else k[0]
+            ),
+        )
+
+    def _get_device_champs(self, index: StringIndex, capb: int):
+        key = (index.uid, index.generation, capb)
+        cached = self._champ_dev.get(key)
+        if cached is not _MISS:
+            return cached
+        mat = index._champ_matrix
+        if mat is None:
+            return None
+        padded = np.zeros((mat.shape[0], capb), np.float32)
+        padded[:, : min(mat.shape[1], capb)] = mat[:, :capb]
+        return self._champ_dev.put(key, self._to_dev(padded))
+
+    def _get_device_omc(self, omc: np.ndarray, omc_key, capb: int):
+        key = (omc_key, capb) if omc_key is not None else None
+        if key is not None:
+            cached = self._omc_dev.get(key)
+            if cached is not _MISS:
+                return cached
+        arr = np.ones((capb,), np.float32)
+        arr[: min(len(omc), capb)] = omc[:capb]
+        dev = self._to_dev(arr)
+        if key is not None:
+            self._omc_dev.put(key, dev)
+        return dev
+
+    def _get_device_fmask(self, mask: np.ndarray, mask_key, capb: int):
+        """Filter mask as f32[capb] on the device (1.0 = doc allowed; the
+        padding beyond cap stays 0 so padded doc ids never match)."""
+        key = (mask_key, capb) if mask_key is not None else None
+        if key is not None:
+            cached = self._fmask_dev.get(key)
+            if cached is not _MISS:
+                return cached
+        arr = np.zeros((capb,), np.float32)
+        n = min(len(mask), capb)
+        arr[:n] = mask[:n]
+        dev = self._to_dev(arr)
+        if key is not None:
+            self._fmask_dev.put(key, dev)
+        return dev
+
+    def search_topk(
+        self,
+        index: StringIndex,
+        plans: Sequence[QueryPlan],
+        n_docs: Sequence[float],
+        cap: int,
+        k: int,
+        exact: bool = False,
+        doc_masks: Optional[Sequence[Optional[np.ndarray]]] = None,
+        thresholds: Optional[Sequence[float]] = None,  # distinct-token counts
+        omc: Optional[np.ndarray] = None,              # f32[<=cap]
+        omc_key=None,                                  # cache key (version)
+        with_bitmap: bool = False,                     # + packed match bits
+    ) -> Tuple[np.ndarray, ...]:
+        slab = self._get_device_slab(index)
+        pb = _PlanBatch(plans, n_docs, cap, doc_masks)
+        Bb = pb.starts.shape[0]
+        idesc = np.stack([pb.starts, pb.lens])
+        fdesc = np.stack([pb.weights, pb.field_b, pb.avg_flen])
+        scalars = np.stack([pb.nd, np.zeros((Bb,), np.float32)])
+        if thresholds is not None:
+            for i, t in enumerate(thresholds):
+                scalars[1, i] = t or 0.0
+        has_mask = doc_masks is not None and any(
+            m is not None for m in doc_masks
+        )
+        has_omc = omc is not None
+        omc_arr = (
+            self._get_device_omc(omc, omc_key, pb.capb) if has_omc else None
+        )
+        kb = min(round_up_pow2(k, 8), pb.capb)
+        champs_dev = (
+            self._get_device_champs(index, pb.capb) if pb.has_champ else None
+        )
+        has_champ = champs_dev is not None
+        out = bm25_search_topk_packed(
+            *slab,
+            self._to_dev(idesc), self._to_dev(fdesc), self._to_dev(scalars),
+            self._to_dev(pb.masks) if has_mask else None, omc_arr,
+            champs_dev,
+            self._to_dev(pb.ch_idx) if has_champ else None,
+            self._to_dev(pb.ch_w) if has_champ else None,
+            lr=pb.LRb, exact=exact, cap=pb.capb, k=kb,
+            has_mask=has_mask, has_omc=has_omc, has_champ=has_champ,
+            with_bitmap=with_bitmap,
+        )
+        vals, idx, counts = out[:3]
+        res = (
+            vals[: pb.B, :k].cpu().numpy(),
+            idx[: pb.B, :k].cpu().numpy(),
+            counts[: pb.B].cpu().numpy(),
+        )
+        if with_bitmap:
+            # packed match set: unpack host-side to bool[cap] per query
+            bits = out[3][: pb.B].cpu().numpy()
+            masks = np.unpackbits(bits, axis=1)[:, :cap].astype(bool)
+            return res + (masks,)
+        return res
+
+
+SHARED_LENGTH_CLASSES = (1024, 16384, 131072)
+SHARED_CHUNK_BY_CLASS = {1024: 64, 16384: 16, 131072: 8}
+
+
+def _split_range(ranges, start, length, w, fb, avg):
+    """Append (start, length) cut into pieces of at most MAX_RANGE_LEN."""
+    while length > MAX_RANGE_LEN:
+        ranges.append((start, MAX_RANGE_LEN, w, fb, avg))
+        start += MAX_RANGE_LEN
+        length -= MAX_RANGE_LEN
+    ranges.append((start, length, w, fb, avg))
+
+
+def analyze_shared_batch(
+    index: StringIndex,
+    tokens_per_query: Sequence[Sequence[str]],
+    properties: Sequence[str],
+    boost: Dict[str, float],
+    field_params: Optional[Dict[str, Tuple[float, float]]],
+    exact: bool,
+    tolerance: Optional[int],
+    impact_cap: Optional[int],
+    use_champions: bool = True,
+    token_weight_of: Optional[Dict[str, float]] = None,
+):
+    """Host-side analysis of a batch: dedup the batch's tokens, resolve
+    posting ranges, route fully-champion-covered tokens (optional), and
+    partition the rest into range-length classes. Returns
+    (u_ranges, u_champs, token_map_global (B, T), classes, B, T)."""
+    B = len(tokens_per_query)
+    flat: List[str] = []
+    q_lens = np.empty(B, np.int32)
+    for b, toks in enumerate(tokens_per_query):
+        q_lens[b] = len(toks)
+        flat.extend(toks)
+    T = max(1, int(q_lens.max()) if B else 1)
+    uniq_arr, inverse = np.unique(np.asarray(flat, dtype=str), return_inverse=True)
+    token_map_global = np.full((B, T), -1, np.int32)
+    rows = np.repeat(np.arange(B, dtype=np.int32), q_lens)
+    q_starts = (np.cumsum(q_lens, dtype=np.int64) - q_lens).astype(np.int32)
+    cols = (
+        np.arange(int(q_lens.sum()), dtype=np.int32)
+        - np.repeat(q_starts, q_lens)
+    )
+    token_map_global[rows, cols] = inverse.astype(np.int32)
+
+    u_ranges: List[List[Tuple[int, int, float, float, float]]] = []
+    u_champs: List[Optional[List[Tuple[int, float]]]] = []
+    tol = 0 if exact else tolerance
+    for tok in uniq_arr.tolist():
+        ranges: List[Tuple[int, int, float, float, float]] = []
+        champ_slots: List[Tuple[int, float]] = []
+        champ_covers: List[frozenset] = []
+        for path in properties:
+            stats = index._stats.get(path)
+            if stats is None or stats.doc_count == 0:
+                continue
+            fw, fb = (field_params or {}).get(path, (1.0, DEFAULT_B))
+            w = boost.get(path, 1.0) * fw
+            if token_weight_of:
+                w *= token_weight_of.get(tok, 1.0)
+            avg = stats.avg_len or 1.0
+            champ_skip = None
+            if use_champions and not exact and not tol:
+                ci = index._champ_map.get((path, tok))
+                if ci is not None and abs(fb - DEFAULT_B) < 1e-9:
+                    c_avg, covered = index._champ_meta[ci]
+                    if abs(c_avg - avg) < 1e-6 * max(avg, 1.0):
+                        champ_slots.append((ci, w))
+                        champ_skip = covered
+                        champ_covers.append(covered)
+            for (start, length) in index._match_terms(path, tok, tol):
+                if champ_skip is not None and \
+                        (start, length) in champ_skip:
+                    continue
+                if impact_cap is not None and length > impact_cap:
+                    length = impact_cap
+                _split_range(ranges, start, length, w, fb, avg)
+        if champ_slots and ranges:
+            # partial coverage: revert champions to their ranges
+            for covered, (ci, w) in zip(champ_covers, champ_slots):
+                avg_c = index._champ_meta[ci][0]
+                for (c_start, c_len) in covered:
+                    length = c_len
+                    if impact_cap is not None and length > impact_cap:
+                        length = impact_cap
+                    _split_range(ranges, c_start, length, w, DEFAULT_B, avg_c)
+            champ_slots = []
+        u_ranges.append(ranges)
+        u_champs.append(champ_slots or None)
+
+    classes: Dict[int, List[int]] = {c: [] for c in SHARED_LENGTH_CLASSES}
+    for ui, ranges in enumerate(u_ranges):
+        if u_champs[ui] is not None:
+            continue  # champion class handles this token
+        ml = max((l for (_, l, *_rest) in ranges), default=0)
+        for c in SHARED_LENGTH_CLASSES:
+            if ml <= c:
+                classes[c].append(ui)
+                break
+    return u_ranges, u_champs, token_map_global, classes, B, T
+
+
+def pack_shared_class(u_ranges, uids, token_map_global, B, T, cu):
+    """Padded per-class descriptor arrays for the shared kernels:
+    (st, ln, wt, fb, av (Up, NRb), tmap (B, T), lrb). Query slots whose
+    token is not in the class map to the sentinel Up."""
+    Up = max(cu, ((len(uids) + cu - 1) // cu) * cu)
+    NR = max(1, max(len(u_ranges[u]) for u in uids))
+    NRb = round_up_pow2(NR, 1)
+    st = np.zeros((Up, NRb), np.int32)
+    ln = np.zeros((Up, NRb), np.int32)
+    wt = np.zeros((Up, NRb), np.float32)
+    fb = np.full((Up, NRb), 0.75, np.float32)
+    av = np.ones((Up, NRb), np.float32)
+    local_of = {}
+    for li, ui in enumerate(uids):
+        local_of[ui] = li
+        for ri, (s0, l0, w0, b0, a0) in enumerate(u_ranges[ui][:NRb]):
+            st[li, ri] = s0
+            ln[li, ri] = l0
+            wt[li, ri] = w0
+            fb[li, ri] = b0
+            av[li, ri] = a0
+    n_glob = int(token_map_global.max()) + 1 if token_map_global.size else 0
+    lut = np.full(max(n_glob, 1) + 1, Up, np.int32)  # last slot: g == -1
+    for ui, li in local_of.items():
+        if ui < n_glob:
+            lut[ui] = li
+    tmap = lut[token_map_global]  # -1 indexes the sentinel last slot
+    lrb = round_up_pow2(max(1, int(ln.max())), 8)
+    return st, ln, wt, fb, av, tmap, int(lrb)
+
+
+class SharedBatchExecutor(StringSearchTopK):
+    """Term-deduplicated batched scoring: each unique query token is
+    scored once into a dense per-token row; a (B, U) assignment matmul
+    distributes rows to queries. Exact, with or without per-query
+    filters. Unique tokens are partitioned into range-length classes."""
+
+    LENGTH_CLASSES = SHARED_LENGTH_CLASSES
+    CHUNK_BY_CLASS = SHARED_CHUNK_BY_CLASS
+
+    def search_topk_shared(
+        self,
+        index: StringIndex,
+        tokens_per_query: Sequence[Sequence[str]],
+        properties: Sequence[str],
+        boost: Dict[str, float],
+        n_docs: float,
+        cap: int,
+        k: int,
+        thresholds: Optional[Sequence[float]] = None,
+        exact: bool = False,
+        tolerance: Optional[int] = None,
+        impact_cap: Optional[int] = None,
+        doc_masks: Optional[Sequence[Optional[np.ndarray]]] = None,
+        field_params: Optional[Dict[str, Tuple[float, float]]] = None,
+        omc: Optional[np.ndarray] = None,
+        omc_key=None,
+        vec_rows=None,                 # hybrid tail: not ported yet
+        queries: Optional[np.ndarray] = None,
+        similarities: Optional[Sequence[float]] = None,
+        rescale: Optional[Tuple[float, float]] = None,
+        vec_rows_int8=None,            # hybrid tail: not ported yet
+        candidates: Optional[int] = None,
+        token_weight_of: Optional[Dict[str, float]] = None,
+    ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        if vec_rows is not None or vec_rows_int8 is not None:
+            raise NotImplementedError(
+                "hybrid tails of search_topk_shared are not ported yet"
+            )
+        slab = self._get_device_slab(index)
+        capb = round_up_pow2(cap, 128)
+        nd = max(float(n_docs), 1.0)
+
+        # champion tokens: FULLY covered by precomputed dense rows (any
+        # live/uncovered range falls the whole token back to ranged
+        # scanning, keeping matched-token counts exact)
+        u_ranges, u_champs, token_map_global, classes, B, T = (
+            analyze_shared_batch(
+                index, tokens_per_query, properties, boost, field_params,
+                exact, tolerance, impact_cap,
+                token_weight_of=token_weight_of,
+            )
+        )
+
+        has_masks = doc_masks is not None and any(
+            m is not None for m in doc_masks
+        )
+        mask_dev = None
+        if has_masks:
+            masks = np.ones((B, capb), bool)
+            for i, m in enumerate(doc_masks):
+                if m is not None:
+                    masks[i, : len(m)] = m
+                    masks[i, len(m):] = False
+            mask_dev = self._to_dev(masks)
+
+        scores = torch.zeros((B, capb), dtype=torch.float32, device=self.device)
+        matched = torch.zeros((B, capb), dtype=torch.float32, device=self.device)
+
+        for lr_class, uids in classes.items():
+            if not uids:
+                continue
+            cu = self.CHUNK_BY_CLASS[lr_class]
+            st, ln, wt, fb, av, tmap, lrb = pack_shared_class(
+                u_ranges, uids, token_map_global, B, T, cu
+            )
+            desc = [self._to_dev(a) for a in (st, ln, wt, fb, av, tmap)]
+            if has_masks:
+                bm25_shared_partial_masked(
+                    *slab, *desc, mask_dev, nd, scores, matched,
+                    lr=lrb, cap=capb, cu=cu, exact=exact,
+                )
+            else:
+                bm25_shared_partial(
+                    *slab, *desc, nd, scores, matched,
+                    lr=lrb, cap=capb, cu=cu, exact=exact,
+                )
+
+        # ---- champion class: dense rows, zero posting gathers ----------
+        champ_uids = [ui for ui, c in enumerate(u_champs) if c]
+        if champ_uids:
+            champs_dev = self._get_device_champs(index, capb)
+            NC = max(len(u_champs[ui]) for ui in champ_uids)
+            ch_rows = np.full((len(champ_uids), NC), -1, np.int32)
+            ch_w = np.zeros((len(champ_uids), NC), np.float32)
+            for ei, ui in enumerate(champ_uids):
+                for cj, (ci, w) in enumerate(u_champs[ui]):
+                    ch_rows[ei, cj] = ci
+                    ch_w[ei, cj] = w
+            args = (
+                champs_dev, self._to_dev(ch_rows), self._to_dev(ch_w),
+                self._to_dev(np.asarray(champ_uids, np.int32)),
+                self._to_dev(token_map_global),
+            )
+            if has_masks:
+                bm25_shared_champions_masked(
+                    *args, mask_dev, nd, scores, matched
+                )
+            else:
+                bm25_shared_champions(*args, nd, scores, matched)
+
+        thr = np.zeros((B,), np.float32)
+        if thresholds is not None:
+            for i, t in enumerate(thresholds):
+                thr[i] = t or 0.0
+        if omc is not None:
+            omc_dev = self._get_device_omc(omc, omc_key, capb)
+        else:
+            omc_dev = torch.ones((capb,), dtype=torch.float32, device=self.device)
+        kb = min(round_up_pow2(k, 8), capb)
+        vals, idx, counts = finalize_topk(
+            scores, matched, self._to_dev(thr), omc_dev, k=kb
+        )
+        return (
+            vals[:, :k].cpu().numpy(),
+            idx[:, :k].cpu().numpy(),
+            counts[:B].cpu().numpy(),
+        )
