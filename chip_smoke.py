@@ -4,26 +4,36 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from `oramacore_tpu_torch/ops/csrc/` into
-`build/kernels/`, checks each kernel against its plain PyTorch version on
-the card, then drives the dense BM25F search path through the executor
-entry points the read side calls (`SharedBatchExecutor.search_topk_shared`
-for batches, `StringSearchTopK.search_topk` for single queries) on the
-repo's 1M-doc full-text scale configuration (`benches/scale_bench.py`,
-`bench_bm25_1m`: 1,000,000 docs, vocab 100,000, 40 postings per doc,
-zipf term weights, seed 0). Results are held against the numpy reference
-scorer.
+`build/kernels/` (one nvcc per source, in parallel), checks each kernel
+against its plain PyTorch version on the card, then drives the port's
+paths through the entry points a user calls, each with the kernels'
+launch counts set to 0 just before it and read just after:
+
+- the dense BM25F search path through the executor entry points the read
+  side calls (`SharedBatchExecutor.search_topk_shared` for batches,
+  `StringSearchTopK.search_topk` for single queries) on the repo's 1M-doc
+  full-text scale configuration (`benches/scale_bench.py`,
+  `bench_bm25_1m`: 1,000,000 docs, vocab 100,000, 40 postings per doc,
+  zipf term weights, seed 0);
+- the window-scoring bench (`oramacore_tpu_torch/benches/pallas_bench.py`
+  at its defaults: 2048 windows of 1024 over 64Mi postings), the one path
+  that runs `gather_windows` and `score_windows`;
+- the fused sort-by search (`search_topk_sorted`, batched B=64 with k=512
+  and single queries) and group-by search (`search_topk_grouped`, B=8,
+  G=8 and G=64) on the same 1M-doc index.
+
+Search results are held against the numpy reference scorer.
 
 Progress goes to stdout. The second-to-last line is a JSON object with
-one entry per kernel of the path; the last line is
-`{"ok": true, "device": {...}}`. Any failed phase exits non-zero and
-prints no result line. Without a CUDA device it exits non-zero at once.
+one entry per kernel; the last line is `{"ok": true, "device": {...}}`.
+Any failed phase exits non-zero and prints no result line. Without a CUDA
+device it exits non-zero at once.
 """
 
 from __future__ import annotations
 
 import json
 import os
-import subprocess
 import sys
 import time
 
@@ -40,8 +50,31 @@ STEADY_BATCHES = 5
 K = 10
 N_CHECKED = 8  # queries held against the numpy reference
 
-KERNEL_SOURCE = "oramacore_tpu_torch/ops/csrc/score_windows.cu"
-REPLACES = "oramacore_tpu/ops/pallas_score.py:34"
+# sort-by / group-by phases (read/__init__.py:2616 bounds sorted pages at
+# 512; benches/hybrid10m_bench.py:1150-1170 sets the group-by shapes)
+SORT_BATCH = 64
+SORT_K = 512
+GROUP_BATCH = 8
+GROUP_K = 16
+GROUP_R = 8
+N_SORT_CHECKED = 4  # queries of each new path held against the reference
+
+# Every ported kernel entry point: its wrapper module, the CUDA source, the
+# TPU kernel it replaces, and the path whose run gives its launch count.
+KERNELS = (
+    dict(name="score_windows",
+         module="oramacore_tpu_torch.ops.score_windows", route="cuda",
+         source="oramacore_tpu_torch/ops/csrc/score_windows.cu",
+         replaces="oramacore_tpu/ops/pallas_score.py:34", path="bench"),
+    dict(name="score_ranges_accumulate",
+         module="oramacore_tpu_torch.ops.score_windows", route="cuda",
+         source="oramacore_tpu_torch/ops/csrc/score_windows.cu",
+         replaces="oramacore_tpu/ops/pallas_score.py:34", path="main"),
+    dict(name="gather_windows",
+         module="oramacore_tpu_torch.ops.gather_windows", route="cuda",
+         source="oramacore_tpu_torch/ops/csrc/gather_windows.cu",
+         replaces="oramacore_tpu/ops/pallas_gather.py:38", path="bench"),
+)
 
 
 class SmokeFailure(Exception):
@@ -52,15 +85,6 @@ def check(cond: bool, what: str) -> None:
     if not cond:
         raise SmokeFailure(what)
     print(f"  ok: {what}", flush=True)
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    )
-    return out.stdout.strip().splitlines()[0]
 
 
 # ---------------------------------------------------------------------------
@@ -161,19 +185,23 @@ def reference_scores(idx, queries, n_docs, masks=None):
     ]
 
 
-def check_against_reference(refs, vals, ids, counts, label, masks=None):
+def check_against_reference(refs, vals, ids, counts, label, masks=None,
+                            k=K):
     bad = []
     for b, ref in enumerate(refs):
-        ref_ids, ref_vals = reference_top(ref, K)
+        ref_ids, ref_vals = reference_top(ref, k)
         errs = topk_errors(ids[b], vals[b], ref_ids, ref_vals, ref)
         if counts[b] != len(ref):
             errs.append(f"match count {counts[b]} vs {len(ref)}")
         if masks is not None and not all(masks[b][d] for d in ids[b][:len(ref_ids)]):
             errs.append("a filtered-out doc was returned")
         bad += [f"query {b}: {e}" for e in errs]
-    check(not bad, f"{label}: top-{K} and match counts of {len(refs)} "
-                   f"queries equal the numpy reference"
-                   + ("" if not bad else "\n    " + "\n    ".join(bad[:10])))
+    report_check(bad, f"{label}: top-{k} and match counts of {len(refs)} "
+                      f"queries equal the numpy reference")
+
+
+def report_check(bad, what):
+    check(not bad, what + ("" if not bad else "\n    " + "\n    ".join(bad[:10])))
 
 
 def check_shared_vs_single(refs, sv, si, pv, pi):
@@ -183,36 +211,56 @@ def check_shared_vs_single(refs, sv, si, pv, pi):
         errs = topk_errors(si[b], sv[b], pi[b][:n],
                            pv[b][:n].astype(np.float64), ref, rtol=1e-5)
         bad += [f"query {b}: {e}" for e in errs]
-    check(not bad, f"shared and per-query top-{K} agree (overlap 1.0 "
-                   f"outside near-ties) on {len(refs)} queries"
-                   + ("" if not bad else "\n    " + "\n    ".join(bad[:10])))
+    report_check(bad, f"shared and per-query top-{K} agree (overlap 1.0 "
+                      f"outside near-ties) on {len(refs)} queries")
+
+
+def sorted_page_errors(ranked, count, ref, vals, present, desc, k):
+    """One sort-by page against the reference order: docs with the field
+    by (value, doc asc), then fieldless docs by doc asc; ids exact, scores
+    within rtol 1e-4, the match count exact."""
+    sign = -1.0 if desc else 1.0
+    with_f = sorted((d for d in ref if present[d]),
+                    key=lambda d: (sign * vals[d], d))
+    exp = (with_f + sorted(d for d in ref if not present[d]))[:k]
+    got = [d for d, _ in ranked]
+    errs = []
+    if got != exp:
+        i = next((i for i, (a, b) in enumerate(zip(got, exp)) if a != b),
+                 min(len(got), len(exp)))
+        errs.append(f"page differs from rank {i} (len {len(got)} vs "
+                    f"{len(exp)}): {got[i:i + 3]} vs {exp[i:i + 3]}")
+    elif not np.allclose([v for _, v in ranked], [ref[d] for d in exp],
+                         rtol=1e-4, atol=0):
+        errs.append("scores outside rtol 1e-4")
+    if count != len(ref):
+        errs.append(f"match count {count} vs {len(ref)}")
+    return errs
+
+
+def group_page_errors(pages, ref, gid, R):
+    """Per-group pages against the reference: each group's docs by
+    (score desc, doc asc), top R, held with the topk_errors rule."""
+    errs = []
+    for g, page in enumerate(pages):
+        members = {d: s for d, s in ref.items() if gid[d] == g}
+        ref_ids, ref_vals = reference_top(members, R)
+        ids = np.array([d for d, _ in page] + [-1] * (R - len(page)))
+        got = np.array([v for _, v in page] + [-np.inf] * (R - len(page)))
+        errs += [f"group {g}: {e}" for e in
+                 topk_errors(ids, got, ref_ids, ref_vals, members)]
+    return errs
 
 
 # ---------------------------------------------------------------------------
 # phases
 # ---------------------------------------------------------------------------
 
-def time_cuda(fn, reps):
-    """Mean ms per call over `reps` calls, after one warm-up, by CUDA
-    events."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 def phase_kernels(slab, card):
     """Each kernel against its plain version at the main path's shapes."""
     import torch
 
+    from oramacore_tpu_torch.benches import time_cuda
     from oramacore_tpu_torch.ops import score_windows as sw
 
     dev = slab.doc.device
@@ -285,7 +333,55 @@ def phase_kernels(slab, card):
           f"of posting reads [{card}]", flush=True)
     out["score_ranges_accumulate"] = dict(ms=ms, plain_ms=plain_ms,
                                           max_abs_err=err)
+
+    # gather_windows: the TPU kernel's contract on the slab's doc (int32)
+    # and tf (f32) columns, NS=4096, w=1024; a copy, so exact
+    from oramacore_tpu_torch.ops import gather_windows as gw
+
+    starts = torch.from_numpy(
+        (rng.integers(0, (n - w) // gw.ALIGN, ns) * gw.ALIGN).astype(np.int32)
+    ).to(dev)
+    for col, src in (("doc", slab.doc), ("tf", slab.tf)):
+        got = gw.gather_windows(src, starts, w=w)
+        exp = gw.gather_windows_plain(src, starts, w)
+        torch.cuda.synchronize()
+        err = float((got.double() - exp.double()).abs().max())
+        check(got.dtype == src.dtype and torch.equal(got, exp),
+              f"gather_windows on p_{col} ({src.dtype}): equal to the plain "
+              f"version (max abs err {err:.3g})")
+        ms = time_cuda(lambda: gw.gather_windows(src, starts, w=w), 50)
+        plain_ms = time_cuda(lambda: gw.gather_windows_plain(src, starts, w), 10)
+        mib = ns * w * 4 / 2**20
+        print(f"  gather_windows p_{col} NS={ns} w={w} ({mib:.0f} MiB read + "
+              f"{mib:.0f} MiB written): kernel {ms:.4f} ms "
+              f"({2 * mib * 2**20 / ms / 1e6:.1f} GB/s), plain "
+              f"{plain_ms:.4f} ms [{card}]", flush=True)
+        if col == "doc":
+            out["gather_windows"] = dict(ms=ms, plain_ms=plain_ms,
+                                         max_abs_err=err)
     return out
+
+
+def wrapper_modules():
+    import importlib
+
+    return [importlib.import_module(m)
+            for m in dict.fromkeys(k["module"] for k in KERNELS)]
+
+
+def counted(label, fn):
+    """Run one path with every launch count set to 0 just before it;
+    returns (its result, the counts read just after)."""
+    import torch
+
+    mods = wrapper_modules()
+    for mod in mods:
+        mod.reset_launch_counts()
+    res = fn()
+    torch.cuda.synchronize()
+    counts = {name: n for mod in mods for name, n in mod.LAUNCHES.items()}
+    print(f"  kernel launches on the {label} path: {counts}", flush=True)
+    return res, counts
 
 
 def drive_main_path(idx, batches, n_docs, device, card, filter_seed=3):
@@ -364,6 +460,159 @@ def check_main_path(idx, run, n_docs):
     pv, pi, pc = run["single"]
     check_against_reference(refs, pv, pi, pc, "per-query")
     check_shared_vs_single(refs, vals, ids, pv, pi)
+    return refs, frefs
+
+
+def phase_bench(card):
+    """The window-scoring bench at its defaults: parity, then the times of
+    its three arms."""
+    import torch
+
+    from oramacore_tpu_torch.benches import pallas_bench as pb
+
+    ns, w, postings = 2048, 1024, 64 * 1024 * 1024
+    t0 = time.perf_counter()
+    d = pb.make_data(ns, w, postings, torch.device("cuda"))
+    torch.cuda.synchronize()
+    print(f"  data NS={ns} W={w} P={postings:,} "
+          f"({3 * (postings + w) * 4 / 2**30:.2f} GiB of slab) on the card: "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    try:
+        err = pb.check_parity(pb.run_arms(d))
+    except AssertionError as e:
+        raise SmokeFailure(f"bench parity: {e}") from e
+    print(f"  ok: bench parity: fused docs == 2-stage docs, fused ntf within "
+          f"rtol 1e-5 / atol 1e-6 (max abs err {err:.3g}), gathered docs == "
+          f"2-stage docs", flush=True)
+    times = pb.time_arms(d)
+    pb.report(d, times, card)
+    return times
+
+
+def sort_column(n_docs, seed=4):
+    """A number column: seeded integers 0..9,999 as f64 (values repeat, so
+    ties are real), 10% of docs without the field."""
+    rng = np.random.default_rng(seed)
+    return (rng.integers(0, 10_000, n_docs).astype(np.float64),
+            rng.random(n_docs) >= 0.1)
+
+
+def phase_sorted(idx, batches, refs, frefs, masks, n_docs, device, card):
+    """Fused sort-by: the batched route (SharedBatchExecutor, B=64, k=512,
+    desc) and single queries (StringSearchTopK: asc, and asc under a 50%
+    filter), held against the reference order."""
+    from oramacore_tpu_torch.index.plan import plan_query
+    from oramacore_tpu_torch.index.search_exec import (
+        SharedBatchExecutor,
+        StringSearchTopK,
+    )
+
+    vals, present = sort_column(n_docs)
+    key = ("svals", idx.uid, "price", 1)
+
+    def plans_of(qs):
+        return [plan_query(idx, q, ["body"], {}, use_champions=False)
+                for q in qs]
+
+    def sorted_run(ex, qs, desc, **kw):
+        plans = plans_of(qs)
+        t = time.perf_counter()
+        res = ex.search_topk_sorted(
+            idx, plans, [float(n_docs)] * len(plans), n_docs, SORT_K,
+            sort_vals=vals, sort_present=present, svals_key=key, desc=desc,
+            **kw)
+        return res, time.perf_counter() - t
+
+    shared = SharedBatchExecutor(device)
+    single = StringSearchTopK(device)
+
+    def drive():
+        out = {}
+        for i, qs in enumerate(batches[:3]):
+            out[f"batch{i}"] = sorted_run(shared, qs[:SORT_BATCH], True)
+        q = batches[0][:N_SORT_CHECKED]
+        out["asc"] = [sorted_run(single, [x], False) for x in q]
+        out["filtered"] = [sorted_run(single, [x], False, doc_masks=[m])
+                           for x, m in zip(q[:len(frefs)], masks)]
+        return out
+
+    out, launches = counted("sort-by", drive)
+    check(launches["score_ranges_accumulate"] > 0,
+          "the sort-by path launched score_ranges_accumulate")
+    ts = [out[f"batch{i}"][1] * 1e3 for i in range(3)]
+    print(f"  search_topk_sorted (SharedBatchExecutor) B={SORT_BATCH} "
+          f"k={SORT_K} desc: first {ts[0]:.1f} ms, then {ts[1]:.1f} / "
+          f"{ts[2]:.1f} ms on distinct batches [{card}]", flush=True)
+    asc = [t * 1e3 for _, t in out["asc"]]
+    filt = [t * 1e3 for _, t in out["filtered"]]
+    print(f"  search_topk_sorted (StringSearchTopK) B=1 k={SORT_K} asc: "
+          f"{', '.join(f'{t:.1f}' for t in asc)} ms; under a 50% filter: "
+          f"{', '.join(f'{t:.1f}' for t in filt)} ms [{card}]", flush=True)
+
+    (ranked, counts), _ = out["batch0"]
+    bad = []
+    for b, ref in enumerate(refs[:N_SORT_CHECKED]):
+        bad += [f"batched query {b}: {e}" for e in sorted_page_errors(
+            ranked[b], counts[b], ref, vals, present, True, SORT_K)]
+    for b, ((r, c), _) in enumerate(out["asc"]):
+        bad += [f"single query {b}: {e}" for e in sorted_page_errors(
+            r[0], c[0], refs[b], vals, present, False, SORT_K)]
+    for b, ((r, c), _) in enumerate(out["filtered"]):
+        bad += [f"filtered query {b}: {e}" for e in sorted_page_errors(
+            r[0], c[0], frefs[b], vals, present, False, SORT_K)]
+        if not all(masks[b][d] for d, _ in r[0]):
+            bad.append(f"filtered query {b}: a filtered-out doc was returned")
+    report_check(bad, f"sort-by pages (k={SORT_K}) equal the numpy reference "
+                      f"doc for doc, with exact counts: {N_SORT_CHECKED} "
+                      f"batched desc, {len(out['asc'])} single asc, "
+                      f"{len(out['filtered'])} filtered asc")
+    n_page = len(ranked[0])
+    check(n_page == min(SORT_K, len(refs[0])),
+          f"the first batched page holds {n_page} docs")
+
+
+def phase_grouped(idx, batches, refs, n_docs, device, card):
+    """Fused group-by at G=8 and G=64 (B=8, k=16, R=8), held against the
+    reference: main page and counts as on the main path, each group's page
+    by (score desc, doc asc) outside near-ties."""
+    from oramacore_tpu_torch.index.plan import plan_query
+    from oramacore_tpu_torch.index.search_exec import StringSearchTopK
+
+    ex = StringSearchTopK(device)
+    qs = batches[0][:GROUP_BATCH]
+    plans = [plan_query(idx, q, ["body"], {}, use_champions=False) for q in qs]
+    for G in (8, 64):
+        gid = np.random.default_rng(5 + G).integers(-1, G, n_docs).astype(np.int32)
+
+        def run(gid=gid, G=G):
+            t = time.perf_counter()
+            res = ex.search_topk_grouped(
+                idx, plans, [float(n_docs)] * len(plans), n_docs, GROUP_K,
+                gid_col=gid, gid_key=("gid", idx.uid, G), n_groups=G,
+                max_results=GROUP_R)
+            return res, time.perf_counter() - t
+
+        runs, launches = counted(f"group-by G={G}", lambda: [run(), run()])
+        check(launches["score_ranges_accumulate"] > 0,
+              f"the group-by path (G={G}) launched score_ranges_accumulate")
+        (vals, ids, counts, pages), t_first = runs[0]
+        print(f"  search_topk_grouped B={len(plans)} k={GROUP_K} "
+              f"R={GROUP_R} G={G}: first {t_first * 1e3:.1f} ms, again "
+              f"{runs[1][1] * 1e3:.1f} ms [{card}]", flush=True)
+        check(vals.shape == (len(plans), GROUP_K) and len(pages) == len(plans)
+              and all(len(p) == G for p in pages),
+              f"group-by G={G}: result shapes")
+        checked = refs[:N_SORT_CHECKED]
+        check_against_reference(checked, vals, ids, counts,
+                                f"group-by G={G} main page", k=GROUP_K)
+        bad = []
+        for b, ref in enumerate(checked):
+            bad += [f"query {b}: {e}" for e in
+                    group_page_errors(pages[b], ref, gid, GROUP_R)]
+        n_entries = sum(len(p) for b in range(len(checked)) for p in pages[b])
+        report_check(bad, f"group-by G={G}: {n_entries} group-page entries of "
+                          f"{len(checked)} queries equal the numpy reference "
+                          f"outside near-ties")
 
 
 def main() -> int:
@@ -375,8 +624,8 @@ def main() -> int:
               "needs an NVIDIA card", file=sys.stderr)
         return 1
     from oramacore_tpu_torch import require_cuda
+    from oramacore_tpu_torch.benches import card_line
     from oramacore_tpu_torch.ops import _build
-    from oramacore_tpu_torch.ops import score_windows as sw
 
     print("[1] device", flush=True)
     require_cuda()
@@ -389,15 +638,17 @@ def main() -> int:
 
     print("[2] build the kernels", flush=True)
     t0 = time.perf_counter()
-    sw.load_kernels()
-    seconds, log = _build.BUILD_LOG["score_windows"]
-    built = f"built by nvcc in {seconds:.1f} s" if log else \
-        "loaded from build/kernels/ (built earlier from the same sources)"
-    print(f"  score_windows.cu: {built}; ready in "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
-    for line in log.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"  ptxas: {line.strip()}", flush=True)
+    _build.load_all()
+    for mod in wrapper_modules():
+        mod.load_kernels()
+    for name, (seconds, log) in sorted(_build.BUILD_LOG.items()):
+        built = f"built by nvcc in {seconds:.1f} s" if log else \
+            "loaded from build/kernels/ (built earlier from the same sources)"
+        print(f"  {name}.cu: {built}", flush=True)
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  ptxas: {line.strip()}", flush=True)
+    print(f"  all kernels ready in {time.perf_counter() - t0:.1f} s", flush=True)
 
     print(f"[3] the {N_DOCS:,}-doc index (bench_bm25_1m)", flush=True)
     t0 = time.perf_counter()
@@ -416,29 +667,43 @@ def main() -> int:
     del slab
     torch.cuda.empty_cache()
 
+    path_launches = {}
     print("[5] the main path", flush=True)
     torch.cuda.reset_peak_memory_stats()
-    sw.reset_launch_counts()
-    run = drive_main_path(idx, batches, N_DOCS, device, card)
-    launches = dict(sw.LAUNCHES)
-    print(f"  kernel launches on the main path: {launches}; peak device "
-          f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
-          flush=True)
-    check(launches["score_ranges_accumulate"] > 0,
+    run, path_launches["main"] = counted(
+        "main", lambda: drive_main_path(idx, batches, N_DOCS, device, card))
+    print(f"  peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    check(path_launches["main"]["score_ranges_accumulate"] > 0,
           "the main path launched score_ranges_accumulate")
-    check_main_path(idx, run, N_DOCS)
+    refs, frefs = check_main_path(idx, run, N_DOCS)
+    torch.cuda.empty_cache()
 
-    t = timings["score_ranges_accumulate"]
+    print("[6] the window-scoring bench (benches/pallas_bench.py port)",
+          flush=True)
+    _, path_launches["bench"] = counted("bench", lambda: phase_bench(card))
+    for name in ("gather_windows", "score_windows"):
+        check(path_launches["bench"][name] > 0, f"the bench launched {name}")
+    torch.cuda.empty_cache()
+
+    print("[7] sort-by search", flush=True)
+    phase_sorted(idx, batches, refs, frefs, run["masks"][:len(frefs)],
+                 N_DOCS, device, card)
+    torch.cuda.empty_cache()
+
+    print("[8] group-by search", flush=True)
+    phase_grouped(idx, batches, refs, N_DOCS, device, card)
+
     kernels = {"kernels": [{
-        "name": "score_ranges_accumulate",
-        "route": "cuda",
-        "source": KERNEL_SOURCE,
-        "replaces": REPLACES,
-        "launches": launches["score_ranges_accumulate"],
-        "max_abs_err": t["max_abs_err"],
-        "ms": t["ms"],
-        "plain_ms": t["plain_ms"],
-    }]}
+        "name": k["name"],
+        "route": k["route"],
+        "source": k["source"],
+        "replaces": k["replaces"],
+        "launches": path_launches[k["path"]][k["name"]],
+        "max_abs_err": timings[k["name"]]["max_abs_err"],
+        "ms": timings[k["name"]]["ms"],
+        "plain_ms": timings[k["name"]]["plain_ms"],
+    } for k in KERNELS]}
     print(f"card: {card}")
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {

@@ -10,8 +10,12 @@ The host-side helpers (`host_bm25_reference`, `_PlanBatch`,
 `analyze_shared_batch`, `pack_shared_class`) are numpy code copied from
 the JAX module, whose import pulls in jax.
 
-Not ported yet: the sort-by, group-by, pruned and hybrid executors; the
-hybrid tails of `search_topk_shared` raise NotImplementedError.
+`StringSearchTopK` also runs the fused sort-by and group-by searches
+(`search_topk_sorted`, `search_topk_grouped`); `SharedBatchExecutor`
+inherits them, which is the read side's batched sorted route.
+
+Not ported yet: the pruned and hybrid executors; the hybrid tails of
+`search_topk_shared` raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -28,8 +32,11 @@ from oramacore_tpu.index.string_index import DEFAULT_B, QueryPlan, StringIndex
 from .. import resolve_device
 from ..ops.bm25 import (
     MAX_RANGE_LEN,
+    NEG_F32,
     PostingsDevice,
     bm25_score_batch,
+    bm25_search_grouped_packed,
+    bm25_search_sorted_packed,
     bm25_search_topk_packed,
     bm25_shared_champions,
     bm25_shared_champions_masked,
@@ -146,7 +153,7 @@ class StringSearchExecutor:
             self._to_dev(pb.starts), self._to_dev(pb.lens),
             self._to_dev(pb.weights), self._to_dev(pb.field_b),
             self._to_dev(pb.avg_flen), self._to_dev(pb.nd),
-            self._to_dev(pb.masks),
+            None if pb.masks is None else self._to_dev(pb.masks),
             lr=pb.LRb, exact=exact, cap=pb.capb,
         )
         return (
@@ -239,7 +246,11 @@ class _PlanBatch:
         self.field_b = np.full((Bb, Tb, NRb), 0.75, np.float32)
         self.avg_flen = np.ones((Bb, Tb, NRb), np.float32)
         self.nd = np.ones((Bb,), np.float32)
-        self.masks = np.ones((Bb, self.capb), bool)
+        # (Bb, capb) filter masks, built only when a query has one: at
+        # B=64, cap=2^20 an all-true array alone costs tens of ms of host
+        self.masks = None
+        if doc_masks is not None and any(m is not None for m in doc_masks):
+            self.masks = np.ones((Bb, self.capb), bool)
         # champion slots (heavy-term dense rows)
         self.has_champ = any(p.champ_idx is not None for p in plans)
         if self.has_champ:
@@ -366,9 +377,7 @@ class StringSearchTopK(StringSearchExecutor):
         if thresholds is not None:
             for i, t in enumerate(thresholds):
                 scalars[1, i] = t or 0.0
-        has_mask = doc_masks is not None and any(
-            m is not None for m in doc_masks
-        )
+        has_mask = pb.masks is not None
         has_omc = omc is not None
         omc_arr = (
             self._get_device_omc(omc, omc_key, pb.capb) if has_omc else None
@@ -401,6 +410,165 @@ class StringSearchTopK(StringSearchExecutor):
             masks = np.unpackbits(bits, axis=1)[:, :cap].astype(bool)
             return res + (masks,)
         return res
+
+    def _fused_args(self, index, plans, n_docs, cap, doc_masks, thresholds,
+                    omc, omc_key):
+        """Device arguments shared by the sort-by and group-by searches:
+        (plan batch, args before the column, has_mask, has_omc)."""
+        slab = self._get_device_slab(index)
+        pb = _PlanBatch(plans, n_docs, cap, doc_masks)
+        idesc = np.stack([pb.starts, pb.lens])
+        fdesc = np.stack([pb.weights, pb.field_b, pb.avg_flen])
+        scalars = np.stack([pb.nd, np.zeros((pb.starts.shape[0],), np.float32)])
+        if thresholds is not None:
+            for i, t in enumerate(thresholds):
+                scalars[1, i] = t or 0.0
+        has_mask = pb.masks is not None
+        has_omc = omc is not None
+        args = (
+            *slab,
+            self._to_dev(idesc), self._to_dev(fdesc), self._to_dev(scalars),
+            self._to_dev(pb.masks) if has_mask else None,
+            self._get_device_omc(omc, omc_key, pb.capb) if has_omc else None,
+        )
+        return pb, args, has_mask, has_omc
+
+    def _get_device_svals(self, vals: np.ndarray, present: np.ndarray,
+                          svals_key, capb: int):
+        """Sort column as f32[capb] on the device, NaN where the doc lacks
+        the field (and in the padding). Cached by the caller's version
+        key, so the column is uploaded once per mutation."""
+        key = (svals_key, capb) if svals_key is not None else None
+        if key is not None:
+            cached = self._fmask_dev.get(key)
+            if cached is not _MISS:
+                return cached
+        arr = np.full((capb,), np.nan, np.float32)
+        n = min(len(vals), capb)
+        arr[:n] = vals[:n].astype(np.float32)
+        arr[:n][~present[:n]] = np.nan
+        dev = self._to_dev(arr)
+        if key is not None:
+            dev = self._fmask_dev.put(key, dev)
+        return dev
+
+    def search_topk_sorted(
+        self,
+        index: StringIndex,
+        plans: Sequence[QueryPlan],
+        n_docs: Sequence[float],
+        cap: int,
+        k: int,
+        sort_vals: np.ndarray,      # f64[cap] column values
+        sort_present: np.ndarray,   # bool[cap]
+        svals_key,                  # device-cache key (None = no cache)
+        desc: bool,
+        exact: bool = False,
+        doc_masks: Optional[Sequence[Optional[np.ndarray]]] = None,
+        thresholds: Optional[Sequence[float]] = None,
+        omc: Optional[np.ndarray] = None,
+        omc_key=None,
+    ) -> Tuple[List[List[Tuple[int, float]]], np.ndarray]:
+        """Fused sort-by search (ops/bm25.py bm25_search_sorted_packed):
+        per query, a ranked [(doc, score)] list in sort-field order —
+        with-field matches by (value, doc), then fieldless matches by
+        doc — plus exact match counts. Plans come from
+        `plan_query(..., use_champions=False)`: no champion slot is read."""
+        pb, args, has_mask, has_omc = self._fused_args(
+            index, plans, n_docs, cap, doc_masks, thresholds, omc, omc_key
+        )
+        svals_dev = self._get_device_svals(
+            sort_vals, sort_present, svals_key, pb.capb
+        )
+        kb = min(round_up_pow2(k, 8), pb.capb)
+        docs1, vals1, sc1, docs2, ok2, sc2, counts = (
+            bm25_search_sorted_packed(
+                *args, svals_dev,
+                lr=pb.LRb, exact=exact, cap=pb.capb, k=kb,
+                has_mask=has_mask, has_omc=has_omc, desc=desc,
+            )
+        )
+        docs1, sc1, docs2, ok2, sc2 = (
+            t[: pb.B].cpu().numpy() for t in (docs1, sc1, docs2, ok2, sc2)
+        )
+        ok1 = vals1[: pb.B].cpu().numpy() > NEG_F32 / 2
+        ranked: List[List[Tuple[int, float]]] = []
+        for b in range(pb.B):
+            row = list(zip(docs1[b][ok1[b]].tolist(), sc1[b][ok1[b]].tolist()))
+            row += zip(docs2[b][ok2[b]].tolist(), sc2[b][ok2[b]].tolist())
+            ranked.append(row[:k])
+        return ranked, counts[: pb.B].cpu().numpy()
+
+    def _get_device_gid(self, ids: np.ndarray, gid_key, capb: int):
+        """Group-id column as int32[capb] on the device (-1 = doc lacks the
+        field, the padding included). Cached by the caller's version key."""
+        key = (gid_key, capb) if gid_key is not None else None
+        if key is not None:
+            cached = self._fmask_dev.get(key)
+            if cached is not _MISS:
+                return cached
+        arr = np.full((capb,), -1, np.int32)
+        n = min(len(ids), capb)
+        arr[:n] = ids[:n]
+        dev = self._to_dev(arr)
+        if key is not None:
+            dev = self._fmask_dev.put(key, dev)
+        return dev
+
+    def search_topk_grouped(
+        self,
+        index: StringIndex,
+        plans: Sequence[QueryPlan],
+        n_docs: Sequence[float],
+        cap: int,
+        k: int,
+        gid_col: np.ndarray,        # int32[cap] group ids (-1 = none)
+        gid_key,                    # device-cache key (None = no cache)
+        n_groups: int,
+        max_results: int,
+        exact: bool = False,
+        doc_masks: Optional[Sequence[Optional[np.ndarray]]] = None,
+        thresholds: Optional[Sequence[float]] = None,
+        omc: Optional[np.ndarray] = None,
+        omc_key=None,
+    ):
+        """Fused group-by search (ops/bm25.py bm25_search_grouped_packed):
+        per query, the main top-k page, the exact match count, and
+        per-group top-`max_results` [(doc, score)] pages. Returns
+        (vals, ids, counts, group_pages) with group_pages[b][g] a ranked
+        list for group id g < n_groups."""
+        pb, args, has_mask, has_omc = self._fused_args(
+            index, plans, n_docs, cap, doc_masks, thresholds, omc, omc_key
+        )
+        gid_dev = self._get_device_gid(gid_col, gid_key, pb.capb)
+        kb = min(round_up_pow2(k, 8), pb.capb)
+        Gb = round_up_pow2(max(n_groups, 1), 8)
+        Rb = min(round_up_pow2(max_results, 8), pb.capb)
+        vals, ids, counts, gvals, gdocs = bm25_search_grouped_packed(
+            *args, gid_dev,
+            lr=pb.LRb, exact=exact, cap=pb.capb, k=kb, R=Rb, G=Gb,
+            has_mask=has_mask, has_omc=has_omc,
+        )
+        gvals = gvals[: pb.B, :n_groups].cpu().numpy()
+        fin = np.isfinite(gvals).tolist()
+        gvals = gvals.tolist()
+        gdocs = gdocs[: pb.B, :n_groups].cpu().numpy().tolist()
+        group_pages = [
+            [
+                [
+                    (d, v) for d, v, f in zip(gdocs[b][g], gvals[b][g], fin[b][g])
+                    if f
+                ][:max_results]
+                for g in range(n_groups)
+            ]
+            for b in range(pb.B)
+        ]
+        return (
+            vals[: pb.B, :k].cpu().numpy(),
+            ids[: pb.B, :k].cpu().numpy(),
+            counts[: pb.B].cpu().numpy(),
+            group_pages,
+        )
 
 
 SHARED_LENGTH_CLASSES = (1024, 16384, 131072)

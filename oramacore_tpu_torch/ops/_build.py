@@ -9,7 +9,8 @@ no PyTorch header builds in seconds.
 Libraries go into `build/kernels/` at the root of the checkout, named by
 a hash of every file under `csrc/` and the compiler flags, so an edited
 source rebuilds and an unchanged one loads the cached library. A failed
-build raises; nothing falls back.
+build raises; nothing falls back. `load_all` runs one nvcc per source,
+all started together.
 """
 
 from __future__ import annotations
@@ -21,8 +22,9 @@ import shutil
 import subprocess
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Sequence
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -58,34 +60,50 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
+def _build_and_open(name: str) -> ctypes.CDLL:
+    source = CSRC / f"{name}.cu"
+    if not source.exists():
+        raise FileNotFoundError(source)
+    out = BUILD_DIR / f"lib{name}_{_digest()}.so"
+    seconds, log = 0.0, ""
+    if not out.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)],
+            capture_output=True, text=True,
+        )
+        seconds = time.perf_counter() - t0
+        log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}) on {source}:\n{log}"
+            )
+        os.replace(tmp, out)
+    lib = ctypes.CDLL(str(out))
+    BUILD_LOG[name] = (seconds, log)
+    return lib
+
+
+def load_many(names: Sequence[str]) -> Dict[str, ctypes.CDLL]:
+    """The compiled libraries of `csrc/<name>.cu` for each name; missing
+    ones are built in parallel, one nvcc process per source."""
+    with _lock:
+        todo = [n for n in dict.fromkeys(names) if n not in _libs]
+        if todo:
+            with ThreadPoolExecutor(max_workers=len(todo)) as pool:
+                for name, lib in zip(todo, pool.map(_build_and_open, todo)):
+                    _libs[name] = lib
+        return {n: _libs[n] for n in names}
+
+
 def load(name: str) -> ctypes.CDLL:
     """The compiled library of `csrc/<name>.cu`, built on first use."""
-    with _lock:
-        lib = _libs.get(name)
-        if lib is not None:
-            return lib
-        source = CSRC / f"{name}.cu"
-        if not source.exists():
-            raise FileNotFoundError(source)
-        out = BUILD_DIR / f"lib{name}_{_digest()}.so"
-        seconds, log = 0.0, ""
-        if not out.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-            t0 = time.perf_counter()
-            proc = subprocess.run(
-                [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)],
-                capture_output=True, text=True,
-            )
-            seconds = time.perf_counter() - t0
-            log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                tmp.unlink(missing_ok=True)
-                raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}) on {source}:\n{log}"
-                )
-            os.replace(tmp, out)
-        lib = ctypes.CDLL(str(out))
-        BUILD_LOG[name] = (seconds, log)
-        _libs[name] = lib
-        return lib
+    return load_many([name])[name]
+
+
+def load_all() -> Dict[str, ctypes.CDLL]:
+    """Build (in parallel) and load every source under `csrc/`."""
+    return load_many(sorted(f.stem for f in CSRC.glob("*.cu")))

@@ -32,7 +32,7 @@ import numpy as np
 import torch
 
 from .score_windows import score_ranges_accumulate
-from .vector import topk_2level
+from .vector import top_k_by_key, topk_2level
 
 K1 = 1.2  # reference k parameter (token_score.rs:283)
 
@@ -196,6 +196,111 @@ def bm25_search_topk_packed(
     if with_bitmap:
         return vals, idx, counts, _packbits(keep)
     return vals, idx, counts
+
+
+NEG_F32 = -3.0e38  # sentinel below any real f32 sort value
+
+
+def _score_keep(p_doc, p_tf, p_exact_tf, p_flen, idesc, fdesc, scalars,
+                doc_mask, omc, *, lr, exact, cap, has_mask, has_omc):
+    """Scoring + threshold of the sort-by / group-by searches: returns
+    (s = scores * omc, unmasked; keep bool[B, cap]; counts int32[B])."""
+    scores, matched = bm25_score_batch(
+        p_doc, p_tf, p_exact_tf, p_flen,
+        idesc[0], idesc[1], fdesc[0], fdesc[1], fdesc[2], scalars[0],
+        doc_mask if has_mask else None, lr=lr, exact=exact, cap=cap,
+    )
+    keep = (matched >= scalars[1][:, None]) & (scores > 0.0)
+    counts = keep.sum(dim=1, dtype=torch.int32)
+    s = scores * omc[None, :] if has_omc else scores
+    return s, keep, counts
+
+
+def bm25_search_sorted_packed(
+    p_doc, p_tf, p_exact_tf, p_flen,
+    idesc, fdesc, scalars,
+    doc_mask,            # bool[B, cap] (read only when has_mask)
+    omc,                 # f32[cap] (read only when has_omc)
+    svals,               # f32[cap] sort column (NaN = doc lacks it)
+    *,
+    lr: int, exact: bool, cap: int, k: int,
+    has_mask: bool, has_omc: bool, desc: bool,
+):
+    """Fused sort-by search: score + threshold + sort-field top-k.
+
+    Matched docs WITH the sort field come by (value asc|desc, doc asc),
+    then matched docs WITHOUT it by doc asc. Returns
+    (docs1, vals1, sc1, docs2, valid2, sc2, counts): the with-field page
+    (vals1 > NEG_F32/2 marks real entries), the fieldless page, and exact
+    match counts. sc1 / sc2 read `scores * omc`, which is not masked to
+    -inf here, as in the JAX function. `top_k_by_key` keeps `lax.top_k`'s
+    exact order, so the pages equal the JAX pages doc for doc."""
+    s, keep, counts = _score_keep(
+        p_doc, p_tf, p_exact_tf, p_flen, idesc, fdesc, scalars, doc_mask,
+        omc, lr=lr, exact=exact, cap=cap, has_mask=has_mask, has_omc=has_omc,
+    )
+    have = ~torch.isnan(svals)
+    key1 = torch.where(keep & have, svals if desc else -svals, NEG_F32)
+    vals1, docs1 = top_k_by_key(key1, k)
+    iota = torch.arange(cap, device=s.device, dtype=torch.float32)
+    key2 = torch.where(keep & ~have, -iota, NEG_F32)
+    vals2, docs2 = top_k_by_key(key2, k)
+    return (
+        docs1.to(torch.int32), vals1, s.gather(1, docs1),
+        docs2.to(torch.int32), vals2 > NEG_F32 / 2, s.gather(1, docs2),
+        counts,
+    )
+
+
+def bm25_search_grouped_packed(
+    p_doc, p_tf, p_exact_tf, p_flen,
+    idesc, fdesc, scalars,
+    doc_mask,            # bool[B, cap] (read only when has_mask)
+    omc,                 # f32[cap] (read only when has_omc)
+    gid,                 # int32[cap] group ids (-1 = doc lacks the field)
+    *,
+    lr: int, exact: bool, cap: int, k: int, R: int, G: int,
+    has_mask: bool, has_omc: bool,
+):
+    """Fused group-by search: score + threshold + main top-k + per-group
+    top-R pages. Returns (vals f32[B, k], idx int32[B, k], counts int32[B],
+    gvals f32[B, G, R], gdocs int32[B, G, R]).
+
+    Group g's page holds its kept docs by (score desc, doc asc); docs with
+    a group id outside [0, G) drop out; empty slots hold -inf and doc 0.
+    One design serves every G: the JAX function's 3-key sort on
+    (gid, -score, doc), built as two stable sorts (score, then gid) over
+    rows already in doc order, then a binary search of each group's run
+    start. The JAX package's masked scan for G <= 16 gives the same
+    finite entries (it leaves other doc ids beside -inf)."""
+    s, keep, counts = _score_keep(
+        p_doc, p_tf, p_exact_tf, p_flen, idesc, fdesc, scalars, doc_mask,
+        omc, lr=lr, exact=exact, cap=cap, has_mask=has_mask, has_omc=has_omc,
+    )
+    s = s.masked_fill(~keep, float("-inf"))
+    vals, idx = topk_2level(s, k)
+    B = s.shape[0]
+    in_group = keep & (gid >= 0) & (gid < G)
+    gidk = torch.where(in_group, gid, G)
+    # lax.sort takes -0.0 == +0.0; a radix sort on the card would not
+    neg = torch.where(in_group, -s, float("inf"))
+    neg.masked_fill_(neg == 0, 0.0)
+    by_score = torch.sort(neg, dim=1, stable=True).indices
+    g_sorted, by_gid = torch.sort(gidk.gather(1, by_score), dim=1, stable=True)
+    order = by_score.gather(1, by_gid)   # docs in (gid, -score, doc) order
+    bounds = torch.searchsorted(
+        g_sorted,
+        torch.arange(G + 1, device=s.device, dtype=torch.int32)
+        .expand(B, G + 1).contiguous(),
+    )                                    # run starts of groups 0..G
+    page = bounds[:, :G, None] + torch.arange(R, device=s.device)
+    in_run = page < bounds[:, 1:, None]
+    docs = order.gather(1, page.clamp(max=cap - 1).view(B, G * R)).view(B, G, R)
+    gvals = torch.where(
+        in_run, s.gather(1, docs.view(B, G * R)).view(B, G, R), float("-inf")
+    )
+    gdocs = torch.where(in_run, docs, 0).to(torch.int32)
+    return vals, idx, counts, gvals, gdocs
 
 
 # ---------------------------------------------------------------------------

@@ -35,6 +35,27 @@ _NO_JAX_SCRIPT = textwrap.dedent("""
     v1, i1, _ = ex.search_topk(idx, plans, [200.0, 200.0], 200, 5)
     v2, i2, _ = ex.search_topk_shared(idx, qs, ["body"], {}, 200.0, 200, 5)
     assert np.allclose(v1, v2, rtol=1e-5) and v1[0, 0] > 0
+    ranked, _ = ex.search_topk_sorted(
+        idx, plans, [200.0, 200.0], 200, 5, sort_vals=np.arange(200.0),
+        sort_present=np.ones(200, bool), svals_key=None, desc=True)
+    docs = [d for d, _ in ranked[0]]
+    assert len(docs) == 5 and docs == sorted(docs, reverse=True)
+    _, _, _, pages = ex.search_topk_grouped(
+        idx, plans, [200.0, 200.0], 200, 5, gid_col=np.arange(200) % 3,
+        gid_key=None, n_groups=3, max_results=2)
+    assert len(pages[0]) == 3
+
+    import torch
+    from oramacore_tpu_torch.benches import pallas_bench
+    from oramacore_tpu_torch.ops.gather_windows import gather_windows
+    src = torch.arange(4096, dtype=torch.int32)
+    out = gather_windows(src, torch.tensor([1024], dtype=torch.int32), w=1024)
+    assert out[0, 0].item() == 1024
+    d = pallas_bench.make_data(4, 1024, 4096, "cpu")
+    pallas_bench.check_parity(pallas_bench.run_arms(d))
+    for name in ("oramacore_tpu_torch.ops.gather_windows",
+                 "oramacore_tpu_torch.benches.pallas_bench"):
+        assert name in sys.modules, name
     leaked = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
     assert not leaked, leaked
     print("NO_JAX_OK")
@@ -88,3 +109,64 @@ def test_kernel_wrapper_refuses_mixed_devices():
             torch.zeros(8, device=dev), torch.zeros(1, dtype=torch.int32),
             torch.zeros((1, 4)), w=4,
         )
+
+
+def _ported_rows_of_perf_md():
+    """Entry points of the rows marked "ported" in PERF.md's kernel table
+    (the table whose header names "Entry point")."""
+    import re
+
+    names, in_table = set(), False
+    with open(os.path.join(REPO, "PERF.md")) as f:
+        for line in f:
+            if not line.startswith("|"):
+                in_table = False
+                continue
+            cells = [c.strip() for c in line.strip().strip("|").split("|")]
+            if "Entry point" in line:
+                in_table = True
+                status_col = next(i for i, c in enumerate(cells)
+                                  if c.startswith("Status"))
+                continue
+            if in_table and cells[status_col].startswith("ported"):
+                names.add(re.search(r"`(\w+)`", cells[1]).group(1))
+    return names
+
+
+def test_kernel_table_covers_every_wrapper_and_perf_row():
+    """chip_smoke.py's table of kernels (which builds its `kernels` line)
+    names every counted entry point of every wrapper, every "ported" row
+    of PERF.md's kernel table, and every TPU kernel of the JAX package."""
+    import importlib
+    import pkgutil
+
+    import chip_smoke
+    import oramacore_tpu_torch.ops as ops
+
+    table = {k["name"]: k for k in chip_smoke.KERNELS}
+    assert len(table) == len(chip_smoke.KERNELS)
+    counted = {}
+    for m in pkgutil.iter_modules(ops.__path__, "oramacore_tpu_torch.ops."):
+        mod = importlib.import_module(m.name)
+        for name in getattr(mod, "LAUNCHES", {}):
+            counted[name] = m.name
+    assert set(table) == set(counted)
+    assert set(table) == _ported_rows_of_perf_md()
+    replaced = set()
+    for name, k in table.items():
+        assert k["module"] == counted[name], name
+        assert k["route"] in ("cuda", "triton")
+        assert os.path.isfile(os.path.join(REPO, k["source"])), k["source"]
+        path, line = k["replaces"].rsplit(":", 1)
+        with open(os.path.join(REPO, path)) as f:
+            text = f.read()
+        assert "pl.pallas_call" in text, path
+        assert text.splitlines()[int(line) - 1].startswith("def "), k["replaces"]
+        replaced.add(path)
+    pallas_files = set()
+    for root, _, files in os.walk(os.path.join(REPO, "oramacore_tpu")):
+        for fn in files:
+            full = os.path.join(root, fn)
+            if fn.endswith(".py") and "pl.pallas_call(" in open(full).read():
+                pallas_files.add(os.path.relpath(full, REPO))
+    assert pallas_files and pallas_files <= replaced, pallas_files - replaced
