@@ -20,9 +20,20 @@ launch counts set to 0 just before it and read just after:
   that runs `gather_windows` and `score_windows`;
 - the fused sort-by search (`search_topk_sorted`, batched B=64 with k=512
   and single queries) and group-by search (`search_topk_grouped`, B=8,
-  G=8 and G=64) on the same 1M-doc index.
+  G=8 and G=64) on the same 1M-doc index;
+- vector search on the repo's 1M-vector configuration
+  (`benches/scale_bench.py`, `bench_vector_1m`: 1,000,000 rows x 384,
+  seed 0, B=64, k=10): `VectorIndex.search_many` and `search` over the
+  flat bf16 slab, then over the int8 IVF layout that `_build_ivf` makes
+  (1,000 centroids, window 2048, nprobe 32);
+- fused hybrid search on the 1M-doc index with row i of that matrix as
+  doc i's vector: `HybridSearchTopK.search_topk_hybrid` (B=8, plain,
+  filtered, OMC + match bitmap), `search_topk_hybrid_int8` (B=8,
+  champion plans) and both hybrid tails of `search_topk_shared` (B=1024).
 
-Search results are held against the numpy reference scorer.
+Search results are held against numpy references: the BM25 reference
+scorer, bf16-rounded vector products summed in f32, a numpy copy of the
+IVF probe scan, and min-max fusion.
 
 Progress goes to stdout. The second-to-last line is a JSON object with
 one entry per kernel; the last line is `{"ok": true, "device": {...}}`.
@@ -58,6 +69,20 @@ GROUP_BATCH = 8
 GROUP_K = 16
 GROUP_R = 8
 N_SORT_CHECKED = 4  # queries of each new path held against the reference
+
+# bench_vector_1m (benches/scale_bench.py:108); 384 is the width of the
+# default embedding model builtin-minihash-384
+VEC_ROWS = 1_000_000
+VEC_DIM = 384
+VEC_BATCH = 64
+VEC_STEADY = 3      # distinct steady batches after the first
+N_VEC_CHECKED = 8   # queries held against the numpy reference
+VEC_TIE = 1e-5      # |score difference| below which two rows are near-tied
+HYBRID_BATCH = 8
+HYBRID_SIM = 0.1
+HYBRID_COS = 0.8    # cosine of each hybrid query vector to its source doc
+N_HYBRID_CHECKED = 4
+NEG_INF = -1e30
 
 # Every ported kernel entry point: its wrapper module, the CUDA source, the
 # TPU kernel it replaces, and the path whose run gives its launch count.
@@ -615,6 +640,427 @@ def phase_grouped(idx, batches, refs, n_docs, device, card):
                           f"outside near-ties")
 
 
+# ---------------------------------------------------------------------------
+# vector and hybrid phases
+# ---------------------------------------------------------------------------
+
+def bf16_round(x):
+    """f32 -> bf16 (round to nearest even) -> f32, in numpy."""
+    b = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    b = (b + np.uint32(0x7FFF) + ((b >> 16) & np.uint32(1))) & np.uint32(0xFFFF0000)
+    return b.view(np.float32)
+
+
+def vector_corpus(n, dim, n_batches, batch, seed=0):
+    """bench_vector_1m's data: rows drawn normal and L2-normalized, then
+    query batches from the same generator."""
+    from oramacore_tpu_torch.ops.vector import l2_normalize
+
+    rng = np.random.default_rng(seed)
+    vecs = l2_normalize(rng.normal(size=(n, dim)).astype(np.float32))
+    batches = [l2_normalize(rng.normal(size=(batch, dim)).astype(np.float32))
+               for _ in range(n_batches)]
+    return vecs, batches
+
+
+def profile_once(label, fn, card):
+    """One call under torch.profiler: wall time, device kernel time, idle
+    share and the largest kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3
+    kernels = [
+        (getattr(e, "self_device_time_total", 0) / 1e3, e.count, e.key)
+        for e in prof.key_averages() if str(e.device_type).endswith("CUDA")
+    ]
+    dev = sum(ms for ms, _, _ in kernels)
+    print(f"  profile, {label}: wall {wall:.2f} ms, device kernels {dev:.2f} ms, "
+          f"idle {max(0.0, 1 - dev / wall) * 100:.0f}% [{card}]", flush=True)
+    for ms, count, key in sorted(kernels, reverse=True)[:6]:
+        print(f"    {ms:9.3f} ms x{count:<5} {key[:100]}", flush=True)
+
+
+def top_hits(hits, k):
+    """A result dict's top-k as (ids, scores), by (score desc, doc asc)."""
+    top = sorted(hits.items(), key=lambda kv: (-kv[1], kv[0]))[:k]
+    return [d for d, _ in top], np.array([s for _, s in top], np.float64)
+
+
+def vector_top_errors(hits, ref, k=K, rtol=1e-4):
+    """One vector query's top-k against a dense reference score row (the
+    best score per doc, -inf where none): scores within rtol, ids equal
+    outside near-ties (reference scores within VEC_TIE)."""
+    ids, got = top_hits(hits, k)
+    ref_ids = np.argsort(-ref, kind="stable")[:k]
+    errs = []
+    if len(ids) != k:
+        errs.append(f"{len(ids)} hits, want {k}")
+    elif not np.allclose(got, ref[ref_ids], rtol=rtol, atol=0):
+        errs.append(f"scores {got} vs {ref[ref_ids]}")
+    for i, (d, r) in enumerate(zip(ids, ref_ids)):
+        if d != r and abs(ref[d] - ref[r]) > VEC_TIE:
+            errs.append(f"rank {i}: doc {d} ({ref[d]}) vs doc {r} ({ref[r]})")
+    return errs
+
+
+def filtered_searches(vidx, targets, mask, label, card):
+    """One single-target search per target under one filter mask, timed;
+    returns the first one's hits."""
+    hits, ms = [], []
+    for target in targets:
+        t = time.perf_counter()
+        hits.append(vidx.search([target], limit=K, similarity=-1.0,
+                                filter_mask=mask))
+        ms.append((time.perf_counter() - t) * 1e3)
+    print(f"  {label}search, one target, 50% filter: first {ms[0]:.1f} ms, "
+          f"again (another target) {ms[1]:.1f} ms [{card}]", flush=True)
+    return hits[0]
+
+
+def phase_flat(vidx, vb16, batches, device, card):
+    """Flat vector search: search_many (B=64, the batched route), search
+    with the 64 targets in one call, one filtered single-target search;
+    each held against bf16 products summed in f32 on the host."""
+    from oramacore_tpu_torch.ops.vector import l2_normalize
+
+    n = len(vb16)
+    t = time.perf_counter()
+    vidx.flat_device_rows()
+    sync(device)
+    print(f"  bf16 slab of {n:,} x {vb16.shape[1]} to the device: "
+          f"{time.perf_counter() - t:.2f} s", flush=True)
+
+    def many(qs):
+        t = time.perf_counter()
+        res = vidx.search_many(qs, limit=K, similarities=[-1.0] * len(qs))
+        return res, time.perf_counter() - t
+
+    first, first_s = many(batches[0])
+    steady = [many(qs)[1] for qs in batches[1:]]
+    B = len(batches[0])
+    print(f"  search_many B={B} k={K}: first {first_s * 1e3:.1f} ms; steady "
+          f"{', '.join(f'{s * 1e3:.1f}' for s in steady)} ms, "
+          f"{B / np.mean(steady):.1f} QPS [{card}]", flush=True)
+    times, multi = [], []
+    for qs in batches[:2]:
+        t = time.perf_counter()
+        multi.append(vidx.search(list(qs), limit=K, similarity=-1.0))
+        times.append(time.perf_counter() - t)
+    print(f"  search with {B} targets in one call: first {times[0] * 1e3:.1f} "
+          f"ms, again {times[1] * 1e3:.1f} ms [{card}]", flush=True)
+    mask = np.random.default_rng(6).random(n) < 0.5
+    filtered = filtered_searches(vidx, batches[0][:2], mask, "", card)
+    profile_once(f"search_many B={B}", lambda: many(batches[1]), card)
+
+    q = bf16_round(l2_normalize(batches[0]))
+    ref = vb16 @ q.T                                   # (n, B) f32
+    bad = []
+    for b in range(N_VEC_CHECKED):
+        bad += [f"search_many query {b}: {e}"
+                for e in vector_top_errors(first[b], ref[:, b])]
+    bad += [f"{B} targets: {e}" for e in
+            vector_top_errors(multi[0], ref.max(axis=1))]
+    bad += [f"filtered: {e}" for e in
+            vector_top_errors(filtered, np.where(mask, ref[:, 0], -np.inf))]
+    report_check(bad, f"flat vector top-{K} of {N_VEC_CHECKED} queries, of the "
+                      f"{B}-target call and of the filtered call equal the "
+                      f"numpy reference outside near-ties (|dscore| <= {VEC_TIE})")
+    return ref[:, :N_VEC_CHECKED]
+
+
+def numpy_probe(q, lay, nprobe, k, doc_mask=None):
+    """The IVF probe scan in numpy: bf16 centroid dots pick nprobe units
+    (ties: lower unit first), each unit's window (start clamped to
+    N - window) is scored as scale * dot(bf16(q), int8 row), and one
+    stable top-k over [k empty slots, windows in probe order] keeps k.
+    Returns (vals, rows, kth value, whether the nprobe-th unit is
+    near-tied with the next, all scanned (vals, rows))."""
+    qb = bf16_round(q)
+    cs = lay["cen_b16"] @ qb
+    order = np.argsort(-cs, kind="stable")
+    tie = nprobe < len(cs) and cs[order[nprobe - 1]] - cs[order[nprobe]] <= VEC_TIE
+    n, w = len(lay["q"]), lay["window"]
+    starts = np.minimum(lay["unit_starts"][order[:nprobe]].astype(np.int64), n - w)
+    rows = (starts[:, None] + np.arange(w)).reshape(-1)
+    sc = lay["scales"][rows]
+    s = (lay["q"][rows].astype(np.float32) @ qb) * sc
+    keep = sc > 0
+    if doc_mask is not None:
+        keep &= doc_mask[np.clip(lay["docs"][rows], 0, len(doc_mask) - 1)]
+    s = np.where(keep, s, np.float32(NEG_INF)).astype(np.float32)
+    cat_v = np.concatenate([np.full(k, NEG_INF, np.float32), s])
+    cat_r = np.concatenate([np.full(k, -1), rows])
+    sel = np.argsort(-cat_v, kind="stable")[:k]
+    return cat_v[sel], cat_r[sel], cat_v[sel[-1]], tie, (s, rows)
+
+
+def phase_ivf(vidx, vecs, batches, flat_ref, device, card):
+    """The IVF int8 tier: _build_ivf on the same index, search_many B=64
+    and a filtered search, held against numpy_probe + the f32 rerank on
+    the port's own layout; recall@10 against exact search as information."""
+    from oramacore_tpu_torch.index import vector_index as vi
+    from oramacore_tpu_torch.ops.vector import l2_normalize
+
+    t = time.perf_counter()
+    vidx._build_ivf()
+    sync(device)
+    lay = dict(vidx._ivf)
+    n_units = len(lay["unit_starts"])
+    print(f"  _build_ivf: {time.perf_counter() - t:.2f} s ({n_units} probe units "
+          f"of window {lay['window']}) [{card}]", flush=True)
+    t = time.perf_counter()
+    vidx.int8_device_rows()
+    sync(device)
+    print(f"  int8 layout to the device: {time.perf_counter() - t:.2f} s",
+          flush=True)
+    nprobe = min(vi.IVF_NPROBE, n_units)
+
+    def many(qs):
+        t = time.perf_counter()
+        res = vidx.search_many(qs, limit=K, similarities=[-1.0] * len(qs))
+        return res, time.perf_counter() - t
+
+    first, first_s = many(batches[0])
+    steady = [many(qs)[1] for qs in batches[1:]]
+    B = len(batches[0])
+    print(f"  IVF search_many B={B} k={K} nprobe={nprobe}: first "
+          f"{first_s * 1e3:.1f} ms; steady "
+          f"{', '.join(f'{s * 1e3:.1f}' for s in steady)} ms, "
+          f"{B / np.mean(steady):.1f} QPS [{card}]", flush=True)
+    mask = np.random.default_rng(7).random(len(vecs)) < 0.5
+    filtered = filtered_searches(vidx, batches[0][:2], mask, "IVF ", card)
+    profile_once(f"IVF search_many B={B}", lambda: many(batches[1]), card)
+
+    lay["cen_b16"] = bf16_round(lay["unit_cen"])
+    k = min(vi.round_up_pow2(max(K * 4, 16), 16), len(lay["q"]))
+    qs = l2_normalize(batches[0])
+    bad, recalls = [], []
+
+    def reranked(q, doc_mask=None):
+        vals, rows, _, tie, _ = numpy_probe(q, lay, nprobe, k, doc_mask)
+        ref = np.full(len(vecs), -np.inf)
+        ok = (rows >= 0) & (vals > -1e29)
+        scores = vecs[lay["perm"][rows[ok]]] @ q
+        np.maximum.at(ref, lay["docs"][rows[ok]], scores)
+        return ref, tie
+
+    for b in range(N_VEC_CHECKED):
+        ref, tie = reranked(qs[b])
+        errs = vector_top_errors(first[b], ref)
+        bad += [f"query {b}{' (probe near-tie)' if tie else ''}: {e}" for e in errs]
+        exact = set(np.argsort(-flat_ref[:, b], kind="stable")[:K].tolist())
+        recalls.append(len(exact & set(top_hits(first[b], K)[0])) / K)
+    ref, _ = reranked(qs[0], mask)
+    bad += [f"filtered: {e}" for e in vector_top_errors(filtered, ref)]
+    report_check(bad, f"IVF top-{K} of {N_VEC_CHECKED} queries and of the "
+                      f"filtered call equal a numpy probe + f32 rerank of the "
+                      f"same layout outside near-ties")
+    print(f"  IVF recall@{K} against exact flat search (information, not a "
+          f"gate; the rows are uniform, so clusters do not fit them): "
+          f"{np.mean(recalls):.3f}", flush=True)
+    return lay, nprobe
+
+
+def hybrid_vectors(vecs, n, seed=8):
+    """n query vectors, each a seeded perturbation of a random doc's
+    vector with a cosine of about HYBRID_COS to it, normalized."""
+    from oramacore_tpu_torch.ops.vector import l2_normalize
+
+    rng = np.random.default_rng(seed)
+    d = vecs.shape[1]
+    sigma = np.sqrt(1 / HYBRID_COS ** 2 - 1) / np.sqrt(d)
+    src = vecs[rng.integers(0, len(vecs), n)]
+    return l2_normalize(src + sigma * rng.normal(size=src.shape)).astype(np.float32)
+
+
+def dense_scores(ref, n):
+    """A {doc: score} of the reference scorer as a dense f64 row (0 = no
+    match; reference scores are positive)."""
+    out = np.zeros(n)
+    out[np.fromiter(ref.keys(), np.int64, len(ref))] = np.fromiter(
+        ref.values(), np.float64, len(ref))
+    return out
+
+
+def fused_reference(bm25, vec, maybe, mask=None, omc=None):
+    """Min-max fusion of one query in float64, dense over the docs: bm25
+    the reference scorer's scores (already filtered), vec the vector
+    scores (0 = no hit), maybe the docs whose vector hit is a near-tie.
+    Returns (fused, -inf where no match; present; maybe docs)."""
+    if mask is not None:
+        vec = np.where(mask, vec, 0.0)
+    present = (bm25 > 0) | (vec > 0)
+    hi = max(float(bm25.max()), float(vec.max()))
+    fused = (bm25 + vec) / (hi if hi > 0 else 1.0)
+    if omc is not None:
+        fused = fused * omc
+    maybe = {d for d in maybe if bm25[d] == 0 and (mask is None or mask[d])}
+    return np.where(present, fused, -np.inf), present, maybe
+
+
+def hybrid_errors(out, refs, label, bitmap=None):
+    """top-k ids / scores outside near-ties, and match counts (and match
+    bitmaps) within the near-tied vector hits."""
+    vals, ids, counts = out[:3]
+    bad = []
+    for b, (fused, present, maybe) in enumerate(refs):
+        ref_ids = np.argsort(-fused, kind="stable")[:min(K, int(present.sum()))]
+        score_of = {int(d): float(fused[d]) for d in ids[b]
+                    if 0 <= d < len(fused) and present[d]}
+        errs = topk_errors(ids[b], vals[b], ref_ids, fused[ref_ids], score_of)
+        near = np.zeros(len(fused), bool)
+        near[list(maybe)] = True
+        sure = present & ~near
+        n_sure = int(sure.sum())
+        if not n_sure <= counts[b] <= n_sure + len(maybe):
+            errs.append(f"match count {counts[b]} vs {n_sure} "
+                        f"(+{len(maybe)} near-tied)")
+        if bitmap is not None:
+            got = bitmap[b][:len(fused)]
+            if not ((got | ~sure).all() and (~got | present | near).all()
+                    and got.sum() == counts[b]):
+                errs.append("match bitmap differs from the reference set")
+        bad += [f"{label} query {b}: {e}" for e in errs]
+    return bad
+
+
+def phase_hybrid(idx, vec_rows, lay, nprobe, vecs, vb16, batches, refs,
+                 frefs, masks, n_docs, device, card):
+    """Fused hybrid on the 1M-doc index (doc i's vector is row i): the
+    single-batch executors over the flat slab and the IVF layout, and both
+    tails of the shared batch path; launch counts per path. The BM25 side
+    of the checks reuses phase 5's reference scores (refs unfiltered,
+    frefs under masks[:len(frefs)])."""
+    import torch
+
+    from oramacore_tpu_torch.index.plan import plan_query
+    from oramacore_tpu_torch.index.search_exec import (
+        HYBRID_INT8_CANDIDATES,
+        HybridSearchTopK,
+        SharedBatchExecutor,
+        _ivf_candidates,
+    )
+
+    flat_rows, int8_rows = vec_rows
+    B = len(batches[0])
+    qv = hybrid_vectors(vecs, B)
+    toks = batches[0][:HYBRID_BATCH]
+    nd = [float(n_docs)] * HYBRID_BATCH
+    sims = [HYBRID_SIM] * HYBRID_BATCH
+    omc = np.random.default_rng(9).uniform(0.5, 2.0, n_docs).astype(np.float32)
+    ex = HybridSearchTopK(device)
+    shared = SharedBatchExecutor(device)
+    plans = [plan_query(idx, q, ["body"], {}, use_champions=False) for q in toks]
+    cplans = [plan_query(idx, q, ["body"], {}, use_champions=True) for q in toks]
+    fmasks = list(masks[:HYBRID_BATCH])
+
+    def timed(fn):
+        t = time.perf_counter()
+        res = fn()
+        return res, (time.perf_counter() - t) * 1e3
+
+    paths = {
+        "hybrid flat": lambda: ex.search_topk_hybrid(
+            idx, plans, nd, n_docs, K, flat_rows, qv[:HYBRID_BATCH], sims),
+        "hybrid flat, 50% filter": lambda: ex.search_topk_hybrid(
+            idx, plans, nd, n_docs, K, flat_rows, qv[:HYBRID_BATCH], sims,
+            doc_masks=fmasks),
+        "hybrid flat, OMC + bitmap": lambda: ex.search_topk_hybrid(
+            idx, plans, nd, n_docs, K, flat_rows, qv[:HYBRID_BATCH], sims,
+            omc=omc, omc_key=("omc", idx.uid, 1), with_bitmap=True),
+        "hybrid int8, champion plans": lambda: ex.search_topk_hybrid_int8(
+            idx, cplans, nd, n_docs, K, int8_rows, qv[:HYBRID_BATCH], sims),
+        f"shared B={B}, flat tail": lambda: shared.search_topk_shared(
+            idx, batches[0], ["body"], {}, float(n_docs), n_docs, K,
+            vec_rows=flat_rows, queries=qv, similarities=[HYBRID_SIM] * B),
+        f"shared B={B}, int8 tail": lambda: shared.search_topk_shared(
+            idx, batches[0], ["body"], {}, float(n_docs), n_docs, K,
+            vec_rows_int8=int8_rows, queries=qv, similarities=[HYBRID_SIM] * B),
+    }
+    out = {}
+    for label, fn in paths.items():
+        torch.cuda.reset_peak_memory_stats()
+        runs, launches = counted(label, lambda fn=fn: [timed(fn), timed(fn)])
+        out[label] = runs[0][0]
+        check(launches["score_ranges_accumulate"] > 0,
+              f"the {label} path launched score_ranges_accumulate")
+        print(f"  {label}: first {runs[0][1]:.1f} ms, again {runs[1][1]:.1f} ms; "
+              f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+              f"GiB [{card}]", flush=True)
+    for label in ("hybrid flat", "hybrid int8, champion plans",
+                  f"shared B={B}, flat tail", f"shared B={B}, int8 tail"):
+        profile_once(label, paths[label], card)
+
+    # numpy references of N_HYBRID_CHECKED queries
+    t0 = time.perf_counter()
+    nq = N_HYBRID_CHECKED
+    sims_ref = vb16 @ bf16_round(qv[:nq]).T            # (n_docs, nq)
+
+    def flat_vec(b):
+        s = sims_ref[:, b]
+        return (np.where(s >= HYBRID_SIM, s, 0.0),
+                set(np.nonzero(np.abs(s - HYBRID_SIM) <= VEC_TIE)[0].tolist()))
+
+    def int8_vec(b, doc_mask=None):
+        V = _ivf_candidates(HYBRID_INT8_CANDIDATES, len(lay["q"]))
+        vals, rows, kth, tie, (s_all, r_all) = numpy_probe(
+            qv[b], lay, nprobe, V, doc_mask)
+        vec = np.zeros(n_docs)
+        ok = (rows >= 0) & (vals >= HYBRID_SIM) & (vals > NEG_INF / 2)
+        np.maximum.at(vec, lay["docs"][rows[ok]], vals[ok])
+        edge = (np.abs(s_all - kth) <= VEC_TIE) & (kth > NEG_INF / 2)
+        near = np.abs(vals - HYBRID_SIM) <= VEC_TIE
+        maybe = set(lay["docs"][r_all[edge]].tolist())
+        maybe |= set(lay["docs"][rows[near & (rows >= 0)]].tolist())
+        if tie:
+            print(f"  note: query {b} has a near-tied probe unit", flush=True)
+        return vec, maybe
+
+    def refs_of(vec_of, bm25, mask_of=lambda b: None, omc_=None):
+        out_ = []
+        for b, bm25_b in enumerate(bm25):
+            vec, maybe = vec_of(b)
+            out_.append(fused_reference(bm25_b, vec, maybe, mask_of(b), omc_))
+        return out_
+
+    frefs = [dense_scores(r, n_docs) for r in frefs[:nq]]
+    refs = [dense_scores(r, n_docs) for r in refs[:nq]]
+    flat_refs = refs_of(flat_vec, refs)
+    bad = hybrid_errors(out["hybrid flat"], flat_refs, "hybrid flat")
+    bad += hybrid_errors(
+        out["hybrid flat, 50% filter"],
+        refs_of(flat_vec, frefs, lambda b: fmasks[b]), "hybrid filtered")
+    omc_out = out["hybrid flat, OMC + bitmap"]
+    bad += hybrid_errors(omc_out, refs_of(flat_vec, refs, omc_=omc),
+                         "hybrid OMC", bitmap=omc_out[3])
+    int8_refs = refs_of(int8_vec, refs)
+    bad += hybrid_errors(out["hybrid int8, champion plans"], int8_refs,
+                         "hybrid int8")
+    bad += hybrid_errors(out[f"shared B={B}, flat tail"], flat_refs,
+                         "shared flat tail")
+    bad += hybrid_errors(out[f"shared B={B}, int8 tail"], int8_refs,
+                         "shared int8 tail")
+    print(f"  numpy hybrid references: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    report_check(bad, f"hybrid top-{K}, match counts and the match bitmap of "
+                      f"{nq} queries on each of the {len(paths)} paths "
+                      f"({len(frefs)} on the filtered one) equal the numpy "
+                      f"reference outside near-ties")
+
+
+def sync(device):
+    import torch
+
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+
+
 def main() -> int:
     sys.path.insert(0, ROOT)
     import torch
@@ -693,6 +1139,37 @@ def main() -> int:
 
     print("[8] group-by search", flush=True)
     phase_grouped(idx, batches, refs, N_DOCS, device, card)
+    torch.cuda.empty_cache()
+
+    print(f"[9] flat vector search, {VEC_ROWS:,} x {VEC_DIM} (bench_vector_1m)",
+          flush=True)
+    from oramacore_tpu_torch.index.vector_index import (
+        VectorIndex,
+        VectorIndexConfig,
+    )
+
+    t0 = time.perf_counter()
+    vecs, vbatches = vector_corpus(VEC_ROWS, VEC_DIM, 1 + VEC_STEADY, VEC_BATCH)
+    vb16 = bf16_round(vecs)
+    print(f"  host data: {time.perf_counter() - t0:.1f} s", flush=True)
+    vidx = VectorIndex(VectorIndexConfig(dim=VEC_DIM), device)
+    vidx._committed_matrix = vecs   # as bench_vector_1m fills its index
+    vidx._committed_docs = np.arange(VEC_ROWS, dtype=np.int32)
+    vidx._gen += 1
+    torch.cuda.reset_peak_memory_stats()
+    flat_ref = phase_flat(vidx, vb16, vbatches, device, card)
+    flat_rows = vidx.flat_device_rows()
+    print(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+          f"GiB", flush=True)
+
+    print("[10] IVF int8 vector search on the same index", flush=True)
+    lay, nprobe = phase_ivf(vidx, vecs, vbatches, flat_ref, device, card)
+    int8_rows = vidx.int8_device_rows()
+
+    print("[11] hybrid search: the 1M-doc index, doc i's vector is row i",
+          flush=True)
+    phase_hybrid(idx, (flat_rows, int8_rows), lay, nprobe, vecs, vb16,
+                 batches, refs, frefs, run["masks"], N_DOCS, device, card)
 
     kernels = {"kernels": [{
         "name": k["name"],

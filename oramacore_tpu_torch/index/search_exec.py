@@ -14,8 +14,15 @@ the JAX module, whose import pulls in jax.
 (`search_topk_sorted`, `search_topk_grouped`); `SharedBatchExecutor`
 inherits them, which is the read side's batched sorted route.
 
-Not ported yet: the pruned and hybrid executors; the hybrid tails of
-`search_topk_shared` raise NotImplementedError.
+`HybridSearchTopK` runs the fused hybrid (BM25F + vector) search over a
+flat vector slab (`search_topk_hybrid`) or the int8 IVF layout
+(`search_topk_hybrid_int8`), from the tuples of
+`index/vector_index.py`'s `flat_device_rows` / `int8_device_rows`.
+`SharedBatchExecutor.search_topk_shared` takes the same tuples
+(`vec_rows`, `vec_rows_int8`) for its batched hybrid tails.
+
+Not ported yet: the pruned executors (`PrunedPlanMixin`, and with it
+`search_topk_hybrid_int8_pruned`).
 """
 
 from __future__ import annotations
@@ -45,6 +52,14 @@ from ..ops.bm25 import (
     finalize_topk,
     round_up_pow2,
 )
+from ..ops.hybrid import (
+    hybrid_finalize_topk,
+    hybrid_finalize_topk_int8,
+    hybrid_search_topk_packed,
+    hybrid_search_topk_packed_int8,
+)
+
+HYBRID_INT8_CANDIDATES = 256  # V: IVF candidate rows per hybrid query
 
 _MISS = object()
 
@@ -368,36 +383,34 @@ class StringSearchTopK(StringSearchExecutor):
         omc_key=None,                                  # cache key (version)
         with_bitmap: bool = False,                     # + packed match bits
     ) -> Tuple[np.ndarray, ...]:
-        slab = self._get_device_slab(index)
-        pb = _PlanBatch(plans, n_docs, cap, doc_masks)
-        Bb = pb.starts.shape[0]
-        idesc = np.stack([pb.starts, pb.lens])
-        fdesc = np.stack([pb.weights, pb.field_b, pb.avg_flen])
-        scalars = np.stack([pb.nd, np.zeros((Bb,), np.float32)])
-        if thresholds is not None:
-            for i, t in enumerate(thresholds):
-                scalars[1, i] = t or 0.0
-        has_mask = pb.masks is not None
-        has_omc = omc is not None
-        omc_arr = (
-            self._get_device_omc(omc, omc_key, pb.capb) if has_omc else None
+        pb, args, has_mask, has_omc = self._fused_args(
+            index, plans, n_docs, cap, doc_masks, thresholds, omc, omc_key
         )
-        kb = min(round_up_pow2(k, 8), pb.capb)
+        champs_dev, ch_idx, ch_w = self._champ_args(index, pb)
+        out = bm25_search_topk_packed(
+            *args, champs_dev, ch_idx, ch_w,
+            lr=pb.LRb, exact=exact, cap=pb.capb,
+            k=min(round_up_pow2(k, 8), pb.capb),
+            has_mask=has_mask, has_omc=has_omc,
+            has_champ=champs_dev is not None, with_bitmap=with_bitmap,
+        )
+        return self._results(out, pb, k, cap, with_bitmap)
+
+    def _champ_args(self, index, pb):
+        """(champion rows, per-slot rows, weights) on the device, or three
+        Nones when no plan has a champion slot or the index has no
+        champion rows."""
         champs_dev = (
             self._get_device_champs(index, pb.capb) if pb.has_champ else None
         )
-        has_champ = champs_dev is not None
-        out = bm25_search_topk_packed(
-            *slab,
-            self._to_dev(idesc), self._to_dev(fdesc), self._to_dev(scalars),
-            self._to_dev(pb.masks) if has_mask else None, omc_arr,
-            champs_dev,
-            self._to_dev(pb.ch_idx) if has_champ else None,
-            self._to_dev(pb.ch_w) if has_champ else None,
-            lr=pb.LRb, exact=exact, cap=pb.capb, k=kb,
-            has_mask=has_mask, has_omc=has_omc, has_champ=has_champ,
-            with_bitmap=with_bitmap,
-        )
+        if champs_dev is None:
+            return None, None, None
+        return champs_dev, self._to_dev(pb.ch_idx), self._to_dev(pb.ch_w)
+
+    @staticmethod
+    def _results(out, pb, k: int, cap: int, with_bitmap: bool):
+        """(vals, ids, counts) of the B real queries as numpy; with_bitmap
+        appends the packed match set unpacked to bool[B, cap]."""
         vals, idx, counts = out[:3]
         res = (
             vals[: pb.B, :k].cpu().numpy(),
@@ -405,24 +418,28 @@ class StringSearchTopK(StringSearchExecutor):
             counts[: pb.B].cpu().numpy(),
         )
         if with_bitmap:
-            # packed match set: unpack host-side to bool[cap] per query
             bits = out[3][: pb.B].cpu().numpy()
-            masks = np.unpackbits(bits, axis=1)[:, :cap].astype(bool)
-            return res + (masks,)
+            return res + (np.unpackbits(bits, axis=1)[:, :cap].astype(bool),)
         return res
 
     def _fused_args(self, index, plans, n_docs, cap, doc_masks, thresholds,
-                    omc, omc_key):
-        """Device arguments shared by the sort-by and group-by searches:
-        (plan batch, args before the column, has_mask, has_omc)."""
+                    omc, omc_key, similarities=None):
+        """Device arguments shared by the fused searches: (plan batch,
+        (*slab, idesc, fdesc, scalars, mask, omc), has_mask, has_omc). The
+        scalars hold n_docs and thresholds, then the similarities of the
+        hybrid searches when given."""
         slab = self._get_device_slab(index)
         pb = _PlanBatch(plans, n_docs, cap, doc_masks)
         idesc = np.stack([pb.starts, pb.lens])
         fdesc = np.stack([pb.weights, pb.field_b, pb.avg_flen])
-        scalars = np.stack([pb.nd, np.zeros((pb.starts.shape[0],), np.float32)])
+        rows = 2 if similarities is None else 3
+        scalars = np.zeros((rows, pb.starts.shape[0]), np.float32)
+        scalars[0] = pb.nd
         if thresholds is not None:
             for i, t in enumerate(thresholds):
                 scalars[1, i] = t or 0.0
+        if similarities is not None:
+            scalars[2, : len(similarities)] = similarities
         has_mask = pb.masks is not None
         has_omc = omc is not None
         args = (
@@ -569,6 +586,108 @@ class StringSearchTopK(StringSearchExecutor):
             counts[: pb.B].cpu().numpy(),
             group_pages,
         )
+
+
+def _rescale_kw(rescale: Optional[Tuple[float, float]]) -> dict:
+    return dict(
+        has_rescale=rescale is not None,
+        rescale_lo=float(rescale[0]) if rescale else 0.0,
+        rescale_hi=float(rescale[1]) if rescale else 1.0,
+    )
+
+
+def _ivf_candidates(candidates: Optional[int], n_rows: int) -> int:
+    """V, the IVF candidate rows a hybrid query keeps."""
+    return round_up_pow2(
+        min(candidates or HYBRID_INT8_CANDIDATES, n_rows), 8
+    )
+
+
+class HybridSearchTopK(StringSearchTopK):
+    """Fused hybrid: BM25F + vector similarities + min-max fusion +
+    threshold + OMC + top-k on the device; only (B, k) values / ids (and
+    counts, and optionally the packed match set) come back."""
+
+    def _query_rows(self, queries: np.ndarray, pb) -> torch.Tensor:
+        """The query vectors on the device, padded to the plan batch."""
+        q = np.zeros((pb.starts.shape[0], queries.shape[1]), np.float32)
+        q[: len(queries)] = queries
+        return self._to_dev(q)
+
+    def search_topk_hybrid(
+        self,
+        index: StringIndex,
+        plans: Sequence[QueryPlan],
+        n_docs: Sequence[float],
+        cap: int,
+        k: int,
+        vec_rows,                 # VectorIndex.flat_device_rows() tuple
+        queries: np.ndarray,      # f32[B, dim] L2-normalized query vectors
+        similarities: Sequence[float],
+        exact: bool = False,
+        doc_masks: Optional[Sequence[Optional[np.ndarray]]] = None,
+        thresholds: Optional[Sequence[float]] = None,
+        omc: Optional[np.ndarray] = None,
+        omc_key=None,
+        rescale: Optional[Tuple[float, float]] = None,
+        with_bitmap: bool = False,
+    ) -> Tuple[np.ndarray, ...]:
+        """Fused hybrid over the flat bf16 vector slab. Champion slots of
+        the plans are not read (the read side plans this path ranged)."""
+        pb, args, has_mask, has_omc = self._fused_args(
+            index, plans, n_docs, cap, doc_masks, thresholds, omc, omc_key,
+            similarities,
+        )
+        out = hybrid_search_topk_packed(
+            *args[:7], *vec_rows, self._query_rows(queries, pb), *args[7:],
+            lr=pb.LRb, exact=exact, cap=pb.capb,
+            k=min(round_up_pow2(k, 8), pb.capb),
+            has_mask=has_mask, has_omc=has_omc, with_bitmap=with_bitmap,
+            **_rescale_kw(rescale),
+        )
+        return self._results(out, pb, k, cap, with_bitmap)
+
+    def search_topk_hybrid_int8(
+        self,
+        index: StringIndex,
+        plans: Sequence[QueryPlan],
+        n_docs: Sequence[float],
+        cap: int,
+        k: int,
+        vec_int8,                 # VectorIndex.int8_device_rows() tuple
+        queries: np.ndarray,      # f32[B, dim] L2-normalized query vectors
+        similarities: Sequence[float],
+        exact: bool = False,
+        doc_masks: Optional[Sequence[Optional[np.ndarray]]] = None,
+        thresholds: Optional[Sequence[float]] = None,
+        omc: Optional[np.ndarray] = None,
+        omc_key=None,
+        rescale: Optional[Tuple[float, float]] = None,
+        candidates: Optional[int] = None,  # V rows per query (default 256)
+        with_bitmap: bool = False,
+    ) -> Tuple[np.ndarray, ...]:
+        """Fused hybrid over the int8/IVF vector layout: the vector side
+        probes the top-nprobe cluster units for top-V candidate rows,
+        scatter-maxed onto the dense doc space. Champion slots of the
+        plans replace heavy terms' posting scans."""
+        pb, args, has_mask, has_omc = self._fused_args(
+            index, plans, n_docs, cap, doc_masks, thresholds, omc, omc_key,
+            similarities,
+        )
+        *layout, window, nprobe = vec_int8
+        champs_dev, ch_idx, ch_w = self._champ_args(index, pb)
+        out = hybrid_search_topk_packed_int8(
+            *args[:7], *layout, self._query_rows(queries, pb), *args[7:],
+            champs_dev, ch_idx, ch_w,
+            lr=pb.LRb, exact=exact, cap=pb.capb,
+            k=min(round_up_pow2(k, 8), pb.capb),
+            V=_ivf_candidates(candidates, int(layout[0].shape[0])),
+            nprobe=nprobe, window=window,
+            has_mask=has_mask, has_omc=has_omc,
+            has_champ=champs_dev is not None,
+            with_bitmap=with_bitmap, **_rescale_kw(rescale),
+        )
+        return self._results(out, pb, k, cap, with_bitmap)
 
 
 SHARED_LENGTH_CLASSES = (1024, 16384, 131072)
@@ -731,18 +850,14 @@ class SharedBatchExecutor(StringSearchTopK):
         field_params: Optional[Dict[str, Tuple[float, float]]] = None,
         omc: Optional[np.ndarray] = None,
         omc_key=None,
-        vec_rows=None,                 # hybrid tail: not ported yet
-        queries: Optional[np.ndarray] = None,
+        vec_rows=None,                 # hybrid: flat_device_rows() tuple
+        queries: Optional[np.ndarray] = None,   # hybrid: f32[B, dim]
         similarities: Optional[Sequence[float]] = None,
         rescale: Optional[Tuple[float, float]] = None,
-        vec_rows_int8=None,            # hybrid tail: not ported yet
-        candidates: Optional[int] = None,
+        vec_rows_int8=None,            # hybrid: int8_device_rows() tuple
+        candidates: Optional[int] = None,       # int8 tail: V per query
         token_weight_of: Optional[Dict[str, float]] = None,
     ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
-        if vec_rows is not None or vec_rows_int8 is not None:
-            raise NotImplementedError(
-                "hybrid tails of search_topk_shared are not ported yet"
-            )
         slab = self._get_device_slab(index)
         capb = round_up_pow2(cap, 128)
         nd = max(float(n_docs), 1.0)
@@ -819,14 +934,38 @@ class SharedBatchExecutor(StringSearchTopK):
         if thresholds is not None:
             for i, t in enumerate(thresholds):
                 thr[i] = t or 0.0
-        if omc is not None:
+        has_omc = omc is not None
+        if has_omc:
             omc_dev = self._get_device_omc(omc, omc_key, capb)
         else:
             omc_dev = torch.ones((capb,), dtype=torch.float32, device=self.device)
         kb = min(round_up_pow2(k, 8), capb)
-        vals, idx, counts = finalize_topk(
-            scores, matched, self._to_dev(thr), omc_dev, k=kb
-        )
+        if vec_rows_int8 is not None or vec_rows is not None:
+            # batched-hybrid tail: vector side + min-max fusion + OMC +
+            # top-k (ops/hybrid.py)
+            tail = (scores, matched, self._to_dev(thr))
+            q_sim = (
+                self._to_dev(np.asarray(queries, np.float32)),
+                self._to_dev(np.asarray(similarities, np.float32)),
+                mask_dev, omc_dev,
+            )
+            kw = dict(cap=capb, k=kb, has_mask=has_masks, has_omc=has_omc,
+                      **_rescale_kw(rescale))
+            if vec_rows_int8 is not None:
+                *layout, window, nprobe = vec_rows_int8
+                vals, idx, counts = hybrid_finalize_topk_int8(
+                    *tail, *layout, *q_sim,
+                    V=_ivf_candidates(candidates, int(layout[0].shape[0])),
+                    nprobe=nprobe, window=window, **kw,
+                )
+            else:
+                vals, idx, counts = hybrid_finalize_topk(
+                    *tail, *vec_rows, *q_sim, **kw,
+                )
+        else:
+            vals, idx, counts = finalize_topk(
+                scores, matched, self._to_dev(thr), omc_dev, k=kb
+            )
         return (
             vals[:, :k].cpu().numpy(),
             idx[:, :k].cpu().numpy(),

@@ -205,3 +205,128 @@ def test_sorted_and_grouped_searches_on_the_card_equal_the_cpu(cuda, desc):
     fin = torch.isfinite(cpu[10])
     assert torch.equal(torch.isfinite(card[10]), fin)
     assert torch.equal(card[11][fin], cpu[11][fin])
+
+
+def _near_tie_ok(vals, ids, evals, eids, rtol=1e-5):
+    """ids equal except where a value ties a neighbour's (or is last)."""
+    vals, evals = np.asarray(vals), np.asarray(evals)
+    np.testing.assert_allclose(vals, evals, rtol=rtol, atol=1e-5)
+    k = vals.shape[1]
+    for b in range(vals.shape[0]):
+        for i in np.nonzero(np.asarray(ids)[b] != np.asarray(eids)[b])[0]:
+            assert i == k - 1 or any(
+                abs(evals[b, i] - evals[b, j]) <= rtol * abs(evals[b, i])
+                for j in (i - 1, i + 1) if 0 <= j < k), (b, i)
+
+
+def _unit(rng, n, d):
+    x = rng.normal(size=(n, d)).astype(np.float32)
+    return x / np.linalg.norm(x, axis=1, keepdims=True)
+
+
+def _on(dev, *arrays):
+    return [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in arrays]
+
+
+def _both_devices(cuda, fn, *arrays):
+    """fn on the CPU and on the card, from the same numpy inputs; outputs
+    as CPU tensors."""
+    outs = []
+    for dev in ("cpu", cuda):
+        out = fn(*_on(dev, *arrays))
+        outs.append([o.cpu() for o in (out if isinstance(out, tuple) else (out,))])
+    return outs
+
+
+def test_vector_scans_on_the_card_equal_the_cpu(cuda):
+    """Flat bf16 and IVF int8 scans at 64k rows x 384: the card's f32
+    products (TF32 off) agree with the CPU's within f32 rounding."""
+    from oramacore_tpu_torch.ops import vector as tv
+
+    rng = np.random.default_rng(20)
+    N, D, B, k, cap = 1 << 16, 384, 16, 64, 60_000
+    rows = _unit(rng, N, D)
+    q = _unit(rng, B, D)
+    valid = rng.random(N) < 0.95
+    cpu, card = _both_devices(
+        cuda, lambda q, m, v: tv.flat_cosine_topk(
+            q, m.to(torch.bfloat16), v, k=k, chunk=16384), q, rows, valid)
+    _near_tie_ok(card[0], card[1], cpu[0], cpu[1])
+    q8, sc = (t.numpy() for t in tv.quantize_rows_int8(torch.from_numpy(rows)))
+    starts = np.sort(rng.choice(N - 2048, 64, replace=False)).astype(np.int32)
+    cen = _unit(rng, 64, D)
+    doc = rng.integers(0, cap, N).astype(np.int32)
+    mask = rng.random((B, cap)) < 0.5
+    cpu, card = _both_devices(
+        cuda, lambda *a: tv.ivf_int8_topk_masked(
+            *a, k=k, nprobe=8, window=2048, has_mask=True),
+        q, q8, sc, doc, cen, starts, mask)
+    _near_tie_ok(card[0], card[1], cpu[0], cpu[1])
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_hybrid_on_the_card_equals_the_cpu(cuda, int8):
+    """The fused hybrid search (the score_ranges_accumulate kernel on the
+    card, the plain version on the CPU) and the shared tails."""
+    from oramacore_tpu_torch.ops import hybrid as th
+    from oramacore_tpu_torch.ops import vector as tv
+
+    args, _, _, lr, cap = _search_inputs(21)
+    B = args[6].shape[1]
+    rng = np.random.default_rng(22)
+    n_rows, D = 40_000, 64
+    rows = _unit(rng, n_rows, D)
+    doc = rng.integers(0, cap, n_rows).astype(np.int32)
+    q = _unit(rng, B, D)
+    sim = np.full(B, 0.1, np.float32)
+    scalars = np.concatenate([args[6], sim[None]]).astype(np.float32)
+    omc = rng.uniform(0.5, 2, cap).astype(np.float32)
+    kw = dict(exact=False, cap=cap, k=16, has_mask=True, has_omc=True,
+              has_rescale=False, rescale_lo=0.0, rescale_hi=1.0,
+              with_bitmap=True)
+    if int8:
+        q8, sc = (t.numpy() for t in tv.quantize_rows_int8(torch.from_numpy(rows)))
+        starts = np.sort(rng.choice(n_rows - 1, 32, replace=False)).astype(np.int32)
+        vec = (q8, sc, doc, _unit(rng, 32, D), starts)
+        fn = lambda *a: th.hybrid_search_topk_packed_int8(  # noqa: E731
+            *a, lr=lr, V=128, nprobe=6, window=1024, **kw)
+    else:
+        valid = rng.random(n_rows) < 0.97
+        vec = (rows, doc, valid)
+        fn = lambda *a: th.hybrid_search_topk_packed(  # noqa: E731
+            *a[:7], a[7].to(torch.bfloat16), *a[8:], lr=lr, **kw)
+    cpu, card = _both_devices(cuda, fn, *args[:6], scalars, *vec, q,
+                              args[7], omc)
+    _near_tie_ok(card[0], card[1], cpu[0], cpu[1])
+    assert torch.equal(card[2], cpu[2]) and torch.equal(card[3], cpu[3])
+    assert cpu[2].min() > 0
+
+
+def test_vector_index_ivf_build_on_the_card_equals_the_cpu(cuda):
+    """k-means on the card (index_add_ atomics) against the CPU build:
+    centroids within atol 1e-4, the same searches."""
+    from oramacore_tpu_torch.index.vector_index import (
+        VectorIndex,
+        VectorIndexConfig,
+    )
+
+    rng = np.random.default_rng(23)
+    centers = _unit(rng, 40, 64)
+    vecs = centers[rng.integers(0, 40, 20_000)]
+    vecs = vecs + 0.15 * rng.normal(size=vecs.shape).astype(np.float32)
+    out = {}
+    for dev in ("cpu", cuda):
+        vidx = VectorIndex(VectorIndexConfig(dim=64), dev)
+        for d in range(len(vecs)):
+            vidx.insert(d, [vecs[d]])
+        vidx.commit()
+        flat = vidx.search([vecs[3], vecs[9]], limit=10, similarity=0.0)
+        vidx._build_ivf()
+        out[str(dev)] = (vidx._ivf, flat,
+                         vidx.search([vecs[3]], limit=10, similarity=0.0))
+    (ci, cf, cs), (gi, gf, gs) = out["cpu"], out[str(cuda)]
+    np.testing.assert_allclose(gi["unit_cen"], ci["unit_cen"], atol=1e-4)
+    np.testing.assert_array_equal(gi["perm"], ci["perm"])
+    for got, exp in ((gf, cf), (gs, cs)):
+        assert set(got) == set(exp)
+        assert all(abs(got[d] - exp[d]) <= 1e-5 for d in exp)

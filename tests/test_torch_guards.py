@@ -53,9 +53,35 @@ _NO_JAX_SCRIPT = textwrap.dedent("""
     assert out[0, 0].item() == 1024
     d = pallas_bench.make_data(4, 1024, 4096, "cpu")
     pallas_bench.check_parity(pallas_bench.run_arms(d))
+
+    from oramacore_tpu_torch.index.search_exec import HybridSearchTopK
+    from oramacore_tpu_torch.index.vector_index import (
+        VectorIndex, VectorIndexConfig)
+    vecs = rng.normal(size=(200, 16)).astype(np.float32)
+    vidx = VectorIndex(VectorIndexConfig(dim=16), "cpu")
+    for d in range(200):
+        vidx.insert(d, [vecs[d]])
+    vidx.commit()
+    assert 5 in vidx.search([vecs[5]], limit=3, similarity=0.0)   # flat
+    flat = vidx.flat_device_rows()
+    vidx._build_ivf()
+    assert 5 in vidx.search([vecs[5]], limit=3, similarity=0.0)   # IVF
+    q = vecs[:2] / np.linalg.norm(vecs[:2], axis=1, keepdims=True)
+    hv, hi, _ = HybridSearchTopK("cpu").search_topk_hybrid(
+        idx, plans, [200.0, 200.0], 200, 5, flat, q, [0.1, 0.1])
+    assert hv[0, 0] > 0
+    for tail in (dict(vec_rows=flat), dict(vec_rows_int8=vidx.int8_device_rows())):
+        sv, si, _ = ex.search_topk_shared(idx, qs, ["body"], {}, 200.0, 200, 5,
+                                          queries=q, similarities=[0.1, 0.1], **tail)
+        assert sv[0, 0] > 0
     for name in ("oramacore_tpu_torch.ops.gather_windows",
-                 "oramacore_tpu_torch.benches.pallas_bench"):
+                 "oramacore_tpu_torch.benches.pallas_bench",
+                 "oramacore_tpu_torch.ops.hybrid",
+                 "oramacore_tpu_torch.index.vector_index"):
         assert name in sys.modules, name
+    leaked = sorted(m for m in sys.modules
+                    if m.split(".")[0] in ("aiohttp", "msgpack"))
+    assert not leaked, leaked
     leaked = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
     assert not leaked, leaked
     print("NO_JAX_OK")
@@ -78,25 +104,41 @@ def test_cuda_executor_without_cuda_raises():
         pytest.skip("this host has CUDA; the guard is for hosts without it")
     from oramacore_tpu_torch import require_cuda
     from oramacore_tpu_torch.index.search_exec import (
+        HybridSearchTopK,
         SharedBatchExecutor,
         StringSearchExecutor,
         StringSearchTopK,
     )
+    from oramacore_tpu_torch.index.vector_index import (
+        VectorIndex,
+        VectorIndexConfig,
+    )
 
-    for cls in (StringSearchExecutor, StringSearchTopK, SharedBatchExecutor):
+    for cls in (StringSearchExecutor, StringSearchTopK, SharedBatchExecutor,
+                HybridSearchTopK):
         with pytest.raises(RuntimeError, match="CUDA"):
             cls("cuda")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        VectorIndex(VectorIndexConfig(dim=8), "cuda")
     with pytest.raises(RuntimeError, match="CUDA"):
         require_cuda()
 
 
 def test_executor_needs_an_explicit_device():
     from oramacore_tpu_torch.index.search_exec import SharedBatchExecutor
+    from oramacore_tpu_torch.index.vector_index import (
+        VectorIndex,
+        VectorIndexConfig,
+    )
 
     with pytest.raises(TypeError):
         SharedBatchExecutor()  # no "CUDA if present, else CPU" default
     with pytest.raises(ValueError):
         SharedBatchExecutor("meta")
+    with pytest.raises(TypeError):
+        VectorIndex(VectorIndexConfig(dim=8))
+    with pytest.raises(ValueError):
+        VectorIndex(VectorIndexConfig(dim=8), "meta")
 
 
 def test_kernel_wrapper_refuses_mixed_devices():

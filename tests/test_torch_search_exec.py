@@ -202,8 +202,26 @@ def test_slab_cache_keys_on_uid_and_generation():
 
 
 def test_hybrid_tails_are_not_ported(index):
-    with pytest.raises(NotImplementedError):
-        texec.SharedBatchExecutor("cpu").search_topk_shared(
-            index, [["w1"]], PROPS, {}, float(N_DOCS), N_DOCS, 5,
-            vec_rows=object(),
+    """Both hybrid tails of search_topk_shared run (tests/test_torch_hybrid.py
+    holds them against the JAX package): a query with no text match and
+    doc 7's vector finds doc 7 first, at the fused maximum 1.0."""
+    from oramacore_tpu_torch.index.vector_index import (
+        VectorIndex,
+        VectorIndexConfig,
+    )
+
+    vecs = np.random.default_rng(11).normal(size=(1000, 32)).astype(np.float32)
+    vidx = VectorIndex(VectorIndexConfig(dim=32), "cpu")
+    for d in range(1000):
+        vidx.insert(d, [vecs[d]])
+    vidx.commit()
+    tails = {"vec_rows": vidx.flat_device_rows()}
+    vidx._build_ivf()
+    tails["vec_rows_int8"] = vidx.int8_device_rows()
+    for name, rows in tails.items():
+        v, i, c = texec.SharedBatchExecutor("cpu").search_topk_shared(
+            index, [["nosuchword"]], PROPS, {}, float(N_DOCS), N_DOCS, 5,
+            queries=vecs[7:8] / np.linalg.norm(vecs[7]), similarities=[0.1],
+            **{name: rows},
         )
+        assert i[0, 0] == 7 and v[0, 0] == 1.0 and c[0] > 1, name
