@@ -5,7 +5,11 @@
 
 Builds the port's CUDA kernels from `oramacore_tpu_torch/ops/csrc/` into
 `build/kernels/` (one nvcc per source, in parallel), checks each kernel
-against its plain PyTorch version on the card, then drives the port's
+against its plain PyTorch version on the card and times it beside its
+bound (bytes over 3.35 TB/s) and a PyTorch call that computes the same
+function where there is one; `score_ranges_accumulate` runs the recorded
+launches of one steady B=1024 batch of the main path and the cases of
+`oramacore_tpu_torch/benches/ranges_bench.py`. Then it drives the port's
 paths through the entry points a user calls, each with the kernels'
 launch counts set to 0 just before it and read just after:
 
@@ -110,63 +114,6 @@ def check(cond: bool, what: str) -> None:
     if not cond:
         raise SmokeFailure(what)
     print(f"  ok: {what}", flush=True)
-
-
-# ---------------------------------------------------------------------------
-# data (numpy, seeded)
-# ---------------------------------------------------------------------------
-
-def synth_corpus_postings(n_docs, vocab, postings_per_doc, seed=0):
-    """Synthetic postings with a zipf-ish term distribution, packed CSR
-    (a copy of benches/scale_bench.py:20-37)."""
-    rng = np.random.default_rng(seed)
-    # term frequencies ~ zipf: term t has weight 1/(t+1)
-    weights = 1.0 / np.arange(1, vocab + 1)
-    weights /= weights.sum()
-    terms = rng.choice(vocab, size=n_docs * postings_per_doc, p=weights)
-    docs = np.repeat(np.arange(n_docs, dtype=np.int32), postings_per_doc)
-    # sort by term -> CSR
-    order = np.argsort(terms, kind="stable")
-    terms_s, docs_s = terms[order], docs[order]
-    starts = np.searchsorted(terms_s, np.arange(vocab))
-    lens = np.diff(np.append(starts, len(terms_s))).astype(np.int32)
-    tf = rng.integers(1, 4, len(docs_s)).astype(np.float32)
-    flen = np.full(len(docs_s), float(postings_per_doc), np.float32)
-    return docs_s.astype(np.int32), tf, flen, starts.astype(np.int64), lens
-
-
-def build_index(n_docs, vocab, postings_per_doc, seed=0):
-    """One committed segment of field "body", as benches/scale_bench.py
-    builds it; the slab build gives the heaviest terms champion rows."""
-    from oramacore_tpu.index.string_index import (
-        FieldStats,
-        StringIndex,
-        _CommittedField,
-    )
-
-    docs, tf, flen, starts, lens = synth_corpus_postings(
-        n_docs, vocab, postings_per_doc, seed
-    )
-    idx = StringIndex()
-    idx._committed["body"] = [_CommittedField(
-        terms=[f"t{i}" for i in range(vocab)],
-        starts=starts, lens=lens,
-        doc=docs, tf=tf, exact_tf=tf, flen=flen,
-        stats=FieldStats(doc_count=n_docs, sum_len=float(flen.sum())),
-    )]
-    idx._stats["body"] = FieldStats(n_docs, float(flen.sum()))
-    idx.slab_split()
-    return idx
-
-
-def make_batches(n_batches, batch, seed=1):
-    """Queries of 2-4 zipf-drawn tokens (scale_bench's token law)."""
-    rng = np.random.default_rng(seed)
-    return [
-        [[f"t{int(rng.zipf(1.3)) + 10}" for _ in range(int(rng.integers(2, 5)))]
-         for _ in range(batch)]
-        for _ in range(n_batches)
-    ]
 
 
 # ---------------------------------------------------------------------------
@@ -281,11 +228,32 @@ def group_page_errors(pages, ref, gid, R):
 # phases
 # ---------------------------------------------------------------------------
 
-def phase_kernels(slab, card):
-    """Each kernel against its plain version at the main path's shapes."""
+def time_cold(fn_of, start_sets, reps):
+    """Device ms per launch of `fn_of(starts)`, by one CUDA graph over
+    distinct sets of window starts, so no launch finds its windows in the
+    50 MB L2 left there by the one before."""
+    from oramacore_tpu_torch.benches import time_graph
+
+    return time_graph(lambda: [fn_of(s) for s in start_sets], reps) / len(
+        start_sets)
+
+
+def share(name, ms, bound, by, card):
+    print(f"  {name}: {100 * bound / ms:.1f}% of its bound ({ms:.4f} ms "
+          f"against {bound:.4f} ms, bound by {by}) [{card}]", flush=True)
+
+
+def phase_kernels(idx, batches, slab, card):
+    """Each kernel against its plain version at the main path's shapes,
+    timed beside its bound and, where one PyTorch call computes the same
+    function, that call. score_ranges_accumulate runs the launches of one
+    steady B=1024 search_topk_shared batch as recorded, chip_smoke's
+    earlier synthetic shape, R=1024 rows and edge cases
+    (benches/ranges_bench.py)."""
     import torch
 
-    from oramacore_tpu_torch.benches import time_cuda
+    from oramacore_tpu_torch.benches import bound_ms, time_cuda
+    from oramacore_tpu_torch.benches import ranges_bench as rb
     from oramacore_tpu_torch.ops import score_windows as sw
 
     dev = slab.doc.device
@@ -312,52 +280,60 @@ def phase_kernels(slab, card):
     check(torch.allclose(ntf, pntf, rtol=1e-6, atol=0),
           f"score_windows: ntf within rtol 1e-6 of the plain version "
           f"(max abs err {err:.3g})")
-    ms = time_cuda(lambda: sw.score_windows(
-        slab.doc, slab.tf, slab.flen, starts, params, w=w), 20)
+    # timed over 8 sets of windows (a set moves 84 MB); seeded apart, so
+    # the draws above stay those of earlier runs
+    cold = np.random.default_rng(10)
+    start_sets = [torch.from_numpy(
+        (cold.integers(0, (n - w) // 1024, ns) * 1024).astype(np.int32)
+    ).to(dev) for _ in range(8)]
+    ms = time_cold(lambda st: sw.score_windows(
+        slab.doc, slab.tf, slab.flen, st, params, w=w), start_sets, 10)
     plain_ms = time_cuda(lambda: sw.score_windows_plain(
         slab.doc, slab.tf, slab.flen, starts, params, w), 5)
+    # 12 B read and 8 B written per slot, 20 B of start + params per window;
+    # 6 f32 operations per slot
+    bound, by = bound_ms(ns * w * 20 + ns * 20, ns * w * 6)
     print(f"  score_windows NS={ns} w={w}: kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms [{card}]", flush=True)
-    out["score_windows"] = dict(ms=ms, plain_ms=plain_ms, max_abs_err=err)
+          f"{plain_ms:.4f} ms; library call: none [{card}]", flush=True)
+    share("score_windows", ms, bound, by, card)
+    out["score_windows"] = dict(ms=ms, plain_ms=plain_ms, max_abs_err=err,
+                                bound_ms=bound, bound_by=by, library_ms=None)
 
-    # score_ranges_accumulate at the shared path's shapes: cu=64 rows,
-    # NR=32 ranges of up to MAX_RANGE_LEN postings, cap=2^20
-    from oramacore_tpu_torch.ops.bm25 import MAX_RANGE_LEN
-
-    R, NR, cap = 64, 32, 1 << 20
-    lens = rng.integers(0, MAX_RANGE_LEN + 1, (R, NR))
-    lens[:, NR // 2:] //= 64  # mixed long and short ranges, like a chunk
-    desc = [torch.from_numpy(a).to(dev) for a in (
-        rng.integers(0, n - MAX_RANGE_LEN, (R, NR)).astype(np.int32),
-        lens.astype(np.int32),
-        rng.uniform(0.5, 2, (R, NR)).astype(np.float32),
-        rng.uniform(0.3, 0.9, (R, NR)).astype(np.float32),
-        rng.uniform(5, 40, (R, NR)).astype(np.float32),
-    )]
-    acc = torch.zeros((R, cap), device=dev)
-    sw.score_ranges_accumulate(*slab, *desc, acc, exact=False,
-                               max_len=MAX_RANGE_LEN)
-    ref = sw.score_ranges_accumulate_plain(
-        slab.doc, slab.tf, slab.flen, *desc, torch.zeros_like(acc)
-    )
-    torch.cuda.synchronize()
-    err = float((acc - ref).abs().max())
-    check(torch.equal(acc > 0, ref > 0),
-          "score_ranges_accumulate: the set of hit docs equals the plain version's")
-    check(torch.allclose(acc, ref, rtol=1e-5, atol=1e-6),
-          f"score_ranges_accumulate: acc within rtol 1e-5 / atol 1e-6 of the "
-          f"plain version (max abs err {err:.3g})")
-    postings = int(lens.sum())
-    ms = time_cuda(lambda: sw.score_ranges_accumulate(
-        *slab, *desc, acc, exact=False, max_len=MAX_RANGE_LEN), 20)
-    plain_ms = time_cuda(lambda: sw.score_ranges_accumulate_plain(
-        slab.doc, slab.tf, slab.flen, *desc, acc), 3)
-    print(f"  score_ranges_accumulate R={R} NR={NR} cap={cap} "
-          f"({postings:,} postings): kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, kernel {postings * 12 / ms / 1e6:.1f} GB/s "
-          f"of posting reads [{card}]", flush=True)
-    out["score_ranges_accumulate"] = dict(ms=ms, plain_ms=plain_ms,
-                                          max_abs_err=err)
+    # score_ranges_accumulate: phase 4's synthetic shape (R=64 rows of
+    # NR=32 ranges, cap=2^20, the same draws as before), then the recorded
+    # launches of one steady B=1024 batch of the main path, R=1024 rows
+    # and edge cases from a generator of their own
+    cases = {"synthetic": [rb.synthetic_case(rng, tuple(slab))]}
+    t0 = time.perf_counter()
+    cases["batch"] = rb.capture_batch(idx, batches[0], batches[1], dev,
+                                      N_DOCS)
+    print(f"  recorded {len(cases['batch'])} launches of one steady "
+          f"search_topk_shared B={len(batches[1])} batch in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    rng2 = np.random.default_rng(3)
+    cases["rows_1024"] = [rb.rows_case(rng2, tuple(slab))]
+    cases["edges"] = [rb.edges_case(rng2, tuple(slab))]
+    res = {}
+    for name, launches in cases.items():
+        try:
+            res[name] = rb.check_case(name, launches, reps=3)
+        except AssertionError as e:
+            raise SmokeFailure(f"score_ranges_accumulate: {e}") from e
+        check(True, f"score_ranges_accumulate [{name}]: {len(launches)} "
+                    f"launch(es), the hit set equals the plain version's and "
+                    f"acc is within rtol 1e-5 / atol 1e-6 (max abs err "
+                    f"{res[name]['max_abs_err']:.3g})")
+        res[name]["ms"] = rb.time_launches(launches, rb.kernel_fn,
+                                           20 if len(launches) == 1 else 5)
+        rb.report(name, res[name], card)
+        share(f"score_ranges_accumulate [{name}]", res[name]["ms"],
+              res[name]["bound_ms"], res[name]["bound_by"], card)
+    del cases
+    r = res["batch"]
+    out["score_ranges_accumulate"] = dict(
+        ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+        bound_by=r["bound_by"], library_ms=None,
+        max_abs_err=max(x["max_abs_err"] for x in res.values()))
 
     # gather_windows: the TPU kernel's contract on the slab's doc (int32)
     # and tf (f32) columns, NS=4096, w=1024; a copy, so exact
@@ -366,6 +342,11 @@ def phase_kernels(slab, card):
     starts = torch.from_numpy(
         (rng.integers(0, (n - w) // gw.ALIGN, ns) * gw.ALIGN).astype(np.int32)
     ).to(dev)
+    start_sets = [torch.from_numpy(
+        (cold.integers(0, (n - w) // gw.ALIGN, ns) * gw.ALIGN).astype(np.int32)
+    ).to(dev) for _ in range(8)]    # 8 sets of 32 MiB moved each
+    flat_sets = [(st.long()[:, None] + torch.arange(w, device=dev)).reshape(-1)
+                 for st in start_sets]
     for col, src in (("doc", slab.doc), ("tf", slab.tf)):
         got = gw.gather_windows(src, starts, w=w)
         exp = gw.gather_windows_plain(src, starts, w)
@@ -374,16 +355,23 @@ def phase_kernels(slab, card):
         check(got.dtype == src.dtype and torch.equal(got, exp),
               f"gather_windows on p_{col} ({src.dtype}): equal to the plain "
               f"version (max abs err {err:.3g})")
-        ms = time_cuda(lambda: gw.gather_windows(src, starts, w=w), 50)
+        ms = time_cold(lambda st: gw.gather_windows(src, st, w=w),
+                       start_sets, 20)
         plain_ms = time_cuda(lambda: gw.gather_windows_plain(src, starts, w), 10)
+        lib_ms = time_cold(lambda fi: torch.index_select(src, 0, fi),
+                           flat_sets, 20)
         mib = ns * w * 4 / 2**20
+        bound, by = bound_ms(2 * ns * w * 4 + ns * 4, 0)
         print(f"  gather_windows p_{col} NS={ns} w={w} ({mib:.0f} MiB read + "
               f"{mib:.0f} MiB written): kernel {ms:.4f} ms "
               f"({2 * mib * 2**20 / ms / 1e6:.1f} GB/s), plain "
-              f"{plain_ms:.4f} ms [{card}]", flush=True)
+              f"{plain_ms:.4f} ms, library torch.index_select {lib_ms:.4f} ms "
+              f"[{card}]", flush=True)
         if col == "doc":
-            out["gather_windows"] = dict(ms=ms, plain_ms=plain_ms,
-                                         max_abs_err=err)
+            share("gather_windows", ms, bound, by, card)
+            out["gather_windows"] = dict(
+                ms=ms, plain_ms=plain_ms, max_abs_err=err, bound_ms=bound,
+                bound_by=by, library_ms=lib_ms)
     return out
 
 
@@ -1071,6 +1059,10 @@ def main() -> int:
         return 1
     from oramacore_tpu_torch import require_cuda
     from oramacore_tpu_torch.benches import card_line
+    from oramacore_tpu_torch.benches.ranges_bench import (
+        build_index,
+        make_batches,
+    )
     from oramacore_tpu_torch.ops import _build
 
     print("[1] device", flush=True)
@@ -1109,7 +1101,7 @@ def main() -> int:
     from oramacore_tpu_torch.index.search_exec import SharedBatchExecutor
 
     slab = SharedBatchExecutor(device)._get_device_slab(idx)
-    timings = phase_kernels(slab, card)
+    timings = phase_kernels(idx, batches, slab, card)
     del slab
     torch.cuda.empty_cache()
 
@@ -1180,6 +1172,9 @@ def main() -> int:
         "max_abs_err": timings[k["name"]]["max_abs_err"],
         "ms": timings[k["name"]]["ms"],
         "plain_ms": timings[k["name"]]["plain_ms"],
+        "bound_ms": timings[k["name"]]["bound_ms"],
+        "bound_by": timings[k["name"]]["bound_by"],
+        "library_ms": timings[k["name"]]["library_ms"],
     } for k in KERNELS]}
     print(f"card: {card}")
     print(json.dumps(kernels))

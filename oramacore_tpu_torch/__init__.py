@@ -1,15 +1,15 @@
 """oramacore_tpu_torch — the PyTorch / CUDA port of oramacore_tpu.
 
-This package runs the dense BM25F full-text search path on an NVIDIA
-Hopper card. It mirrors the layout of `oramacore_tpu` (so
+This package runs the full-text (BM25F), vector and hybrid search paths
+on an NVIDIA Hopper card. It mirrors the layout of `oramacore_tpu` (so
 `oramacore_tpu_torch/ops/bm25.py` is the counterpart of
 `oramacore_tpu/ops/bm25.py`) and is held against that package in the
 tests: the same numpy inputs go through the JAX function and its port.
 
-It never imports `jax`, directly or through an `oramacore_tpu` module
-that does. From `oramacore_tpu` it reuses only the jax-free host modules:
-`index/string_index.py`, `utils/tokenizer.py`, `types.py`, `native/` and
-`utils/trace.py`.
+It imports nothing of the JAX package: neither `jax` nor any
+`oramacore_tpu` module, even one that does not import jax. What it needs
+from such a module it keeps as its own copy (`index/string_index.py` is
+the host index).
 
 Every executor takes an explicit `device`. There is no "CUDA if present"
 default: a CUDA device on a host without CUDA raises (`require_cuda`).

@@ -1,11 +1,27 @@
 """Benchmarks of the port (counterparts of the repo's `benches/`), and the
-two measuring helpers that they and `chip_smoke.py` share."""
+measuring helpers that they and `chip_smoke.py` share."""
 
 from __future__ import annotations
 
 import subprocess
 
 import torch
+
+# Published peaks of one NVIDIA H100 SXM at its 700 W limit (NVIDIA's data
+# sheet): device-memory bandwidth, and f32 operations outside the tensor
+# cores.
+H100_BYTES_PER_S = 3.35e12
+H100_F32_OPS_PER_S = 67e12
+
+
+def bound_ms(n_bytes: float, n_ops: float,
+             ops_per_s: float = H100_F32_OPS_PER_S) -> tuple:
+    """(the least ms the card could take, "bytes" or "operations"): the
+    larger of the bytes the work must move over the memory rate and its
+    operations over the peak rate for their type."""
+    by_bytes = n_bytes / H100_BYTES_PER_S * 1e3
+    by_ops = n_ops / ops_per_s * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
 def card_line() -> str:
@@ -33,3 +49,16 @@ def time_cuda(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def time_graph(fn, reps: int) -> float:
+    """Device ms per call of `fn`: one warm-up call, then `fn` captured
+    once in a CUDA graph and replayed `reps` times between CUDA events, so
+    the host's cost of launching does not count. `fn` launches work on
+    the current stream and synchronizes nothing."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return time_cuda(graph.replay, reps)

@@ -1,60 +1,21 @@
 """Query planning for the port's dense BM25F path.
 
-`StringIndex.plan_query` (oramacore_tpu/index/string_index.py) imports
-`oramacore_tpu.ops.bm25` for MAX_RANGE_LEN on every call, and that module
-imports jax. This is a copy of its dense branch (`with_prefix=False`)
-that takes MAX_RANGE_LEN from the port instead; it returns the JAX
-package's own (jax-free) `QueryPlan`. The pruned tier's `with_prefix`
-branch is not ported yet.
+`plan_query` is the dense branch (`with_prefix=False`) of the JAX
+package's `StringIndex.plan_query`, and the body of the port's
+`StringIndex.plan_query` (index/string_index.py). The pruned tier's
+`with_prefix` branch is not ported yet.
 """
 
 from __future__ import annotations
 
-import logging
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from oramacore_tpu.index.string_index import (
-    DEFAULT_B,
-    MAX_RANGES,
-    QueryPlan,
-    StringIndex,
-)
-
 from ..ops.bm25 import MAX_RANGE_LEN
-
-_log = logging.getLogger("oramacore_tpu_torch.plan")
+from .string_index import DEFAULT_B, QueryPlan, StringIndex, _coalesce_and_cap
 
 Range = Tuple[int, int, float, float, float]  # start, len, weight, b, avg
-
-
-def _coalesce_and_cap(ranges: List[Range], token: str) -> List[Range]:
-    """Bound a token's posting ranges at MAX_RANGES without silent loss:
-    coalesce start-adjacent ranges with identical field params first,
-    then truncate, keeping the first-matched (closest under tolerance)
-    ranges, with a warning."""
-    if len(ranges) <= MAX_RANGES:
-        return ranges
-    srt = sorted(range(len(ranges)), key=lambda i: ranges[i][0])
-    merged: List[Tuple[int, int, float, float, float, int]] = []
-    for i in srt:
-        s, l, w, fb, av = ranges[i]
-        if merged:
-            ms, ml, mw, mfb, mav, mp = merged[-1]
-            if (ms + ml == s and (mw, mfb, mav) == (w, fb, av)
-                    and ml + l <= MAX_RANGE_LEN):
-                merged[-1] = (ms, ml + l, mw, mfb, mav, min(mp, i))
-                continue
-        merged.append((s, l, w, fb, av, i))
-    merged.sort(key=lambda m: m[5])  # restore closest-first priority
-    if len(merged) > MAX_RANGES:
-        _log.warning(
-            "token %r matched %d posting ranges (%d after coalescing); "
-            "truncated to %d closest-match ranges",
-            token, len(ranges), len(merged), MAX_RANGES,
-        )
-    return [m[:5] for m in merged[:MAX_RANGES]]
 
 
 def plan_query(

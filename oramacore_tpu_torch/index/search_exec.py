@@ -34,7 +34,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from oramacore_tpu.index.string_index import DEFAULT_B, QueryPlan, StringIndex
+from .string_index import DEFAULT_B, QueryPlan, StringIndex
 
 from .. import resolve_device
 from ..ops.bm25 import (

@@ -13,7 +13,10 @@ points, each with its plain PyTorch version beside it:
   `ntf = w * tf / max((1-b) + b * flen / max(avg, 1e-9), 1e-9)`, keeps
   slots with `tf > 0` and a doc in `[0, cap)`, and adds ntf into
   `acc[row, doc]`. It fuses the TPU path's window gather and its dense
-  aggregation (`oramacore_tpu/ops/bm25.py:_aggregate_dense`).
+  aggregation (`oramacore_tpu/ops/bm25.py:_aggregate_dense`). The kernel
+  walks a work list of tiles of TILE_VECS 16-byte posting vectors in
+  row-major (row, range) order; `work_list_plain` and `work_items_plain`
+  are that list's plain versions.
 
 A wrapper given CPU tensors runs the plain version. Given CUDA tensors it
 launches the kernel or raises; it never falls back. Postings outside the
@@ -53,9 +56,11 @@ def load_kernels() -> ctypes.CDLL:
         lib.score_windows_launch.restype = ctypes.c_int
         lib.score_ranges_accumulate_launch.argtypes = [
             ptr, ptr, ptr, i64, ptr, ptr, ptr, ptr, ptr,
-            i64, i64, i64, ptr, i64, ptr,
+            i64, i64, i64, ptr, i64, ptr, ptr,
         ]
         lib.score_ranges_accumulate_launch.restype = ctypes.c_int
+        lib.score_ranges_work_list_launch.argtypes = [ptr, ptr, i64, ptr, ptr]
+        lib.score_ranges_work_list_launch.restype = ctypes.c_int
         _lib = lib
     return _lib
 
@@ -140,22 +145,55 @@ def score_windows(p_doc, p_tf, p_flen, aligned_starts, params, *, w: int):
 # elements per gather chunk of the plain version (bounds its scratch)
 _PLAIN_CHUNK = 1 << 24
 
+# 16-byte posting vectors per tile of the kernel's work list
+# (kTileVecs in csrc/score_windows.cu: 256 threads x 2 vectors)
+TILE_VECS = 512
 
-def score_ranges_accumulate_plain(
-    p_doc, p_tf, p_flen, starts, lens, weight, field_b, avg, acc
+
+def work_list_plain(starts, lens):
+    """The kernel's work list: int64[R * NR], the inclusive cumsum over the
+    (row, range) pairs in row-major order of each pair's tiles. A pair's
+    postings [s, s + len) are counted as 16-byte vectors from the aligned
+    slab index s - (s & 3); len <= 0 gives no tile."""
+    s = starts.reshape(-1).to(torch.int64)
+    n = lens.reshape(-1).to(torch.int64)
+    vecs = ((s & 3) + n + 3) // 4
+    tiles = torch.where(n > 0, (vecs + TILE_VECS - 1) // TILE_VECS, 0)
+    return torch.cumsum(tiles, 0)
+
+
+def work_items_plain(starts, lens):
+    """The kernel's walk, item by item: (pair, lo, hi) for each tile in
+    work-list order, where [lo, hi) are the slab indices of the pair's
+    range that the tile covers (the kernel masks the rest of its
+    vectors)."""
+    cum = work_list_plain(starts, lens)
+    s = starts.reshape(-1).to(torch.int64)
+    n = lens.reshape(-1).to(torch.int64)
+    total = int(cum[-1]) if cum.numel() else 0
+    items = torch.arange(total, dtype=torch.int64, device=cum.device)
+    pair = torch.searchsorted(cum, items, right=True)   # first cum > item
+    tile = items - torch.where(pair > 0, cum[(pair - 1).clamp(min=0)], 0)
+    start, end = s[pair], s[pair] + n[pair]
+    q0 = start - (start & 3) + 4 * TILE_VECS * tile
+    lo = torch.maximum(q0, start)
+    hi = torch.minimum(q0 + 4 * TILE_VECS, end)
+    return pair, lo, hi
+
+
+def score_ranges_pairs_plain(
+    p_doc, p_tf, p_flen, starts, lens, weight, field_b, avg, cap: int
 ):
-    """Plain PyTorch version of `score_ranges_accumulate` (masked gather,
-    then `index_add_` into `acc`); `p_tf` is the tf column already chosen.
-    Updates `acc` in place and returns it."""
+    """The plain version's scatter pairs, in chunks of rows: yields
+    (flat index row * cap + doc int64[m], ntf f32[m]) for every kept
+    posting (tf > 0, doc in [0, cap), inside the slab)."""
     R, NR = starts.shape
-    cap = acc.shape[1]
     n = p_doc.shape[0]
     L = int(lens.max()) if lens.numel() else 0
     if L <= 0 or n == 0:
-        return acc
-    dev = acc.device
+        return
+    dev = p_doc.device
     slot = torch.arange(L, device=dev, dtype=torch.int64)
-    flat_acc = acc.view(-1)
     rows_per_chunk = max(1, _PLAIN_CHUNK // max(1, NR * L))
     for r0 in range(0, R, rows_per_chunk):
         r1 = min(R, r0 + rows_per_chunk)
@@ -171,7 +209,20 @@ def score_ranges_accumulate_plain(
         ntf = weight[r0:r1, :, None] * tf / torch.clamp(denom, min=1e-9)
         keep = valid & (tf > 0) & (doc >= 0) & (doc < cap)
         row = torch.arange(r0, r1, device=dev, dtype=torch.int64)[:, None, None]
-        flat_acc.index_add_(0, (row * cap + doc)[keep], ntf[keep])
+        yield (row * cap + doc)[keep], ntf[keep]
+
+
+def score_ranges_accumulate_plain(
+    p_doc, p_tf, p_flen, starts, lens, weight, field_b, avg, acc
+):
+    """Plain PyTorch version of `score_ranges_accumulate` (masked gather,
+    then `index_add_` into `acc`); `p_tf` is the tf column already chosen.
+    Updates `acc` in place and returns it."""
+    flat_acc = acc.view(-1)
+    for flat, ntf in score_ranges_pairs_plain(
+        p_doc, p_tf, p_flen, starts, lens, weight, field_b, avg, acc.shape[1]
+    ):
+        flat_acc.index_add_(0, flat, ntf)
     return acc
 
 
@@ -189,8 +240,8 @@ def score_ranges_accumulate(
     starts, lens int32[R, NR]; weight, field_b, avg f32[R, NR];
     acc f32[R, cap], updated in place and returned.
     `max_len` bounds `lens` (the plan's range-length bucket); the kernel
-    uses it only to size its grid, so a low bound costs speed, not
-    results.
+    uses it only to cap the grid of a small call, so a low bound costs
+    speed, not results.
     """
     tf = p_exact_tf if exact else p_tf
     _check(p_doc, "p_doc", torch.int32, 1)
@@ -219,13 +270,14 @@ def score_ranges_accumulate(
     if R * NR == 0 or max_len <= 0:
         return acc
     lib = load_kernels()
+    work = torch.empty(R * NR, dtype=torch.int64, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.score_ranges_accumulate_launch(
             p_doc.data_ptr(), tf.data_ptr(), p_flen.data_ptr(), n,
             starts.data_ptr(), lens.data_ptr(), weight.data_ptr(),
             field_b.data_ptr(), avg.data_ptr(), R, NR, int(max_len),
-            acc.data_ptr(), acc.shape[1], stream,
+            acc.data_ptr(), acc.shape[1], work.data_ptr(), stream,
         )
     _raise_on(err, "score_ranges_accumulate")
     LAUNCHES["score_ranges_accumulate"] += 1

@@ -107,6 +107,90 @@ def test_score_ranges_accumulate_row_offset_past_2_pow_31(cuda):
     assert acc.sum().item() == 4 * R
 
 
+def _ranges_case(rng, case, n):
+    """(starts, lens, rows) of one edge case of the work-list kernel."""
+    # rows_1024 has more pairs than a block's own work list takes, so the
+    # kernel reads the one the work-list kernel writes
+    R, NR = (1024, 5) if case == "rows_1024" else (16, 8)
+    starts = rng.integers(0, n - 200_000, (R, NR))
+    lens = rng.integers(1, 20_000, (R, NR))
+    if case == "unaligned":      # every start off a 16-byte boundary
+        starts = starts - starts % 4 + rng.integers(1, 4, (R, NR))
+        lens[:, ::3] = rng.integers(1, 4, (R, (NR + 2) // 3))  # under a vector
+    elif case == "empty":        # zero-length pairs, whole empty rows
+        lens[rng.random((R, NR)) < 0.5] = 0
+        lens[3] = 0
+        lens[-1] = 0
+    elif case == "slab_end":     # ranges that run past either end
+        starts[:, 0] = n - rng.integers(1, 5000, R)
+        starts[:, 1] = -rng.integers(1, 5000, R)
+        starts[:, 2] = n - 4
+    elif case == "long":         # one range of MAX_RANGE_LEN postings
+        lens[2, 5] = 131072
+    return starts, lens, R
+
+
+@pytest.mark.parametrize("case", ["unaligned", "empty", "slab_end", "long",
+                                  "rows_1024", "misaligned_slab"])
+@pytest.mark.parametrize("exact", [False, True])
+def test_score_ranges_accumulate_edge_cases(cuda, case, exact):
+    """The work-list kernel against the plain version: the hit set
+    exactly, values within rtol 1e-5 / atol 1e-6 (atomic sums reorder).
+    `misaligned_slab` hands the kernel columns 4 bytes past a 16-byte
+    boundary, so it takes its element-by-element loads."""
+    from oramacore_tpu_torch.ops import score_windows as sw
+
+    rng = np.random.default_rng(7)
+    n, cap = (1 << 22) + 5, 1 << 20
+    doc, tf, flen = _slab(rng, n + 1, cap + 1000, cuda)
+    etf = torch.where(torch.rand(n + 1, device=cuda) < 0.5, tf, 0.0)
+    if case == "misaligned_slab":
+        doc, tf, etf, flen = (c[1:] for c in (doc, tf, etf, flen))
+    else:
+        doc, tf, etf, flen = (c[:n] for c in (doc, tf, etf, flen))
+    starts, lens, R = _ranges_case(rng, case, n)
+    NR = starts.shape[1]
+    desc = [torch.from_numpy(a).to(cuda) for a in (
+        starts.astype(np.int32), lens.astype(np.int32),
+        rng.uniform(0.5, 2, (R, NR)).astype(np.float32),
+        rng.uniform(0.3, 0.9, (R, NR)).astype(np.float32),
+        rng.uniform(5, 40, (R, NR)).astype(np.float32),
+    )]
+    acc = torch.zeros((R, cap), device=cuda)
+    before = sw.LAUNCHES["score_ranges_accumulate"]
+    sw.score_ranges_accumulate(doc, tf, etf, flen, *desc, acc, exact=exact,
+                               max_len=int(lens.max()))
+    torch.cuda.synchronize()
+    assert sw.LAUNCHES["score_ranges_accumulate"] == before + 1
+    ref = sw.score_ranges_accumulate_plain(
+        doc, etf if exact else tf, flen, *desc, torch.zeros_like(acc))
+    assert torch.equal(acc > 0, ref > 0)
+    assert torch.allclose(acc, ref, rtol=1e-5, atol=1e-6)
+    assert ref.count_nonzero() > 0
+
+
+def test_score_ranges_work_list_kernel(cuda):
+    """The kernel's prologue writes the plain version's work list: the
+    inclusive cumsum of tiles over the pairs in row-major order."""
+    from oramacore_tpu_torch.ops import score_windows as sw
+
+    rng = np.random.default_rng(8)
+    for R, NR in ((1, 1), (64, 32), (1024, 32), (3, 1000)):
+        starts = torch.from_numpy(
+            rng.integers(-5, 1 << 22, (R, NR)).astype(np.int32)).to(cuda)
+        lens = rng.integers(0, 131073, (R, NR))
+        lens[rng.random((R, NR)) < 0.3] = 0
+        lens = torch.from_numpy(lens.astype(np.int32)).to(cuda)
+        work = torch.full((R * NR,), -1, dtype=torch.int64, device=cuda)
+        lib = sw.load_kernels()
+        err = lib.score_ranges_work_list_launch(
+            starts.data_ptr(), lens.data_ptr(), R * NR, work.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+        torch.cuda.synchronize()
+        assert err == 0
+        assert torch.equal(work, sw.work_list_plain(starts, lens))
+
+
 def test_wrapper_raises_instead_of_falling_back(cuda):
     from oramacore_tpu_torch.ops import score_windows as sw
 

@@ -1,7 +1,9 @@
-"""Guards of the port: it never imports jax, and it never runs silently on
-the CPU when a CUDA device was asked for."""
+"""Guards of the port: it never imports jax nor any module of the JAX
+package, and it never runs silently on the CPU when a CUDA device was
+asked for."""
 
 import os
+import re
 import subprocess
 import sys
 import textwrap
@@ -19,7 +21,7 @@ _NO_JAX_SCRIPT = textwrap.dedent("""
     for m in pkgutil.walk_packages(oramacore_tpu_torch.__path__,
                                    "oramacore_tpu_torch."):
         importlib.import_module(m.name)
-    from oramacore_tpu.index.string_index import StringIndex
+    from oramacore_tpu_torch.index.string_index import StringIndex
     from oramacore_tpu_torch.index.plan import plan_query
     from oramacore_tpu_torch.index.search_exec import SharedBatchExecutor
 
@@ -84,6 +86,9 @@ _NO_JAX_SCRIPT = textwrap.dedent("""
     assert not leaked, leaked
     leaked = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
     assert not leaked, leaked
+    leaked = sorted(m for m in sys.modules
+                    if m == "oramacore_tpu" or m.startswith("oramacore_tpu."))
+    assert not leaked, leaked
     print("NO_JAX_OK")
 """)
 
@@ -97,6 +102,33 @@ def test_port_never_imports_jax():
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "NO_JAX_OK" in proc.stdout
+
+
+_IMPORT_OF_JAX_PACKAGE = re.compile(
+    r"^\s*(from\s+oramacore_tpu(\.\S*)?\s+import\b"
+    r"|import\s+oramacore_tpu(\.\S*)?(\s|,|$))", re.M)
+
+
+def test_no_source_of_the_port_imports_the_jax_package():
+    """No .py file of oramacore_tpu_torch/ and no line of chip_smoke.py
+    imports oramacore_tpu or a module under it."""
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, names in os.walk(os.path.join(REPO, "oramacore_tpu_torch")):
+        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    assert len(files) > 10
+    found = []
+    for path in files:
+        with open(path) as f:
+            for m in _IMPORT_OF_JAX_PACKAGE.finditer(f.read()):
+                found.append(f"{os.path.relpath(path, REPO)}: {m.group(0).strip()}")
+    assert not found, found
+    # the pattern itself: it finds both forms, and not the port's own name
+    for line, hit in (("from oramacore_tpu.index import x", True),
+                      ("import oramacore_tpu.ops.bm25 as b", True),
+                      ("    import oramacore_tpu", True),
+                      ("from oramacore_tpu_torch.ops import x", False),
+                      ("import oramacore_tpu_torch", False)):
+        assert bool(_IMPORT_OF_JAX_PACKAGE.search(line)) == hit, line
 
 
 def test_cuda_executor_without_cuda_raises():

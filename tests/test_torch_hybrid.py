@@ -11,8 +11,9 @@ import numpy as np
 import pytest
 import torch
 
-import oramacore_tpu.index.string_index as string_index
+import oramacore_tpu.index.string_index as jsi
 import oramacore_tpu.index.vector_index as jvi
+import oramacore_tpu_torch.index.string_index as tsi
 import oramacore_tpu_torch.index.vector_index as tvi
 from oramacore_tpu.index import search_exec as jexec
 from oramacore_tpu.ops import hybrid as jhybrid
@@ -263,16 +264,13 @@ def _index_doc(idx, rng, d, heavy):
     idx.index_text(d, "body", [(w, []) for w in body])
 
 
-@pytest.fixture(scope="module")
-def corpus():
-    """'heavy' is a committed-only champion term; 'common' has live
-    postings too, so it falls back to ranged scanning. Vectors: docs
-    d % 7 == 0 have two rows, d % 11 == 3 none. The IVF layout is the JAX
-    index's own, carried into the port's."""
+def _string_index(module):
+    """The corpus's StringIndex of one package (string_index module
+    `module`), and the generator it leaves for the vectors."""
     rng = np.random.default_rng(0)
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(string_index, "CHAMPION_MIN", CHAMP_MIN)
-        idx = string_index.StringIndex()
+        mp.setattr(module, "CHAMPION_MIN", CHAMP_MIN)
+        idx = module.StringIndex()
         for d in range(N_COMMITTED):
             _index_doc(idx, rng, d, heavy=True)
         idx.commit()
@@ -280,6 +278,19 @@ def corpus():
             _index_doc(idx, rng, d, heavy=False)
         idx.slab_split()
     assert ("title", "heavy") in idx._champ_map
+    return idx, rng
+
+
+@pytest.fixture(scope="module")
+def corpus():
+    """One seeded corpus in each package's StringIndex ('jidx' for the JAX
+    executors, 'tidx' for the port's). 'heavy' is a committed-only
+    champion term; 'common' has live postings too, so it falls back to
+    ranged scanning. Vectors: docs d % 7 == 0 have two rows, d % 11 == 3
+    none. The IVF layout is the JAX index's own, carried into the
+    port's."""
+    jidx, rng = _string_index(jsi)
+    tidx, _ = _string_index(tsi)
     jv = jvi.VectorIndex(jvi.VectorIndexConfig(dim=D))
     tv = tvi.VectorIndex(tvi.VectorIndexConfig(dim=D), "cpu")
     vecs = {}
@@ -298,7 +309,7 @@ def corpus():
     ti = tvi.VectorIndex.from_jax_state(
         ji._committed_matrix, ji._committed_docs, ji._ivf,
         tvi.VectorIndexConfig(dim=D), "cpu")
-    return dict(idx=idx, vecs=vecs, jv=jv, tv=tv, ji=ji, ti=ti)
+    return dict(jidx=jidx, tidx=tidx, vecs=vecs, jv=jv, tv=tv, ji=ji, ti=ti)
 
 
 def _queries(corpus, seed, B):
@@ -331,15 +342,16 @@ def _exec_kw(seed, B, filtered, rescale):
 @pytest.mark.parametrize("filtered,rescale", [(False, None), (True, RESCALE)])
 def test_search_topk_hybrid_matches_jax(corpus, filtered, rescale):
     B = 6
-    idx = corpus["idx"]
+    jidx, tidx = corpus["jidx"], corpus["tidx"]
     toks, q, sims = _queries(corpus, 1, B)
-    plans = [plan_query(idx, t, PROPS, {"title": 2.0}) for t in toks]
-    args = (idx, plans, [float(N_DOCS)] * B, N_DOCS, 10)
+    jplans = [jidx.plan_query(t, PROPS, {"title": 2.0}) for t in toks]
+    tplans = [plan_query(tidx, t, PROPS, {"title": 2.0}) for t in toks]
+    args = ([float(N_DOCS)] * B, N_DOCS, 10)
     kw = dict(_exec_kw(2, B, filtered, rescale), with_bitmap=True)
     exp = jexec.HybridSearchTopK().search_topk_hybrid(
-        *args, corpus["jv"].flat_device_rows(), q, sims, **kw)
+        jidx, jplans, *args, corpus["jv"].flat_device_rows(), q, sims, **kw)
     got = texec.HybridSearchTopK("cpu").search_topk_hybrid(
-        *args, corpus["tv"].flat_device_rows(), q, sims, **kw)
+        tidx, tplans, *args, corpus["tv"].flat_device_rows(), q, sims, **kw)
     assert_topk_agrees(got[0], got[1], exp[0], exp[1])
     np.testing.assert_array_equal(got[2], exp[2])
     assert got[3].shape == (B, N_DOCS)
@@ -352,17 +364,18 @@ def test_search_topk_hybrid_int8_matches_jax(corpus, filtered, with_bitmap):
     """Champion plans (use_champions=True, as the read side plans this
     path) on the JAX index's IVF layout."""
     B = 6
-    idx = corpus["idx"]
+    jidx, tidx = corpus["jidx"], corpus["tidx"]
     toks, q, sims = _queries(corpus, 3, B)
-    plans = [plan_query(idx, t, PROPS, {}, use_champions=True) for t in toks]
-    assert any(p.champ_idx is not None for p in plans)
-    args = (idx, plans, [float(N_DOCS)] * B, N_DOCS, 10)
+    jplans = [jidx.plan_query(t, PROPS, {}, use_champions=True) for t in toks]
+    tplans = [plan_query(tidx, t, PROPS, {}, use_champions=True) for t in toks]
+    assert any(p.champ_idx is not None for p in tplans)
+    args = ([float(N_DOCS)] * B, N_DOCS, 10)
     kw = dict(_exec_kw(4, B, filtered, None), with_bitmap=with_bitmap,
               candidates=64)
     exp = jexec.HybridSearchTopK().search_topk_hybrid_int8(
-        *args, corpus["ji"].int8_device_rows(), q, sims, **kw)
+        jidx, jplans, *args, corpus["ji"].int8_device_rows(), q, sims, **kw)
     got = texec.HybridSearchTopK("cpu").search_topk_hybrid_int8(
-        *args, corpus["ti"].int8_device_rows(), q, sims, **kw)
+        tidx, tplans, *args, corpus["ti"].int8_device_rows(), q, sims, **kw)
     assert_topk_agrees(got[0], got[1], exp[0], exp[1])
     np.testing.assert_array_equal(got[2], exp[2])
     if with_bitmap:
@@ -373,17 +386,16 @@ def test_search_topk_hybrid_int8_matches_jax(corpus, filtered, with_bitmap):
 @pytest.mark.parametrize("filtered", [False, True])
 def test_search_topk_shared_hybrid_tails_match_jax(corpus, tail, filtered):
     B = 10
-    idx = corpus["idx"]
     toks, q, sims = _queries(corpus, 5, B)
     kw = _exec_kw(6, B, filtered, RESCALE if filtered else None)
-    args = (idx, toks, PROPS, {"title": 2.0}, float(N_DOCS), N_DOCS, 10)
+    args = (toks, PROPS, {"title": 2.0}, float(N_DOCS), N_DOCS, 10)
     rows = {"vec_rows": ("jv", "tv", "flat_device_rows"),
             "vec_rows_int8": ("ji", "ti", "int8_device_rows")}[tail]
     ev, ei, ec = jexec.SharedBatchExecutor().search_topk_shared(
-        *args, queries=q, similarities=sims,
+        corpus["jidx"], *args, queries=q, similarities=sims,
         **{tail: getattr(corpus[rows[0]], rows[2])()}, **kw)
     tv, ti, tc = texec.SharedBatchExecutor("cpu").search_topk_shared(
-        *args, queries=q, similarities=sims,
+        corpus["tidx"], *args, queries=q, similarities=sims,
         **{tail: getattr(corpus[rows[1]], rows[2])()}, **kw)
     assert tv.shape == (B, 10)
     assert_topk_agrees(tv, ti, ev, ei)

@@ -158,6 +158,75 @@ def test_score_ranges_accumulate_drops_docs_outside_cap():
     assert acc.tolist() == [[1.0, 0.0, 0.0, 1.0, 0.0, 1.0]]
 
 
+def _ranges(seed, R, NR, n):
+    rng = np.random.default_rng(seed)
+    starts = rng.integers(-9, n, (R, NR))
+    lens = rng.integers(0, 3 * 4096 * 4, (R, NR))    # up to 12 tiles
+    lens[rng.random((R, NR)) < 0.3] = 0
+    lens[:, 0] = rng.integers(1, 4, R)                # under one vector
+    return (torch.from_numpy(starts.astype(np.int32)),
+            torch.from_numpy(lens.astype(np.int32)))
+
+
+@pytest.mark.parametrize("R,NR", [(1, 1), (7, 5), (64, 32)])
+def test_work_list_covers_every_posting_once_in_row_major_order(R, NR):
+    """The kernel's walk (`work_items_plain`): each pair's postings are
+    covered exactly once by its tiles, in order; pairs come in row-major
+    order; a pair with len == 0 has no tile."""
+    from oramacore_tpu_torch.ops.score_windows import (
+        TILE_VECS,
+        work_items_plain,
+        work_list_plain,
+    )
+
+    starts, lens = _ranges(R * NR, R, NR, 1 << 20)
+    cum = work_list_plain(starts, lens)
+    pair, lo, hi = work_items_plain(starts, lens)
+    assert cum.shape == (R * NR,) and len(pair) == int(cum[-1])
+    assert bool((pair[1:] >= pair[:-1]).all())          # row-major order
+    assert bool((hi > lo).all() and (hi - lo <= 4 * TILE_VECS).all())
+    s, n = starts.reshape(-1).long(), lens.reshape(-1).long()
+    for p in range(R * NR):
+        mine = pair == p
+        if n[p] == 0:
+            assert not mine.any()
+            continue
+        plo, phi = lo[mine], hi[mine]
+        assert plo[0] == s[p] and phi[-1] == s[p] + n[p]
+        assert torch.equal(plo[1:], phi[:-1])          # contiguous, disjoint
+        assert bool(((plo[1:] - (s[p] - (s[p] & 3))) % (4 * TILE_VECS) == 0).all())
+
+
+def test_work_list_walk_equals_the_plain_version():
+    """Accumulating tile by tile along the work list, as the kernel does,
+    gives the plain version's acc."""
+    from oramacore_tpu_torch.ops.score_windows import (
+        score_ranges_accumulate_plain,
+        work_items_plain,
+    )
+
+    rng = np.random.default_rng(11)
+    n, cap, R, NR = 1 << 16, 5000, 5, 6
+    p_doc, p_tf, p_flen = (torch.from_numpy(a) for a in _slab(rng, n, cap + 50))
+    starts, lens = _ranges(12, R, NR, n)
+    lens = lens.clamp(max=20000)
+    wt, fb, av = (torch.from_numpy(rng.uniform(lo, hi, (R, NR)).astype(np.float32))
+                  for lo, hi in ((0.5, 2), (0.3, 0.9), (5, 40)))
+    exp = score_ranges_accumulate_plain(p_doc, p_tf, p_flen, starts, lens,
+                                        wt, fb, av, torch.zeros((R, cap)))
+    got = torch.zeros((R, cap))
+    pair, lo, hi = work_items_plain(starts, lens)
+    for p, a, b in zip(pair.tolist(), lo.tolist(), hi.tolist()):
+        r, j = divmod(p, NR)
+        one = lambda t: t[r:r + 1, j:j + 1].contiguous()  # noqa: E731
+        score_ranges_accumulate_plain(
+            p_doc, p_tf, p_flen, torch.tensor([[a]], dtype=torch.int32),
+            torch.tensor([[b - a]], dtype=torch.int32), one(wt), one(fb),
+            one(av), got[r:r + 1])
+    assert torch.equal(got > 0, exp > 0)
+    torch.testing.assert_close(got, exp, rtol=1e-5, atol=1e-6)
+
+
 def test_wrappers_check_their_inputs():
     from oramacore_tpu_torch.ops.score_windows import (
         LAUNCHES,

@@ -1,16 +1,23 @@
 """The port's executors and planner against the JAX package's, end to end
-on one seeded StringIndex built through index_text + commit, with a
-champion row and an uncommitted live layer (CPU; plain kernel versions)."""
+on one seeded corpus indexed through index_text + commit into a StringIndex
+of each package (the JAX one, and the port's own copy), with a champion
+row and an uncommitted live layer (CPU; plain kernel versions)."""
+
+from typing import NamedTuple
 
 import numpy as np
 import pytest
 import torch
 
+import oramacore_tpu.index.string_index as jsi
+import oramacore_tpu_torch.index.string_index as tsi
 from oramacore_tpu.index import search_exec as jexec
-from oramacore_tpu.index.string_index import CHAMPION_MIN, StringIndex
 from oramacore_tpu_torch.index import search_exec as texec
 from oramacore_tpu_torch.index.plan import plan_query
 from tests.test_torch_bm25 import assert_topk_agrees
+
+CHAMPION_MIN = tsi.CHAMPION_MIN
+assert CHAMPION_MIN == jsi.CHAMPION_MIN
 
 N_COMMITTED = CHAMPION_MIN + 600
 N_LIVE = 300
@@ -27,13 +34,27 @@ def _index_doc(idx, rng, d, heavy):
     idx.index_text(d, "body", [(w, ["stem" + w[1:]]) for w in body])
 
 
-@pytest.fixture(scope="module")
-def index():
-    """'heavy' is a committed-only champion term (routes to the champion
-    class); 'common' is one too but also has live postings, so it falls
-    back to ranged scanning."""
+class Indexes(NamedTuple):
+    """One corpus in each package's StringIndex: `jax` for the JAX
+    executors and planner, `torch` for the port's."""
+
+    jax: object
+    torch: object
+
+
+def build_indexes(build) -> Indexes:
+    """`build(module)` fills a fresh index of string_index module `module`
+    from a seeded generator. The JAX index takes its Python live layer
+    (ORAMACORE_NATIVE_LIVE=0), the port's only one, so both slabs come
+    out in one order."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("ORAMACORE_NATIVE_LIVE", "0")
+        return Indexes(build(jsi), build(tsi))
+
+
+def _build(module):
     rng = np.random.default_rng(0)
-    idx = StringIndex()
+    idx = module.StringIndex()
     for d in range(N_COMMITTED):
         _index_doc(idx, rng, d, heavy=True)
     idx.commit()
@@ -44,6 +65,14 @@ def index():
     assert ("title", "common") in idx._champ_map
     assert idx._slab_live_arrays is not None
     return idx
+
+
+@pytest.fixture(scope="module")
+def index():
+    """'heavy' is a committed-only champion term (routes to the champion
+    class); 'common' is one too but also has live postings, so it falls
+    back to ranged scanning."""
+    return build_indexes(_build)
 
 
 def _queries(seed, B):
@@ -69,11 +98,13 @@ def test_search_topk_shared_matches_jax(index, filtered):
         doc_masks=_masks(2, B) if filtered else None,
         field_params={"body": (1.5, 0.6)},
         omc=np.random.default_rng(3).uniform(0.5, 2, N_DOCS).astype(np.float32),
-        omc_key=(index.uid, 1),
+        omc_key=("omc", 1),
     )
-    args = (index, qs, PROPS, {"title": 2.0}, float(N_DOCS), N_DOCS, 10)
-    ev, ei, ec = jexec.SharedBatchExecutor().search_topk_shared(*args, **kw)
-    tv, ti, tc = texec.SharedBatchExecutor("cpu").search_topk_shared(*args, **kw)
+    args = (qs, PROPS, {"title": 2.0}, float(N_DOCS), N_DOCS, 10)
+    ev, ei, ec = jexec.SharedBatchExecutor().search_topk_shared(
+        index.jax, *args, **kw)
+    tv, ti, tc = texec.SharedBatchExecutor("cpu").search_topk_shared(
+        index.torch, *args, **kw)
     assert tv.shape == (B, 10) and ti.dtype == np.int32
     assert_topk_agrees(tv, ti, ev, ei)
     np.testing.assert_array_equal(tc, ec)
@@ -81,25 +112,29 @@ def test_search_topk_shared_matches_jax(index, filtered):
 
 
 def _plans(index, qs, **kw):
-    return [plan_query(index, q, PROPS, {"title": 2.0}, **kw) for q in qs]
+    """Each package's plans on its own index: (JAX plans, port plans)."""
+    return ([index.jax.plan_query(q, PROPS, {"title": 2.0}, **kw) for q in qs],
+            [plan_query(index.torch, q, PROPS, {"title": 2.0}, **kw)
+             for q in qs])
 
 
 @pytest.mark.parametrize("filtered", [False, True])
 def test_search_topk_matches_jax(index, filtered):
     B = 6
     qs = _queries(4, B)
-    plans = _plans(index, qs, use_champions=True)
-    assert any(p.champ_idx is not None for p in plans)
+    jplans, tplans = _plans(index, qs, use_champions=True)
+    assert any(p.champ_idx is not None for p in tplans)
     kw = dict(
         doc_masks=_masks(5, B) if filtered else None,
         thresholds=[0, 0, 1, 0, 2, 0],
         omc=np.random.default_rng(6).uniform(0.5, 2, N_DOCS).astype(np.float32),
-        omc_key=(index.uid, 1),
+        omc_key=("omc", 1),
         with_bitmap=True,
     )
-    args = (index, plans, [float(N_DOCS)] * B, N_DOCS, 10)
-    exp = jexec.StringSearchTopK().search_topk(*args, **kw)
-    got = texec.StringSearchTopK("cpu").search_topk(*args, **kw)
+    args = ([float(N_DOCS)] * B, N_DOCS, 10)
+    exp = jexec.StringSearchTopK().search_topk(index.jax, jplans, *args, **kw)
+    got = texec.StringSearchTopK("cpu").search_topk(index.torch, tplans, *args,
+                                                    **kw)
     assert_topk_agrees(got[0], got[1], exp[0], exp[1])
     np.testing.assert_array_equal(got[2], exp[2])
     assert got[3].shape == (B, N_DOCS)
@@ -109,11 +144,13 @@ def test_search_topk_matches_jax(index, filtered):
 def test_score_matches_jax(index):
     B = 4
     qs = _queries(7, B)
-    plans = _plans(index, qs)
+    jplans, tplans = _plans(index, qs)
     masks = _masks(8, B)
-    args = (index, plans, [float(N_DOCS)] * B, N_DOCS)
-    es, em = jexec.StringSearchExecutor().score(*args, doc_masks=masks)
-    ts, tm = texec.StringSearchExecutor("cpu").score(*args, doc_masks=masks)
+    args = ([float(N_DOCS)] * B, N_DOCS)
+    es, em = jexec.StringSearchExecutor().score(index.jax, jplans, *args,
+                                                doc_masks=masks)
+    ts, tm = texec.StringSearchExecutor("cpu").score(index.torch, tplans, *args,
+                                                     doc_masks=masks)
     assert ts.shape == (B, N_DOCS)
     np.testing.assert_array_equal(tm, em)
     np.testing.assert_allclose(ts, es, rtol=1e-5, atol=1e-6)
@@ -122,17 +159,17 @@ def test_score_matches_jax(index):
 def test_shared_and_per_query_agree_with_host_reference(index):
     """The slice's two entries against the numpy reference scorer."""
     qs = [["w3", "w7"], ["heavy", "w5"], ["w11", "stem4"]]
+    idx = index.torch
     sv, si, _ = texec.SharedBatchExecutor("cpu").search_topk_shared(
-        index, qs, PROPS, {}, float(N_DOCS), N_DOCS, 5
+        idx, qs, PROPS, {}, float(N_DOCS), N_DOCS, 5
     )
     pv, pi, _ = texec.StringSearchTopK("cpu").search_topk(
-        index, [plan_query(index, q, PROPS, {}, use_champions=True)
-                for q in qs],
+        idx, [plan_query(idx, q, PROPS, {}, use_champions=True) for q in qs],
         [float(N_DOCS)] * len(qs), N_DOCS, 5,
     )
     assert_topk_agrees(sv, si, pv, pi)
     for b, q in enumerate(qs):
-        ref = texec.host_bm25_reference(index, q, PROPS, {}, float(N_DOCS))
+        ref = texec.host_bm25_reference(idx, q, PROPS, {}, float(N_DOCS))
         top = sorted(ref.items(), key=lambda kv: (-kv[1], kv[0]))[:5]
         np.testing.assert_allclose(sv[b], [s for _, s in top], rtol=1e-5)
         for d, v in zip(si[b], sv[b]):
@@ -140,10 +177,10 @@ def test_shared_and_per_query_agree_with_host_reference(index):
 
 
 def test_host_bm25_reference_is_the_jax_packages(index):
-    args = (index, ["w1", "heavy"], PROPS, {"body": 0.5}, float(N_DOCS))
+    args = (["w1", "heavy"], PROPS, {"body": 0.5}, float(N_DOCS))
     kw = dict(threshold=1.0, doc_mask=_masks(9, 2)[1])
-    assert texec.host_bm25_reference(*args, **kw) == \
-        jexec.host_bm25_reference(*args, **kw)
+    assert texec.host_bm25_reference(index.torch, *args, **kw) == \
+        jexec.host_bm25_reference(index.jax, *args, **kw)
 
 
 QUERY_CASES = [
@@ -161,8 +198,9 @@ QUERY_CASES = [
 @pytest.mark.parametrize("case", range(len(QUERY_CASES)))
 def test_plan_query_matches_string_index(index, case, use_champions):
     kw = QUERY_CASES[case]
-    exp = index.plan_query(use_champions=use_champions, **kw)
-    got = plan_query(index, use_champions=use_champions, **kw)
+    exp = index.jax.plan_query(use_champions=use_champions, **kw)
+    got = plan_query(index.torch, use_champions=use_champions, **kw)
+    assert type(got) is tsi.QueryPlan
     for name in ("starts", "lens", "weights", "field_b", "avg_flen",
                  "champ_idx", "champ_w"):
         e, g = getattr(exp, name), getattr(got, name)
@@ -177,7 +215,7 @@ def test_plan_query_matches_string_index(index, case, use_champions):
 
 def test_slab_cache_keys_on_uid_and_generation():
     rng = np.random.default_rng(10)
-    idx = StringIndex()
+    idx = tsi.StringIndex()
     for d in range(50):
         _index_doc(idx, rng, d, heavy=False)
     idx.commit()
@@ -194,7 +232,7 @@ def test_slab_cache_keys_on_uid_and_generation():
     n_comm = idx.slab_split()[0][0].shape[0]
     assert torch.equal(slab2.doc[:n_comm], slab.doc[:n_comm])
     # another index with the same generation never hits this entry
-    other = StringIndex()
+    other = tsi.StringIndex()
     for d in range(5):
         _index_doc(other, rng, d, heavy=False)
     other.slab_split()
@@ -220,7 +258,7 @@ def test_hybrid_tails_are_not_ported(index):
     tails["vec_rows_int8"] = vidx.int8_device_rows()
     for name, rows in tails.items():
         v, i, c = texec.SharedBatchExecutor("cpu").search_topk_shared(
-            index, [["nosuchword"]], PROPS, {}, float(N_DOCS), N_DOCS, 5,
+            index.torch, [["nosuchword"]], PROPS, {}, float(N_DOCS), N_DOCS, 5,
             queries=vecs[7:8] / np.linalg.norm(vecs[7]), similarities=[0.1],
             **{name: rows},
         )

@@ -185,8 +185,13 @@ def _sort_inputs(seed):
 
 
 def _sorted_plans(index, qs):
-    return [plan_query(index, q, PROPS, {"title": 2.0}, use_champions=False)
-            for q in qs]
+    """Each package's plans on its own index: (JAX plans, port plans)."""
+    return (
+        [index.jax.plan_query(q, PROPS, {"title": 2.0}, use_champions=False)
+         for q in qs],
+        [plan_query(index.torch, q, PROPS, {"title": 2.0}, use_champions=False)
+         for q in qs],
+    )
 
 
 @pytest.mark.parametrize(
@@ -201,20 +206,21 @@ def _sorted_plans(index, qs):
 def test_search_topk_sorted_matches_jax(index, cls, desc, filtered):  # noqa: F811
     B, k = 6, 64
     qs = _queries(30, B)
-    plans = _sorted_plans(index, qs)
+    jplans, tplans = _sorted_plans(index, qs)
     vals, present = _sort_inputs(31)
     kw = dict(
         sort_vals=vals, sort_present=present,
-        svals_key=("svals", index.uid, "price", 1), desc=desc,
+        svals_key=("svals", 1, "price", 1), desc=desc,
         doc_masks=_masks(32, B) if filtered else None,
         thresholds=[0, 0, 1, 0, 2, 0],
         omc=np.random.default_rng(33).uniform(0.5, 2, N_DOCS).astype(np.float32),
-        omc_key=(index.uid, 1),
+        omc_key=("omc", 1),
     )
-    args = (index, plans, [float(N_DOCS)] * B, N_DOCS, k)
-    exp_ranked, exp_counts = getattr(jexec, cls)().search_topk_sorted(*args, **kw)
+    args = ([float(N_DOCS)] * B, N_DOCS, k)
+    exp_ranked, exp_counts = getattr(jexec, cls)().search_topk_sorted(
+        index.jax, jplans, *args, **kw)
     ex = getattr(texec, cls)("cpu")
-    ranked, counts = ex.search_topk_sorted(*args, **kw)
+    ranked, counts = ex.search_topk_sorted(index.torch, tplans, *args, **kw)
     np.testing.assert_array_equal(counts, exp_counts)
     assert counts.dtype == np.int32 and (counts > 0).sum() >= B - 2
     for got, exp in zip(ranked, exp_ranked):
@@ -226,7 +232,7 @@ def test_search_topk_sorted_matches_jax(index, cls, desc, filtered):  # noqa: F8
     capb = tbm25.round_up_pow2(N_DOCS, 128)
     key = (kw["svals_key"], capb)
     assert ex._fmask_dev.get(key) is not texec._MISS
-    ex._get_device_svals(vals, present, ("svals", index.uid, "price", 2), capb)
+    ex._get_device_svals(vals, present, ("svals", 1, "price", 2), capb)
     assert ex._fmask_dev.get(key) is texec._MISS
 
 
@@ -236,10 +242,10 @@ def test_search_topk_sorted_orders_like_the_host(index):  # noqa: F811
     q = ["w3", "w7"]
     vals, present = _sort_inputs(40)
     ranked, counts = texec.StringSearchTopK("cpu").search_topk_sorted(
-        index, _sorted_plans(index, [q]), [float(N_DOCS)], N_DOCS, 8192,
-        sort_vals=vals, sort_present=present, svals_key=None, desc=True,
+        index.torch, _sorted_plans(index, [q])[1], [float(N_DOCS)], N_DOCS,
+        8192, sort_vals=vals, sort_present=present, svals_key=None, desc=True,
     )
-    ref = texec.host_bm25_reference(index, q, PROPS, {"title": 2.0},
+    ref = texec.host_bm25_reference(index.torch, q, PROPS, {"title": 2.0},
                                     float(N_DOCS))
     with_f = sorted((d for d in ref if present[d]), key=lambda d: (-vals[d], d))
     without = sorted(d for d in ref if not present[d])
@@ -265,20 +271,21 @@ def test_search_topk_grouped_matches_jax(index, n_groups, filtered):  # noqa: F8
     JAX sort branch)."""
     B, k, max_results = 6, 10, 6
     qs = _queries(50 + n_groups, B)
-    plans = _sorted_plans(index, qs)
+    jplans, tplans = _sorted_plans(index, qs)
     gid = np.random.default_rng(51).integers(-1, n_groups, N_DOCS).astype(np.int32)
     kw = dict(
-        gid_col=gid, gid_key=("gid", index.uid, "cat", 1), n_groups=n_groups,
+        gid_col=gid, gid_key=("gid", 1, "cat", 1), n_groups=n_groups,
         max_results=max_results,
         doc_masks=_masks(52, B) if filtered else None,
         thresholds=[0, 0, 1, 0, 2, 0],
         omc=np.random.default_rng(53).uniform(0.5, 2, N_DOCS).astype(np.float32),
-        omc_key=(index.uid, 1),
+        omc_key=("omc", 1),
     )
-    args = (index, plans, [float(N_DOCS)] * B, N_DOCS, k)
-    ev, ei, ec, epages = jexec.StringSearchTopK().search_topk_grouped(*args, **kw)
+    args = ([float(N_DOCS)] * B, N_DOCS, k)
+    ev, ei, ec, epages = jexec.StringSearchTopK().search_topk_grouped(
+        index.jax, jplans, *args, **kw)
     tv, ti, tc, tpages = texec.StringSearchTopK("cpu").search_topk_grouped(
-        *args, **kw)
+        index.torch, tplans, *args, **kw)
     assert_topk_agrees(tv, ti, ev, ei)
     np.testing.assert_array_equal(tc, ec)
     assert len(tpages) == B and all(len(p) == n_groups for p in tpages)
