@@ -33,11 +33,22 @@ launch counts set to 0 just before it and read just after:
 - fused hybrid search on the 1M-doc index with row i of that matrix as
   doc i's vector: `HybridSearchTopK.search_topk_hybrid` (B=8, plain,
   filtered, OMC + match bitmap), `search_topk_hybrid_int8` (B=8,
-  champion plans) and both hybrid tails of `search_topk_shared` (B=1024).
+  champion plans) and both hybrid tails of `search_topk_shared` (B=1024);
+- the pruned full-text tier (`PrunedPlanMixin.search_topk_pruned`) on the
+  repo's 10M-tier text configuration (`benches/hybrid10m_bench.py` at its
+  defaults: 10,485,760 docs, 2^27 postings, vocab 65,536, 3-term
+  queries; `oramacore_tpu_torch/benches/pruned_bench.py`): v4 at B=64,
+  256 (four chunks) and 1, v3 under a 50% filter (B=64), exact tf (B=8),
+  a 1,000-doc filter (B=8, the filter as candidate set) and exact counts
+  (B=8, and B=64 sliced by 8); both rescore kernels, `rescore_bsearch`
+  and `rescore_worklist`, against their plain versions at the inputs of
+  the v4 and v3 B=64 calls.
 
 Search results are held against numpy references: the BM25 reference
 scorer, bf16-rounded vector products summed in f32, a numpy copy of the
-IVF probe scan, and min-max fusion.
+IVF probe scan, min-max fusion, and a numpy copy of the pruned tier's
+nomination (ids and scores against the reference scorer restricted to
+the candidates).
 
 Progress goes to stdout. The second-to-last line is a JSON object with
 one entry per kernel; the last line is `{"ok": true, "device": {...}}`.
@@ -47,6 +58,7 @@ device it exits non-zero at once.
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import sys
@@ -88,8 +100,13 @@ HYBRID_COS = 0.8    # cosine of each hybrid query vector to its source doc
 N_HYBRID_CHECKED = 4
 NEG_INF = -1e30
 
+# phase 12: the pruned tier (benches/hybrid10m_bench.py's text side)
+PRUNED_STEADY = 3     # distinct steady batches after the checked one
+N_PRUNED_CHECKED = 4  # queries of each route held against numpy
+
 # Every ported kernel entry point: its wrapper module, the CUDA source, the
-# TPU kernel it replaces, and the path whose run gives its launch count.
+# TPU kernel (or, with jitted=True, the jitted JAX function) it replaces,
+# and the path whose run gives its launch count.
 KERNELS = (
     dict(name="score_windows",
          module="oramacore_tpu_torch.ops.score_windows", route="cuda",
@@ -103,6 +120,17 @@ KERNELS = (
          module="oramacore_tpu_torch.ops.gather_windows", route="cuda",
          source="oramacore_tpu_torch/ops/csrc/gather_windows.cu",
          replaces="oramacore_tpu/ops/pallas_gather.py:38", path="bench"),
+    # kernels for jitted JAX code (XLA, no pallas_call)
+    dict(name="rescore_bsearch",
+         module="oramacore_tpu_torch.ops.pruned", route="cuda",
+         source="oramacore_tpu_torch/ops/csrc/pruned_rescore.cu",
+         replaces="oramacore_tpu/ops/pruned.py:764", jitted=True,
+         path="pruned"),
+    dict(name="rescore_worklist",
+         module="oramacore_tpu_torch.ops.pruned", route="cuda",
+         source="oramacore_tpu_torch/ops/csrc/pruned_rescore.cu",
+         replaces="oramacore_tpu/ops/pruned.py:242", jitted=True,
+         path="pruned"),
 )
 
 
@@ -1042,6 +1070,193 @@ def phase_hybrid(idx, vec_rows, lay, nprobe, vecs, vb16, batches, refs,
                       f"reference outside near-ties")
 
 
+# ---------------------------------------------------------------------------
+# the pruned full-text tier (phase 12)
+# ---------------------------------------------------------------------------
+
+def pruned_batch(route, j, B, shared):
+    """Batch j of a route: the checked first batch opens with the shared
+    queries, every other batch is distinct."""
+    from oramacore_tpu_torch.benches.pruned_bench import make_queries
+
+    head = shared[:min(len(shared), B)] if j == 0 else []
+    return head + make_queries(B - len(head), seed=1000 * route + j)
+
+
+def pruned_checks(idx, slab_np, run, C, refs, mask, label, counts_exact):
+    """One route's first batch: the nomination of the checked queries
+    against the numpy copy, returned ids and scores against the reference
+    scorer restricted to the candidates, counts; returns the top-10
+    overlap with the exact top-10 of each checked query."""
+    from oramacore_tpu_torch.benches import pruned_bench as pb
+    from oramacore_tpu_torch.index.search_exec import PrunedPlanMixin
+
+    (vals, ids, counts), plans, qs, cands, exact = run
+    fm = None if mask is None else mask.astype(np.float32)
+    n = pb.N_DOCS
+    bad, overlap = [], []
+    for b, ref in enumerate(refs):
+        cand = cands[b]
+        real = {int(d) for d in cand if d < n}
+        if mask is not None and int(mask.sum()) <= C:      # cand_given
+            if sorted(real) != np.nonzero(mask)[0].tolist():
+                bad.append(f"query {b}: the candidates are not the filter")
+        else:
+            idf_row = PrunedPlanMixin._pruned_host_inputs(
+                [plans[b]], [float(n)], None)[4][0]
+            part = pb.nominate_numpy(slab_np, plans[b], idf_row, fm, exact)
+            bad += [f"query {b}: nomination: {e}" for e in
+                    pb.nomination_errors(cand, part, C, n)[:3]]
+        inside = {d: s for d, s in ref.items() if d in real}
+        exp_ids, exp_vals = reference_top(inside, K)
+        bad += [f"query {b}: {e}" for e in
+                topk_errors(ids[b], vals[b], exp_ids, exp_vals, ref)]
+        top, _ = reference_top(ref, K)
+        overlap.append(len(set(top) & {int(d) for d in ids[b][:K]}) / K)
+    if counts_exact:
+        for b, q in enumerate(qs):
+            want = (len(refs[b]) if b < len(refs)
+                    else pb.match_count(idx, q, mask))
+            if int(counts[b]) != want:
+                bad.append(f"query {b}: count {counts[b]} vs {want}")
+    report_check(bad, f"{label}: candidates of {len(refs)} queries equal the "
+                      f"numpy nomination outside near-ties, ids and scores "
+                      f"equal the reference restricted to the candidates"
+                      + (f", counts of {len(qs)} queries exact"
+                         if counts_exact else ""))
+    return overlap
+
+
+def phase_pruned(device, card):
+    """The pruned tier on the 10M-doc text configuration
+    (benches/hybrid10m_bench.py's text side, oramacore_tpu_torch/benches/
+    pruned_bench.py): each route through search_topk_pruned with the
+    launch counts reset before and read after, checked against numpy, and
+    both rescore kernels against their plain versions at the inputs of
+    the v4 B=64 call and of the filtered v3 B=64 call."""
+    import torch
+
+    from oramacore_tpu_torch.benches import pruned_bench as pb
+    from oramacore_tpu_torch.index import string_index as si
+    from oramacore_tpu_torch.index.plan import plan_query
+    from oramacore_tpu_torch.index.search_exec import (
+        PrunedPlanMixin,
+        host_bm25_reference,
+    )
+    from oramacore_tpu_torch.ops import pruned as pr
+
+    t0 = time.perf_counter()
+    idx = pb.build_index()
+    n = pb.N_DOCS
+    slab_np = idx.slab()
+    print(f"  host index build {time.perf_counter() - t0:.1f} s: {n:,} docs, "
+          f"{pb.N_POSTINGS:,} postings + {len(idx._slab_prefix_ranges)} side "
+          f"blocks of {si.PREFIX_LEN:,} ({len(slab_np[0]):,} slab postings)",
+          flush=True)
+    ex = PrunedPlanMixin(device)
+    t0 = time.perf_counter()
+    slab = ex._get_device_slab(idx)
+    sync(device)
+    print(f"  slab to the device: {time.perf_counter() - t0:.2f} s, "
+          f"{sum(c.numel() * 4 for c in slab) / 2**30:.2f} GiB", flush=True)
+    C = min(ex.PRUNED_CANDIDATES, ex.PRUNED_BS_C)
+    rng = np.random.default_rng(12)
+    half = rng.random(n) < 0.5
+    small = np.zeros(n, bool)
+    small[rng.choice(n, 1000, replace=False)] = True
+    shared = pb.make_queries(N_PRUNED_CHECKED, seed=7)
+    t0 = time.perf_counter()
+    refs = {}
+    for name, mask in (("all", None), ("half", half), ("small", small)):
+        refs[name] = [host_bm25_reference(idx, q, ["body"], {}, float(n),
+                                          doc_mask=mask) for q in shared]
+    print(f"  numpy reference for {3 * len(shared)} queries: "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    # label, B, search kwargs, mask name, kernel, counts exact
+    routes = [
+        ("v4 B=64", 64, {}, None, "rescore_bsearch", False),
+        ("v4 B=256 (4 chunks)", 256, {}, None, "rescore_bsearch", False),
+        ("v4 B=1", 1, {}, None, "rescore_bsearch", False),
+        ("v3 50% filter B=64", 64, {}, "half", "rescore_worklist", False),
+        ("v3 exact B=8", 8, dict(exact=True), None, "rescore_worklist", False),
+        ("1,000-doc filter B=8 (cand_given)", 8, {}, "small",
+         "rescore_worklist", True),
+        ("exact_counts B=8", 8, dict(exact_counts=True), None,
+         "rescore_bsearch", True),
+        ("exact_counts B=64 (sliced by 8)", 64, dict(exact_counts=True), None,
+         "rescore_bsearch", True),
+    ]
+    masks = {"half": half, "small": small}
+    total = {}
+    kernel_inputs = {}
+    for ri, (label, B, kw, mname, kernel, counts_exact) in enumerate(routes):
+        mask = masks.get(mname)
+        skw = dict(kw)
+        if mask is not None:
+            skw.update(mask=mask, mask_key=("pruned", mname))
+
+        def search(qs, skw=skw):
+            plans = [plan_query(idx, q, ["body"], {}, with_prefix=True)
+                     for q in qs]
+            t = time.perf_counter()
+            res = ex.search_topk_pruned(idx, plans, [float(n)] * len(qs), n,
+                                        K, **skw)
+            return res, plans, time.perf_counter() - t
+
+        def drive(ri=ri, B=B, kernel=kernel, search=search):
+            qs = pruned_batch(ri, 0, B, shared)
+            (res, plans, first_s), calls = pb.capture(
+                pr, kernel, lambda: search(qs))
+            steady = [search(pruned_batch(ri, j, B, shared))[2]
+                      for j in range(1, 1 + PRUNED_STEADY)]
+            return res, plans, qs, calls, first_s, steady
+
+        torch.cuda.reset_peak_memory_stats()
+        (res, plans, qs, calls, first_s, steady), launches = counted(
+            label, drive)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        for name, c in launches.items():
+            total[name] = total.get(name, 0) + c
+        check(launches[kernel] > 0, f"{label}: launched {kernel} "
+                                    f"({launches[kernel]} launches)")
+        print(f"  {label}: first {first_s * 1e3:.1f} ms; steady over "
+              f"{len(steady)} distinct batches mean "
+              f"{np.mean(steady) * 1e3:.1f} ms (min {min(steady) * 1e3:.1f}, "
+              f"max {max(steady) * 1e3:.1f}), {B / np.mean(steady):.1f} QPS; "
+              f"peak device memory {peak:.2f} GiB [{card}]", flush=True)
+        profile_once(label, lambda: search(
+            pruned_batch(ri, 1 + PRUNED_STEADY, B, shared)), card)
+        cpos = 9 if kernel == "rescore_bsearch" else 6
+        cands = calls[0][0][cpos].cpu().numpy()
+        if label in ("v4 B=64", "v3 50% filter B=64"):
+            kernel_inputs[kernel] = calls[0]
+        run = (res, plans, qs, cands, kw.get("exact", False))
+        ref = refs[mname or "all"][:B]
+        overlap = pruned_checks(idx, slab_np, run, C, ref, mask, label,
+                                counts_exact)
+        print(f"  {label}: top-{K} overlap with the exact top-{K} "
+              f"(information): {', '.join(f'{o:.1f}' for o in overlap)}",
+              flush=True)
+    del refs
+    timings = {}
+    for name, (args, kw) in kernel_inputs.items():
+        try:
+            timings[name] = pb.check_kernel(name, args, kw)
+        except AssertionError as e:
+            raise SmokeFailure(str(e)) from e
+        r = timings[name]
+        check(True, f"{name}: equal to its plain version at the "
+                    f"{'v4 B=64' if name == 'rescore_bsearch' else 'v3 B=64'} "
+                    f"call's inputs (matched exact, scores within rtol 1e-5; "
+                    f"max abs err {r['max_abs_err']:.3g})")
+        print(f"  {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} "
+              f"ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}, "
+              f"{r['bytes'] / 1e6:.1f} MB), {100 * r['bound_ms'] / r['ms']:.1f}"
+              f"% of bound; library call: none [{card}]", flush=True)
+    return timings, total
+
+
 def sync(device):
     import torch
 
@@ -1162,6 +1377,14 @@ def main() -> int:
           flush=True)
     phase_hybrid(idx, (flat_rows, int8_rows), lay, nprobe, vecs, vb16,
                  batches, refs, frefs, run["masks"], N_DOCS, device, card)
+    del idx, vidx, vecs, vb16, flat_rows, int8_rows, lay, run, refs, frefs
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    print("[12] the pruned full-text tier on the 10M-doc text configuration "
+          "(benches/hybrid10m_bench.py)", flush=True)
+    pruned_timings, path_launches["pruned"] = phase_pruned(device, card)
+    timings.update(pruned_timings)
 
     kernels = {"kernels": [{
         "name": k["name"],

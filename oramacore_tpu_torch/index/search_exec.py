@@ -21,8 +21,11 @@ flat vector slab (`search_topk_hybrid`) or the int8 IVF layout
 `SharedBatchExecutor.search_topk_shared` takes the same tuples
 (`vec_rows`, `vec_rows_int8`) for its batched hybrid tails.
 
-Not ported yet: the pruned executors (`PrunedPlanMixin`, and with it
-`search_topk_hybrid_int8_pruned`).
+`PrunedPlanMixin.search_topk_pruned` runs the pruned full-text tier
+(ops/pruned.py) on plans built with `with_prefix=True`; `HybridSearchTopK`
+derives from it, as in the JAX package. Not ported yet: the pruned
+facets (`facet_counts_pruned`, `facet_match_count`, ...) and the pruned
+hybrid (`search_topk_hybrid_int8_pruned`).
 """
 
 from __future__ import annotations
@@ -57,6 +60,12 @@ from ..ops.hybrid import (
     hybrid_finalize_topk_int8,
     hybrid_search_topk_packed,
     hybrid_search_topk_packed_int8,
+)
+from ..ops.pruned import (
+    estimate_match_count,
+    pruned_exact_counts,
+    pruned_fulltext_topk,
+    pruned_fulltext_topk_bs,
 )
 
 HYBRID_INT8_CANDIDATES = 256  # V: IVF candidate rows per hybrid query
@@ -588,6 +597,539 @@ class StringSearchTopK(StringSearchExecutor):
         )
 
 
+class PrunedPlanMixin(StringSearchTopK):
+    """The pruned tier (candidates + exact rescore, ops/pruned.py) for
+    corpora too large for a (B, cap) accumulator. Plans come from
+    `plan_query(..., with_prefix=True)`; the host helpers are the JAX
+    mixin's numpy code. Callers gate eligibility (the JAX read side's
+    `ReadSide._pruned_eligible`: 2M docs and up)."""
+
+    # nomination clip for plans built WITHOUT with_prefix (a fallback:
+    # eligible searches carry with_prefix plans, whose prefix ranges are
+    # the commit-time blocks of depth string_index.PREFIX_LEN)
+    PRUNED_PREFIX = 8192
+    PRUNED_CANDIDATES = 1024
+    PRUNED_LCH = 32768   # rescore worklist chunk length
+    PRUNED_WCH = 128     # worklist entries per JAX scan step (W's bucket)
+    # exact-counts batch slice: queries per dispatch of the counting sort
+    PRUNED_COUNTS_SLICE = 8
+    # v4 batched dispatch chunk, grown while the nominator's sort width
+    # (chunk * T * NPR * lp) stays within PRUNED_BS_SORT_BUDGET
+    PRUNED_BS_BATCH = 64
+    PRUNED_BS_SORT_BUDGET = 16 * 1024 * 1024
+    # v4 binary-search rescore for eligible searches (single-span tokens,
+    # non-exact tf, unfiltered)
+    PRUNED_BS = True          # dispatch eligible searches to v4
+    PRUNED_BS_ACCUM = True    # nominate via accumulated partial scores
+    PRUNED_BS_HP = 2048       # head slice per prefix range (slice mode)
+    PRUNED_BS_C = 1024        # candidate budget (accum mode)
+    PRUNED_BS_BUCKETS = 1024  # rescore bucket-index resolution
+    # bucket-span target of the static offset tables: per-range
+    # resolution K_r = capb >> shift_r sized for about this many postings
+    # per bucket (rescore rounds = log2(max span))
+    PRUNED_BS_SPAN = 16
+
+    @classmethod
+    def _pruned_host_inputs(cls, plans, n_docs, thresholds):
+        """Host arrays for the pruned kernels:
+        (pre_idesc, pre_fdesc, wl_i, wl_f, idf, nd, thr, dfs, lp, T,
+        wl_prev, nre, bs_steps). The worklist packs only real (query,
+        token, chunk) work; the nomination prefixes come from the plans'
+        impact-prefix ranges, with a clipped main range for plans built
+        without `with_prefix`."""
+        B = len(plans)
+        Bb = round_up_pow2(B, 1)
+        T = max(p.starts.shape[0] for p in plans)
+        Tb = round_up_pow2(T, 1)
+        # small corpora: the chunk width follows the longest range (pow2
+        # ladder); the 10M tier lands on PRUNED_LCH
+        max_rl = max(
+            (int(p.lens.max()) if p.lens.size else 1) for p in plans
+        )
+        lch = min(cls.PRUNED_LCH, round_up_pow2(max_rl, 128))
+
+        def pre_of(p):
+            if p.pre_starts is not None:
+                return (p.pre_starts, p.pre_lens, p.pre_weights,
+                        p.pre_field_b, p.pre_avg)
+            return (p.starts, np.minimum(p.lens, cls.PRUNED_PREFIX),
+                    p.weights, p.field_b, p.avg_flen)
+
+        NPR = max(1, max(pre_of(p)[0].shape[1] for p in plans))
+        NPRb = round_up_pow2(NPR, 1)
+        pre_st = np.zeros((Bb, Tb, NPRb), np.int32)
+        pre_ln = np.zeros((Bb, Tb, NPRb), np.int32)
+        pre_w = np.zeros((Bb, Tb, NPRb), np.float32)
+        pre_fb = np.full((Bb, Tb, NPRb), 0.75, np.float32)
+        pre_av = np.ones((Bb, Tb, NPRb), np.float32)
+        lp = 8
+        nd = np.ones((Bb,), np.float32)
+        dfs = np.zeros((Bb, Tb), np.float64)
+        wl = []          # (b, t, start, len, w, fb, av)
+        wl_earlier = []  # per entry: earlier spans of the same token
+        max_span = 0
+        for i, p in enumerate(plans):
+            nd[i] = max(float(n_docs[i]), 1.0)
+            ps, pl, pw, pf, pa = pre_of(p)
+            t_, r_ = ps.shape
+            pre_st[i, :t_, :r_] = ps
+            pre_ln[i, :t_, :r_] = pl
+            pre_w[i, :t_, :r_] = pw
+            pre_fb[i, :t_, :r_] = pf
+            pre_av[i, :t_, :r_] = pa
+            if pl.size:
+                lp = max(lp, int(pl.max()))
+            t_n, r_n = p.starts.shape
+            for t in range(t_n):
+                # earlier spans of the SAME token (any field or tolerance
+                # variant) except the range's own (field, term): the
+                # device df subtraction dedups across them (union df)
+                spans_t = (p.spans[t] if p.spans is not None
+                           and t < len(p.spans) else [])
+                for r in range(r_n):
+                    ln = int(p.lens[t, r])
+                    if ln <= 0:
+                        continue
+                    dfs[i, t] += ln
+                    s0 = int(p.starts[t, r])
+                    w0 = float(p.weights[t, r])
+                    b0 = float(p.field_b[t, r])
+                    a0 = float(p.avg_flen[t, r])
+                    so = (
+                        int(p.range_span[t, r])
+                        if p.range_span is not None else -1
+                    )
+                    if so >= 0:
+                        me = spans_t[so][:2]
+                        earlier = [
+                            (rs, rl)
+                            for (fo, to, rs, rl) in spans_t[:so]
+                            if (fo, to) != me
+                        ]
+                    else:
+                        earlier = []
+                    for (_rs, rl) in earlier:
+                        max_span = max(max_span, rl)
+                    off = 0
+                    while off < ln:
+                        take = min(ln - off, lch)
+                        wl.append((i, t, s0 + off, take, w0, b0, a0))
+                        wl_earlier.append(earlier)
+                        off += take
+        lp = round_up_pow2(lp, 8)
+        W = round_up_pow2(max(len(wl), 1), cls.PRUNED_WCH)
+        wl_i = np.zeros((4, W), np.int32)
+        wl_f = np.zeros((3, W), np.float32)
+        wl_f[2, :] = 1.0
+        for j, (b, t, s0, ln, w0, b0, a0) in enumerate(wl):
+            wl_i[:, j] = (b, t, s0, ln)
+            wl_f[:, j] = (w0, b0, a0)
+        nre = max((len(e) for e in wl_earlier), default=0)
+        nre = round_up_pow2(nre, 1) if nre else 0
+        wl_prev = None
+        bs_steps = 0
+        if nre:
+            wl_prev = np.zeros((2, W, nre), np.int32)
+            for j, earlier in enumerate(wl_earlier):
+                for e, (rs, rl) in enumerate(earlier):
+                    wl_prev[0, j, e] = rs
+                    wl_prev[1, j, e] = rl
+            bs_steps = 4
+            while (1 << bs_steps) < max_span + 1:
+                bs_steps += 4
+        # clamp to the corpus size: tolerance sums variant ranges, so the
+        # raw host df can exceed nd; nomination-only (the rescore counts
+        # the deduplicated df on the device)
+        d = np.minimum(np.maximum(dfs, 1.0), nd[:, None])
+        idf = np.where(
+            dfs > 0,
+            np.log1p((nd[:, None] - d + 0.5) / (d + 0.5)),
+            0.0,
+        ).astype(np.float32)
+        thr = np.zeros((Bb,), np.float32)
+        if thresholds is not None:
+            for i, t in enumerate(thresholds):
+                thr[i] = t or 0.0
+        pre_idesc = np.stack([pre_st, pre_ln])
+        pre_fdesc = np.stack([pre_w, pre_fb, pre_av])
+        return (pre_idesc, pre_fdesc, wl_i, wl_f, idf, nd, thr, dfs,
+                int(lp), int(Tb), wl_prev, int(nre), int(bs_steps))
+
+    @classmethod
+    def _pruned_bs_inputs(cls, plans):
+        """Host arrays for the v4 binary-search rescore: UNSPLIT
+        doc-sorted ranges per (query, token). Plan builders split ranges
+        at MAX_RANGE_LEN; pieces split from one span (same range_span
+        ordinal, start-adjacent, same field params) re-join here, so NR is
+        the real span count and each range stays globally doc-sorted.
+        Returns (rng_i int32[2, Bb, Tb, NRU], rng_f f32[3, Bb, Tb, NRU],
+        bs_steps)."""
+        B = len(plans)
+        Bb = round_up_pow2(B, 1)
+        T = max(p.starts.shape[0] for p in plans)
+        Tb = round_up_pow2(T, 1)
+        per = []  # [b][t] -> list of (start, len, w, fb, av)
+        nru = 1
+        max_len = 1
+        for p in plans:
+            rows = []
+            t_n, r_n = p.starts.shape
+            for t in range(t_n):
+                items = sorted(
+                    (
+                        (int(p.starts[t, r]), int(p.lens[t, r]),
+                         float(p.weights[t, r]), float(p.field_b[t, r]),
+                         float(p.avg_flen[t, r]),
+                         int(p.range_span[t, r])
+                         if p.range_span is not None else -1 - r)
+                        for r in range(r_n)
+                        if int(p.lens[t, r]) > 0
+                    ),
+                )
+                merged: list = []
+                m_span: list = []
+                for s0, ln, w0, b0, a0, so in items:
+                    # only pieces of ONE span re-join: two distinct
+                    # doc-sorted ranges that happen to abut are not
+                    # doc-sorted together
+                    if merged and m_span[-1] == so and so >= 0 \
+                            and merged[-1][0] + merged[-1][1] == s0 \
+                            and merged[-1][2:] == (w0, b0, a0):
+                        prev = merged[-1]
+                        merged[-1] = (prev[0], prev[1] + ln, w0, b0, a0)
+                    else:
+                        merged.append((s0, ln, w0, b0, a0))
+                        m_span.append(so)
+                rows.append(merged)
+                nru = max(nru, len(merged))
+                for m in merged:
+                    max_len = max(max_len, m[1])
+            per.append(rows)
+        NRU = round_up_pow2(nru, 1)
+        rng_st = np.zeros((Bb, Tb, NRU), np.int32)
+        rng_ln = np.zeros((Bb, Tb, NRU), np.int32)
+        rng_w = np.zeros((Bb, Tb, NRU), np.float32)
+        rng_fb = np.full((Bb, Tb, NRU), 0.75, np.float32)
+        rng_av = np.ones((Bb, Tb, NRU), np.float32)
+        for i, rows in enumerate(per):
+            for t, merged in enumerate(rows):
+                for r, (s0, ln, w0, b0, a0) in enumerate(merged):
+                    rng_st[i, t, r] = s0
+                    rng_ln[i, t, r] = ln
+                    rng_w[i, t, r] = w0
+                    rng_fb[i, t, r] = b0
+                    rng_av[i, t, r] = a0
+        bs_steps = 4
+        while (1 << bs_steps) < max_len + 1:
+            bs_steps += 4
+        rng_i = np.stack([rng_st, rng_ln])
+        rng_f = np.stack([rng_w, rng_fb, rng_av])
+        return rng_i, rng_f, int(bs_steps)
+
+    def _pruned_bs_chunk(self, plans) -> int:
+        """Batched v4 dispatch chunk: PRUNED_BS_BATCH doubled while the
+        chunk's nominator sort width (chunk * max(T*NPR) * max(lp); the
+        batch pads T*NPR and lp independently) stays within
+        PRUNED_BS_SORT_BUDGET."""
+        max_tnpr = 0
+        max_lpq = 0
+        for pl in plans:
+            if pl.pre_lens is not None and pl.pre_lens.size:
+                lpq = round_up_pow2(max(8, int(pl.pre_lens.max())), 8)
+                t_npr = pl.pre_lens.shape[0] * pl.pre_lens.shape[1]
+                max_tnpr = max(max_tnpr, t_npr)
+                max_lpq = max(max_lpq, lpq)
+        width = max_tnpr * max_lpq
+        S = self.PRUNED_BS_BATCH
+        if width:
+            while width * (S * 2) <= self.PRUNED_BS_SORT_BUDGET:
+                S *= 2
+        return S
+
+    def _pruned_bs_boff(self, index, rng_i, capb: int, bs_steps: int):
+        """Static per-range bucket-offset tables for the v4 rescore. Each
+        distinct committed range gets one offsets row at its own
+        resolution K_r = capb >> shift_r (about PRUNED_BS_SPAN postings
+        per bucket), built on first use, kept on the device and cached by
+        (index.uid, generation); a batch ships only (B, T, NR) base and
+        shift arrays. flat[0:2] is a zero dummy row for empty ranges.
+
+        Returns (flat_dev | None, base, shift, steps); (None, None, None,
+        bs_steps) when a span crosses the committed / live boundary."""
+        comm, live, _ck = index.slab_split()
+        n_comm = len(comm[0]) if comm is not None else 0
+        gen = (index.uid, index.generation)
+        state = getattr(self, "_boff_flat", None)
+        if state is None or state["key"] != gen:
+            state = {
+                "key": gen,
+                "spans": {},
+                "rows": [np.zeros(2, np.int32)],  # dummy row at 0
+                "total": 2,
+                "dev": None,
+            }
+            self._boff_flat = state
+        spans = state["spans"]
+        full_shift = max(capb.bit_length() - 1, 0)
+        rng_st, rng_ln = rng_i[0], rng_i[1]
+        Bb, Tb, NRU = rng_st.shape
+        base = np.zeros((Bb, Tb, NRU), np.int32)
+        shift = np.full((Bb, Tb, NRU), full_shift, np.int32)
+        max_span = 1
+        for b in range(Bb):
+            for t in range(Tb):
+                for r in range(NRU):
+                    ln = int(rng_ln[b, t, r])
+                    if ln <= 0:
+                        continue  # dummy row
+                    s0 = int(rng_st[b, t, r])
+                    hit = spans.get((s0, ln))
+                    if hit is None:
+                        if s0 < n_comm:
+                            seg = comm[0][s0:s0 + ln]
+                        elif live is not None:
+                            seg = live[0][s0 - n_comm:s0 - n_comm + ln]
+                        else:
+                            seg = np.zeros(0, np.int32)
+                        if len(seg) != ln:
+                            return None, None, None, bs_steps
+                        sh = full_shift
+                        while sh > 0 and (
+                            ln << sh
+                        ) > capb * self.PRUNED_BS_SPAN:
+                            sh -= 1
+                        K = max(capb >> sh, 1)
+                        grid = np.arange(1, K, dtype=np.int64) << sh
+                        row = np.empty(K + 1, np.int32)
+                        row[0] = 0
+                        if K > 1:
+                            row[1:K] = np.searchsorted(seg, grid)
+                        row[K] = ln
+                        hit = (state["total"], sh, int(np.diff(row).max()))
+                        spans[(s0, ln)] = hit
+                        state["rows"].append(row)
+                        state["total"] += K + 1
+                        state["dev"] = None
+                    base[b, t, r] = hit[0]
+                    shift[b, t, r] = hit[1]
+                    max_span = max(max_span, hit[2])
+        if state["dev"] is None:
+            # pow2-padded: the zero tail also absorbs the sentinel
+            # candidate's read of at_j + 1 past the last row
+            flat = np.concatenate(state["rows"])
+            Lp = 1
+            while Lp < len(flat) + 1:
+                Lp <<= 1
+            buf = np.zeros(Lp, np.int32)
+            buf[:len(flat)] = flat
+            state["dev"] = self._to_dev(buf)
+        steps = 4
+        while (1 << steps) < max_span + 1:
+            steps += 4
+        return state["dev"], base, shift, steps
+
+    @staticmethod
+    def _pruned_counts(cand_counts, dfs, nd, thresholds, B,
+                       sel_frac: float = 1.0):
+        """Corpus-wide match counts for the pruned path: the union-
+        probability estimate floored by the verified-candidate lower
+        bound. Thresholded queries keep the lower bound; filtered ones
+        scale the estimate by the filter's selectivity."""
+        out = np.asarray(cand_counts[:B]).copy()
+        for i in range(B):
+            thr_i = 0.0
+            if thresholds is not None and i < len(thresholds):
+                thr_i = thresholds[i] or 0.0
+            if thr_i <= 0.0:
+                est = estimate_match_count(
+                    float(nd[i]), [d for d in dfs[i] if d > 0]
+                )
+                out[i] = max(int(out[i]), int(round(est * sel_frac)))
+        return out
+
+    def _pruned_mask_inputs(self, mask, mask_key, cap, capb, Bb, C):
+        """Device inputs of a FILTERED pruned search: the f32 mask and,
+        when the filter selects <= C docs, those docs as the candidate
+        set (phase 1 skipped; results and counts exact). Returns
+        (fmask_dev, cand_in, cand_given, sel)."""
+        fmask_dev = self._get_device_fmask(mask, mask_key, capb)
+        sel = int(np.count_nonzero(mask[:cap]))
+        cand_in = None
+        cand_given = False
+        if sel <= C:
+            ids = np.nonzero(mask[:cap])[0].astype(np.int32)
+            cand_np = np.full((Bb, C), capb, np.int32)
+            if len(ids):
+                cand_np[:, : len(ids)] = ids[None, :]
+            cand_in = self._to_dev(cand_np)
+            cand_given = True
+        return fmask_dev, cand_in, cand_given, sel
+
+    def _exact_counts_sliced(self, slab, wl_i, thr, fmask_dev, *, B, capb,
+                             Tb, exact, has_filter):
+        """The exact-counts dispatch in slices of at most
+        PRUNED_COUNTS_SLICE queries (the JAX package slices because its
+        global sort grows superlinearly on the TPU; kept so both packages
+        dispatch the same work)."""
+        S = self.PRUNED_COUNTS_SLICE
+
+        def run(wl, th):
+            return pruned_exact_counts(
+                slab.doc, slab.tf, slab.exact_tf, self._to_dev(wl),
+                self._to_dev(th), fmask_dev, lch=self.PRUNED_LCH, cap=capb,
+                T=Tb, exact=exact, has_filter=has_filter,
+            ).cpu().numpy()
+
+        if B <= S:
+            return run(wl_i, thr)[:B]
+        bw, ln = wl_i[0], wl_i[3]
+        counts = np.zeros((B,), np.int32)
+        for s0 in range(0, B, S):
+            cols = np.nonzero((bw >= s0) & (bw < s0 + S) & (ln > 0))[0]
+            Ws = round_up_pow2(max(len(cols), 1), 2)
+            wls = np.zeros((4, Ws), np.int32)
+            wls[:, : len(cols)] = wl_i[:, cols]
+            wls[0, : len(cols)] -= s0
+            thrs = np.zeros((S,), np.float32)
+            take = min(S, B - s0)
+            thrs[:take] = thr[s0:s0 + take]
+            counts[s0:s0 + take] = run(wls, thrs)[:take]
+        return counts
+
+    def search_topk_pruned(
+        self,
+        index: StringIndex,
+        plans: Sequence[QueryPlan],
+        n_docs: Sequence[float],
+        cap: int,
+        k: int,
+        exact: bool = False,
+        thresholds: Optional[Sequence[float]] = None,
+        omc: Optional[np.ndarray] = None,
+        omc_key=None,
+        exact_counts: bool = False,
+        mask: Optional[np.ndarray] = None,
+        mask_key=None,
+    ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """Pruned full-text search on one device: (vals f32[B, k], ids
+        int32[B, k], counts int32[B]).
+
+        Routes, as in the JAX package: v4 (nomination + binary-search
+        rescore, `rescore_bsearch`) for unfiltered, non-exact searches
+        whose tokens each hit one span, dispatched in chunks of
+        `_pruned_bs_chunk` queries; v3 (nomination + worklist rescore,
+        `rescore_worklist`) otherwise. `mask` (bool[cap], True = allowed)
+        filters every plan, with the dense path's filtered-df idf; a mask
+        of at most PRUNED_CANDIDATES docs is the candidate set itself, so
+        results and counts are exact. exact_counts=True replaces the
+        count estimate by a second, exact dispatch."""
+        slab = self._get_device_slab(index)
+        B = len(plans)
+        capb = round_up_pow2(cap, 128)
+        (pre_idesc, pre_fdesc, wl_i, wl_f, idf, nd, thr, dfs, lp, Tb,
+         wl_prev, nre, bs_steps) = (
+            self._pruned_host_inputs(plans, n_docs, thresholds)
+        )
+        has_omc = omc is not None
+        if has_omc:
+            omc_dev = self._get_device_omc(omc, omc_key, capb)
+        else:
+            omc_dev = torch.ones((1,), dtype=torch.float32, device=self.device)
+        # a candidate budget past the doc space only inflates shapes
+        C = min(self.PRUNED_CANDIDATES, round_up_pow2(cap, 8))
+        has_filter = mask is not None
+        fmask_dev = None
+        cand_in = None
+        cand_given = False
+        sel = None
+        if has_filter:
+            fmask_dev, cand_in, cand_given, sel = self._pruned_mask_inputs(
+                mask, mask_key, cap, capb, idf.shape[0], C
+            )
+        use_bs = (
+            self.PRUNED_BS and not exact and not has_filter and nre == 0
+        )
+        S = self._pruned_bs_chunk(plans) if use_bs else B
+        if B > S:
+            parts = [
+                self.search_topk_pruned(
+                    index, plans[i:i + S], n_docs[i:i + S], cap, k,
+                    exact=exact,
+                    thresholds=(
+                        thresholds[i:i + S] if thresholds is not None
+                        else None
+                    ),
+                    omc=omc, omc_key=omc_key, exact_counts=exact_counts,
+                )
+                for i in range(0, B, S)
+            ]
+            return (
+                np.concatenate([p[0] for p in parts]),
+                np.concatenate([p[1] for p in parts]),
+                np.concatenate([p[2] for p in parts]),
+            )
+        dev = self._to_dev
+        if use_bs:
+            # v4: exact host idf (single-span tokens, unfiltered, stemmed
+            # tf >= 1: range lengths are the df)
+            rng_i, rng_f, rbs_steps = self._pruned_bs_inputs(plans)
+            bflat, bbase, bshift, rbs_steps = self._pruned_bs_boff(
+                index, rng_i, capb, rbs_steps
+            )
+            if self.PRUNED_BS_ACCUM:
+                Cb = min(self.PRUNED_BS_C, round_up_pow2(cap, 8))
+            else:
+                Cb = pre_idesc.shape[2] * pre_idesc.shape[3] * \
+                    self.PRUNED_BS_HP
+            kb = min(round_up_pow2(k, 8), Cb)
+            vals, ids, cand_counts = pruned_fulltext_topk_bs(
+                slab.doc, slab.tf, slab.flen,
+                dev(pre_idesc[0]), dev(pre_idesc[1]),
+                dev(rng_i), dev(rng_f), dev(idf), dev(thr), omc_dev, None,
+                dev(pre_fdesc) if self.PRUNED_BS_ACCUM else None,
+                (bflat, dev(bbase), dev(bshift))
+                if bflat is not None else None,
+                hp=self.PRUNED_BS_HP, cap=capb, k=kb,
+                bs_steps=rbs_steps, has_omc=has_omc,
+                nom_accum=self.PRUNED_BS_ACCUM,
+                lp=lp if self.PRUNED_BS_ACCUM else 0,
+                C=Cb if self.PRUNED_BS_ACCUM else 0,
+            )
+        else:
+            kb = min(round_up_pow2(k, 8), C)
+            vals, ids, cand_counts = pruned_fulltext_topk(
+                slab.doc, slab.tf, slab.exact_tf, slab.flen,
+                dev(pre_idesc), dev(pre_fdesc), dev(wl_i), dev(wl_f),
+                dev(idf), dev(nd), dev(thr), omc_dev,
+                dev(wl_prev) if wl_prev is not None else None,
+                fmask_dev, cand_in,
+                lp=lp, lch=self.PRUNED_LCH, cap=capb, C=C, k=kb, T=Tb,
+                exact=exact, has_omc=has_omc, nre=nre, bs_steps=bs_steps,
+                has_filter=has_filter, cand_given=cand_given,
+            )
+        cand_counts = cand_counts[:B].cpu().numpy()
+        if cand_given:
+            # every in-filter doc was verified: counts are exact
+            counts = cand_counts
+        elif exact_counts:
+            counts = self._exact_counts_sliced(
+                slab, wl_i, thr, fmask_dev, B=B, capb=capb, Tb=Tb,
+                exact=exact, has_filter=has_filter,
+            )
+        else:
+            sel_frac = 1.0
+            if sel is not None:
+                sel_frac = sel / max(float(nd[0]), 1.0)
+            counts = self._pruned_counts(
+                cand_counts, dfs, nd, thresholds, B, sel_frac=sel_frac
+            )
+        return (
+            vals[:B, :k].cpu().numpy(),
+            ids[:B, :k].cpu().numpy(),
+            counts,
+        )
+
+
 def _rescale_kw(rescale: Optional[Tuple[float, float]]) -> dict:
     return dict(
         has_rescale=rescale is not None,
@@ -603,7 +1145,7 @@ def _ivf_candidates(candidates: Optional[int], n_rows: int) -> int:
     )
 
 
-class HybridSearchTopK(StringSearchTopK):
+class HybridSearchTopK(PrunedPlanMixin):
     """Fused hybrid: BM25F + vector similarities + min-max fusion +
     threshold + OMC + top-k on the device; only (B, k) values / ids (and
     counts, and optionally the packed match set) come back."""

@@ -19,9 +19,9 @@ the JAX index to the TPU:
   commit makes them physical.
 
 Left out of the copy: the native (C++) live accumulator (the Python path
-is the JAX module's semantic oracle for it), `index_text_packed`, the
-msgpack snapshots, and the `with_prefix` (pruned tier) branch of
-`plan_query`, whose dense branch is `index/plan.py::plan_query`.
+is the JAX module's semantic oracle for it), `index_text_packed` and the
+msgpack snapshots. `plan_query`'s body, with its `with_prefix` (pruned
+tier) branch, is `index/plan.py::plan_query`.
 """
 
 from __future__ import annotations
@@ -158,8 +158,11 @@ class QueryPlan:
     """Padded posting-range descriptors for one query, feeding the kernel.
 
     Shapes: (T, NR) for starts/lens/weights/field_b/avg_flen. The pruned
-    tier's fields (pre_*, range_field, range_span, spans) stay None until
-    that tier is ported.
+    tier's fields are set by `plan_query(..., with_prefix=True)` only:
+    pre_* (T, NPR) impact-prefix nomination ranges, range_field and
+    range_span (T, NR) each main range's field and span ordinals (-1 =
+    padding), spans[t] the token's (field ordinal, term ordinal, start,
+    len) spans.
     """
 
     starts: np.ndarray
@@ -1068,9 +1071,10 @@ class StringIndex:
         field_params: Optional[Dict[str, Tuple[float, float]]] = None,
         token_weights: Optional[Sequence[float]] = None,
         use_champions: bool = False,
+        with_prefix: bool = False,
     ) -> QueryPlan:
-        """Padded range descriptors (T, NR) for the scoring kernel: the
-        JAX method's dense branch (`with_prefix=False`), which is
+        """Padded range descriptors (T, NR) for the scoring kernels, and
+        with `with_prefix` the pruned tier's nomination ranges and spans:
         `index/plan.py::plan_query`."""
         from .plan import plan_query
 
@@ -1078,6 +1082,7 @@ class StringIndex:
             self, tokens, properties, boost, tolerance=tolerance,
             impact_cap=impact_cap, field_params=field_params,
             token_weights=token_weights, use_champions=use_champions,
+            with_prefix=with_prefix,
         )
 
     # ------------------------------------------------------------------

@@ -414,3 +414,228 @@ def test_vector_index_ivf_build_on_the_card_equals_the_cpu(cuda):
     for got, exp in ((gf, cf), (gs, cs)):
         assert set(got) == set(exp)
         assert all(abs(got[d] - exp[d]) <= 1e-5 for d in exp)
+
+
+def _term_slab(rng, n_terms, n_docs, dev, max_df=30_000):
+    """A slab of doc-sorted per-term ranges (distinct docs per term), tf
+    in {1, 2, 3} with an exact tf that is sometimes 0, flen in [5, 50):
+    (doc, tf, etf, flen) on `dev`, and each term's (start, len)."""
+    dfs = rng.integers(1, max_df, n_terms)
+    docs = [np.sort(rng.choice(n_docs, int(d), replace=False)) for d in dfs]
+    doc = np.concatenate(docs).astype(np.int32)
+    n = len(doc)
+    tf = rng.integers(1, 4, n).astype(np.float32)
+    etf = np.where(rng.random(n) < 0.7, tf, 0).astype(np.float32)
+    flen = rng.uniform(5, 50, n).astype(np.float32)
+    starts = np.concatenate([[0], np.cumsum(dfs)[:-1]])
+    ranges = list(zip(starts.tolist(), dfs.tolist()))
+    cols = [torch.from_numpy(a).to(dev) for a in (doc, tf, etf, flen)]
+    return cols, ranges
+
+
+def _candidates(rng, B, C, n_docs, n_real):
+    """int32[B, C] ascending: n_real distinct docs, then n_docs (cap)."""
+    cand = np.full((B, C), n_docs, np.int32)
+    for b in range(B):
+        cand[b, :n_real] = np.sort(rng.choice(n_docs, n_real, replace=False))
+    return cand
+
+
+def _boff(corpus, st, ln, capb, span=4):
+    """Bucket-offset tables as search_exec._pruned_bs_boff builds them:
+    (flat, base, shift, steps); flat[0:2] is the empty-range row."""
+    p_doc = corpus["p_doc"]
+    full = capb.bit_length() - 1
+    rows, total, spans = [np.zeros(2, np.int32)], 2, {}
+    base = np.zeros(st.shape, np.int32)
+    shift = np.full(st.shape, full, np.int32)
+    max_span = 1
+    for i in np.ndindex(st.shape):
+        s0, n = int(st[i]), int(ln[i])
+        if n <= 0:
+            continue
+        if (s0, n) not in spans:
+            sh = full
+            while sh > 0 and (n << sh) > capb * span:
+                sh -= 1
+            K = max(capb >> sh, 1)
+            row = np.empty(K + 1, np.int32)
+            row[0], row[K] = 0, n
+            row[1:K] = np.searchsorted(p_doc[s0:s0 + n],
+                                       np.arange(1, K, dtype=np.int64) << sh)
+            spans[(s0, n)] = (total, sh, int(np.diff(row).max()))
+            rows.append(row)
+            total += K + 1
+        base[i], shift[i], ms = spans[(s0, n)]
+        max_span = max(max_span, ms)
+    flat = np.concatenate(rows)
+    buf = np.zeros(1 << int(np.ceil(np.log2(len(flat) + 1))), np.int32)
+    buf[:len(flat)] = flat
+    steps = 4
+    while (1 << steps) < max_span + 1:
+        steps += 4
+    return buf, base, shift, steps
+
+
+@pytest.mark.parametrize("with_boff", [False, True])
+def test_rescore_bsearch_kernel(cuda, with_boff):
+    """Empty ranges, ranges that end the slab, cap sentinels and NR=2
+    pieces: the kernel against its plain version on the card (the same
+    summation order: scores within rtol 1e-6, matched exact)."""
+    from oramacore_tpu_torch.ops import pruned as pr
+
+    rng = np.random.default_rng(30)
+    n_docs, B, T, NR, C = 200_000, 8, 3, 2, 1024
+    (doc, tf, _etf, flen), ranges = _term_slab(rng, 40, n_docs, cuda)
+    n = doc.shape[0]
+    st = np.zeros((B, T, NR), np.int32)
+    ln = np.zeros((B, T, NR), np.int32)
+    for b in range(B):
+        for t in range(T):
+            s, d = ranges[int(rng.integers(0, len(ranges)))]
+            half = d // 2
+            st[b, t] = (s, s + half)
+            ln[b, t] = (half, d - half)
+    ln[1, 2] = 0                                       # an empty token
+    st[2, 0], ln[2, 0] = (ranges[-1][0], ranges[-1][0] + ranges[-1][1] // 2), \
+        (ranges[-1][1] // 2, ranges[-1][1] - ranges[-1][1] // 2)  # slab end
+    assert st[2, 0, 1] + ln[2, 0, 1] == n
+    cand = _candidates(rng, B, C, n_docs, 900)
+    cand[3] = n_docs                                   # only sentinels
+    # half of each query's candidates are docs of its ranges: many hits
+    for b in range(B):
+        s, d = int(st[b, 0, 0]), int(ln[b, 0, 0])
+        if d:
+            own = doc[s:s + d].cpu().numpy()[:450]
+            rest = np.setdiff1d(cand[b, :900], own)[:900 - len(own)]
+            cand[b] = n_docs
+            cand[b, :len(own) + len(rest)] = np.sort(np.concatenate([own, rest]))
+    cand[3] = n_docs
+    idf = rng.uniform(0.5, 5, (B, T)).astype(np.float32)
+    desc = [torch.from_numpy(a).to(cuda) for a in (
+        st, ln, rng.uniform(0.5, 2, (B, T, NR)).astype(np.float32),
+        rng.uniform(0.3, 0.9, (B, T, NR)).astype(np.float32),
+        rng.uniform(10, 40, (B, T, NR)).astype(np.float32), idf, cand)]
+    steps = 16
+    boff = None
+    if with_boff:
+        corpus = {"p_doc": doc.cpu().numpy()}
+        flat, base, shift, steps = _boff(corpus, st, ln, 1 << 18, span=16)
+        boff = tuple(torch.from_numpy(a).to(cuda) for a in (flat, base, shift))
+    before = pr.LAUNCHES["rescore_bsearch"]
+    s, m = pr.rescore_bsearch(doc, tf, flen, *desc, bs_steps=steps, boff=boff)
+    torch.cuda.synchronize()
+    assert pr.LAUNCHES["rescore_bsearch"] == before + 1
+    ps, pm = pr.rescore_bsearch_plain(doc, tf, flen, *desc, bs_steps=steps,
+                                      boff=boff)
+    assert torch.equal(m, pm)
+    torch.testing.assert_close(s, ps, rtol=1e-6, atol=1e-6)
+    assert pm.sum() > 1000 and not pm[3].any()
+
+
+WL_CARD_CASES = ["plain", "fmask", "exact", "nre", "filter_selects_nothing",
+                 "slab_end", "large_c"]
+
+
+@pytest.mark.parametrize("case", WL_CARD_CASES)
+def test_rescore_worklist_kernel(cuda, case):
+    """The worklist kernel against its plain version on the card: scores
+    within rtol 1e-5 / atol 1e-6 (atomic adds reorder the sums), matched
+    exact. Padding entries, repeated and sentinel candidates in every
+    case; `slab_end` puts entries within lch of the slab's end (the start
+    clamps, as JAX's dynamic_slice does); `large_c` needs more than 48 KB
+    of shared memory for the candidate table."""
+    from oramacore_tpu_torch.ops import pruned as pr
+
+    rng = np.random.default_rng(31)
+    n_docs, B, T, lch = 100_000, 6, 3, 4096
+    C = 16384 if case == "large_c" else 1024
+    (doc, tf, etf, flen), ranges = _term_slab(rng, 30, n_docs, cuda)
+    n = doc.shape[0]
+    tf_src = etf if case == "exact" else tf
+    wl, prev = [], []
+    for b in range(B):
+        for t in range(T):
+            picks = [ranges[int(rng.integers(0, len(ranges)))]
+                     for _ in range(2 if case == "nre" else 1)]
+            for k, (s, d) in enumerate(picks):
+                for off in range(0, d, lch):
+                    wl.append((b, t, s + off, min(lch, d - off)))
+                    prev.append(picks[:k])
+    if case == "slab_end":
+        wl += [(0, 0, n - 100, 100), (1, 1, n - lch + 7, lch - 7)]
+        prev += [[], []]
+    W = -(-len(wl) // 128) * 128 + 128                 # padding entries
+    wl_i = np.zeros((4, W), np.int32)
+    wl_i[:, :len(wl)] = np.array(wl, np.int32).T
+    wl_f = np.stack([rng.uniform(0.5, 2, W), rng.uniform(0.3, 0.9, W),
+                     np.full(W, 27.5)]).astype(np.float32)
+    nre = 1 if case == "nre" else 0
+    wl_prev = None
+    if nre:
+        wl_prev = np.zeros((2, W, 1), np.int32)
+        for j, p in enumerate(prev):
+            if p:
+                wl_prev[:, j, 0] = p[0]
+        wl_prev = torch.from_numpy(wl_prev).to(cuda)
+    cand = _candidates(rng, B, C, n_docs, min(C - 40, n_docs // 4))
+    cand[0, 10:20] = cand[0, 10]                       # repeated ids
+    cand = np.sort(cand, axis=1)
+    fmask = None
+    if case in ("fmask", "filter_selects_nothing"):
+        keep = rng.random(n_docs) < (0.5 if case == "fmask" else 0.0)
+        fmask = torch.from_numpy(keep.astype(np.float32)).to(cuda)
+    args = [doc, tf_src, flen] + [torch.from_numpy(a).to(cuda) for a in (
+        wl_i, wl_f, np.full(B, float(n_docs), np.float32), cand)]
+    kw = dict(lch=lch, T=T, nre=nre, bs_steps=16 if nre else 0)
+    before = pr.LAUNCHES["rescore_worklist"]
+    s, m = pr.rescore_worklist(*args, wl_prev, fmask, **kw)
+    torch.cuda.synchronize()
+    assert pr.LAUNCHES["rescore_worklist"] == before + 1
+    ps, pm = pr.rescore_worklist_plain(*args, wl_prev, fmask, **kw)
+    assert torch.equal(m, pm)
+    torch.testing.assert_close(s, ps, rtol=1e-5, atol=1e-6)
+    if case == "filter_selects_nothing":
+        assert not pm.any()
+    else:
+        assert pm.sum() > 100
+        assert torch.equal(pm[0, 10:20], pm[0, 10:11].expand(10))
+
+
+def test_pruned_search_on_the_card_equals_the_cpu(cuda):
+    """search_topk_pruned's routes on one small index, the card against
+    the CPU: v4, v3 filtered, exact, cand_given and exact counts."""
+    from oramacore_tpu_torch.index import search_exec as ex
+    from oramacore_tpu_torch.index import string_index as si
+    from oramacore_tpu_torch.index.plan import plan_query
+
+    rng = np.random.default_rng(32)
+    vocab = [f"w{i}" for i in range(40)]
+    p = 1.0 / (np.arange(40) + 3.0)
+    idx = si.StringIndex()
+    n_docs = 6000
+    old = si.PREFIX_LEN
+    si.PREFIX_LEN = 512
+    try:
+        for d in range(n_docs):
+            words = rng.choice(vocab, int(rng.integers(3, 12)), p=p / p.sum())
+            idx.index_text(d, "body", [(w, ["stem" + w[1:]]) for w in words])
+        idx.commit()
+        qs = [list(rng.choice(vocab[:20], 3)) for _ in range(8)]
+        plans = [plan_query(idx, q, ["body"], {}, with_prefix=True) for q in qs]
+    finally:
+        si.PREFIX_LEN = old
+    assert idx._slab_prefix_ranges
+    small = np.zeros(n_docs, bool)
+    small[rng.choice(n_docs, 500, replace=False)] = True
+    runs = dict(v4={}, filtered=dict(mask=rng.random(n_docs) < 0.5),
+                exact=dict(exact=True), cand_given=dict(mask=small),
+                counts=dict(exact_counts=True))
+    for name, kw in runs.items():
+        out = [ex.PrunedPlanMixin(dev).search_topk_pruned(
+            idx, plans, [float(n_docs)] * 8, n_docs, 10, **kw)
+            for dev in ("cpu", cuda)]
+        (cv, ci, cc), (gv, gi, gc) = out
+        _near_tie_ok(gv, gi, cv, ci)
+        np.testing.assert_array_equal(gc, cc, err_msg=name)
+        assert np.isfinite(cv[:, 0]).all(), name

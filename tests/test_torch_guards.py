@@ -46,6 +46,11 @@ _NO_JAX_SCRIPT = textwrap.dedent("""
         idx, plans, [200.0, 200.0], 200, 5, gid_col=np.arange(200) % 3,
         gid_key=None, n_groups=3, max_results=2)
     assert len(pages[0]) == 3
+    from oramacore_tpu_torch.index.search_exec import PrunedPlanMixin
+    pplans = [plan_query(idx, q, ["body"], {}, with_prefix=True) for q in qs]
+    pv, pi, _ = PrunedPlanMixin("cpu").search_topk_pruned(
+        idx, pplans, [200.0, 200.0], 200, 5)
+    assert np.allclose(pv, v1, rtol=1e-5)  # the budget covers the corpus
 
     import torch
     from oramacore_tpu_torch.benches import pallas_bench
@@ -77,6 +82,7 @@ _NO_JAX_SCRIPT = textwrap.dedent("""
                                           queries=q, similarities=[0.1, 0.1], **tail)
         assert sv[0, 0] > 0
     for name in ("oramacore_tpu_torch.ops.gather_windows",
+                 "oramacore_tpu_torch.ops.pruned",
                  "oramacore_tpu_torch.benches.pallas_bench",
                  "oramacore_tpu_torch.ops.hybrid",
                  "oramacore_tpu_torch.index.vector_index"):
@@ -210,7 +216,9 @@ def _ported_rows_of_perf_md():
 def test_kernel_table_covers_every_wrapper_and_perf_row():
     """chip_smoke.py's table of kernels (which builds its `kernels` line)
     names every counted entry point of every wrapper, every "ported" row
-    of PERF.md's kernel table, and every TPU kernel of the JAX package."""
+    of PERF.md's kernel tables, and every TPU kernel of the JAX package.
+    A row with `jitted=True` replaces jitted JAX code instead of a Pallas
+    kernel: its `replaces` names a function of a module that jits."""
     import importlib
     import pkgutil
 
@@ -227,6 +235,7 @@ def test_kernel_table_covers_every_wrapper_and_perf_row():
     assert set(table) == set(counted)
     assert set(table) == _ported_rows_of_perf_md()
     replaced = set()
+    jitted = 0
     for name, k in table.items():
         assert k["module"] == counted[name], name
         assert k["route"] in ("cuda", "triton")
@@ -234,9 +243,14 @@ def test_kernel_table_covers_every_wrapper_and_perf_row():
         path, line = k["replaces"].rsplit(":", 1)
         with open(os.path.join(REPO, path)) as f:
             text = f.read()
-        assert "pl.pallas_call" in text, path
         assert text.splitlines()[int(line) - 1].startswith("def "), k["replaces"]
-        replaced.add(path)
+        if k.get("jitted"):
+            assert "jax.jit" in text, path
+            jitted += 1
+        else:
+            assert "pl.pallas_call" in text, path
+            replaced.add(path)
+    assert jitted == 2   # rescore_bsearch, rescore_worklist (the pruned tier)
     pallas_files = set()
     for root, _, files in os.walk(os.path.join(REPO, "oramacore_tpu")):
         for fn in files:
