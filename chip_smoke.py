@@ -42,7 +42,8 @@ launch counts set to 0 just before it and read just after:
   a 1,000-doc filter (B=8, the filter as candidate set) and exact counts
   (B=8, and B=64 sliced by 8); both rescore kernels, `rescore_bsearch`
   and `rescore_worklist`, against their plain versions at the inputs of
-  the v4 and v3 B=64 calls.
+  the v4 and v3 B=64 calls (timed), the v4 B=1 call and the v3 exact-tf
+  B=8 call.
 
 Search results are held against numpy references: the BM25 reference
 scorer, bf16-rounded vector products summed in f32, a numpy copy of the
@@ -103,6 +104,10 @@ NEG_INF = -1e30
 # phase 12: the pruned tier (benches/hybrid10m_bench.py's text side)
 PRUNED_STEADY = 3     # distinct steady batches after the checked one
 N_PRUNED_CHECKED = 4  # queries of each route held against numpy
+# routes whose first rescore call holds its kernel to the plain version
+# (True: also timed, for the kernels line)
+KERNEL_CALLS = {"v4 B=64": True, "v3 50% filter B=64": True,
+                "v4 B=1": False, "v3 exact B=8": False}
 
 # Every ported kernel entry point: its wrapper module, the CUDA source, the
 # TPU kernel (or, with jitted=True, the jitted JAX function) it replaces,
@@ -1077,10 +1082,9 @@ def phase_hybrid(idx, vec_rows, lay, nprobe, vecs, vb16, batches, refs,
 def pruned_batch(route, j, B, shared):
     """Batch j of a route: the checked first batch opens with the shared
     queries, every other batch is distinct."""
-    from oramacore_tpu_torch.benches.pruned_bench import make_queries
+    from oramacore_tpu_torch.benches.pruned_bench import route_batch
 
-    head = shared[:min(len(shared), B)] if j == 0 else []
-    return head + make_queries(B - len(head), seed=1000 * route + j)
+    return route_batch(route, j, B, len(shared))
 
 
 def pruned_checks(idx, slab_np, run, C, refs, mask, label, counts_exact):
@@ -1133,7 +1137,7 @@ def phase_pruned(device, card):
     pruned_bench.py): each route through search_topk_pruned with the
     launch counts reset before and read after, checked against numpy, and
     both rescore kernels against their plain versions at the inputs of
-    the v4 B=64 call and of the filtered v3 B=64 call."""
+    the first call of each route in KERNEL_CALLS."""
     import torch
 
     from oramacore_tpu_torch.benches import pruned_bench as pb
@@ -1229,8 +1233,8 @@ def phase_pruned(device, card):
             pruned_batch(ri, 1 + PRUNED_STEADY, B, shared)), card)
         cpos = 9 if kernel == "rescore_bsearch" else 6
         cands = calls[0][0][cpos].cpu().numpy()
-        if label in ("v4 B=64", "v3 50% filter B=64"):
-            kernel_inputs[kernel] = calls[0]
+        if label in KERNEL_CALLS:
+            kernel_inputs[label] = (kernel, calls[0])
         run = (res, plans, qs, cands, kw.get("exact", False))
         ref = refs[mname or "all"][:B]
         overlap = pruned_checks(idx, slab_np, run, C, ref, mask, label,
@@ -1240,20 +1244,24 @@ def phase_pruned(device, card):
               flush=True)
     del refs
     timings = {}
-    for name, (args, kw) in kernel_inputs.items():
+    for label, timed in KERNEL_CALLS.items():
+        name, (args, kw) = kernel_inputs[label]
         try:
-            timings[name] = pb.check_kernel(name, args, kw)
+            r = pb.check_kernel(name, args, kw, timed=timed)
         except AssertionError as e:
-            raise SmokeFailure(str(e)) from e
-        r = timings[name]
-        check(True, f"{name}: equal to its plain version at the "
-                    f"{'v4 B=64' if name == 'rescore_bsearch' else 'v3 B=64'} "
+            raise SmokeFailure(f"{label}: {e}") from e
+        check(True, f"{name}: equal to its plain version at the {label} "
                     f"call's inputs (matched exact, scores within rtol 1e-5; "
                     f"max abs err {r['max_abs_err']:.3g})")
+        if not timed:
+            continue
+        timings[name] = r
         print(f"  {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} "
               f"ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}, "
               f"{r['bytes'] / 1e6:.1f} MB), {100 * r['bound_ms'] / r['ms']:.1f}"
-              f"% of bound; library call: none [{card}]", flush=True)
+              f"% of bound; this design's sector-level bytes "
+              f"{r['sector_bytes'] / 1e6:.1f} MB; library call: none "
+              f"[{card}]", flush=True)
     return timings, total
 
 

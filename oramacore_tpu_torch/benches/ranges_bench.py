@@ -42,8 +42,6 @@ from __future__ import annotations
 
 import argparse
 import ctypes
-import hashlib
-import subprocess
 import sys
 from pathlib import Path
 from typing import Callable, Dict, List, NamedTuple
@@ -336,13 +334,7 @@ def load_baseline(source: Path) -> Callable:
     """A Launch runner over `score_ranges_accumulate_launch` of `source`
     built with the port's nvcc flags; that launcher takes (..., n_rows,
     n_ranges, max_len, acc, cap, stream), with no work buffer."""
-    digest = hashlib.sha256(source.read_bytes()).hexdigest()[:16]
-    out = _build.BUILD_DIR / f"libbaseline_{digest}.so"
-    if not out.exists():
-        out.parent.mkdir(parents=True, exist_ok=True)
-        subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(out),
-                        str(source)], check=True, capture_output=True)
-    lib = ctypes.CDLL(str(out))
+    lib = _build.load_source(source, "baseline")
     ptr, i64 = ctypes.c_void_p, ctypes.c_int64
     fn = lib.score_ranges_accumulate_launch
     fn.argtypes = [ptr, ptr, ptr, i64, ptr, ptr, ptr, ptr, ptr,

@@ -63,6 +63,7 @@ from ..ops.hybrid import (
 )
 from ..ops.pruned import (
     estimate_match_count,
+    pack_mask_bits,
     pruned_exact_counts,
     pruned_fulltext_topk,
     pruned_fulltext_topk_bs,
@@ -629,6 +630,32 @@ class PrunedPlanMixin(StringSearchTopK):
     # per bucket (rescore rounds = log2(max span))
     PRUNED_BS_SPAN = 16
 
+    def __init__(self, device):
+        super().__init__(device)
+        # filter bitmaps of the worklist rescore, keyed as the f32 masks
+        self._fbits_dev = DeviceLru(
+            2 * self.MAX_CACHED_SLABS,
+            group=lambda k: (
+                k[0][:-1] if isinstance(k[0], tuple) else k[0]
+            ),
+        )
+
+    def _get_device_fbits(self, fmask_dev, mask_key, capb: int):
+        """The filter's bitmap (`pack_mask_bits`), which `rescore_worklist`
+        reads in place of the f32 mask, built once per mask key beside it.
+        None on the CPU, where the plain version reads the f32 mask."""
+        if fmask_dev.device.type != "cuda":
+            return None
+        key = (mask_key, capb) if mask_key is not None else None
+        if key is not None:
+            cached = self._fbits_dev.get(key)
+            if cached is not _MISS:
+                return cached
+        bits = pack_mask_bits(fmask_dev)
+        if key is not None:
+            self._fbits_dev.put(key, bits)
+        return bits
+
     @classmethod
     def _pruned_host_inputs(cls, plans, n_docs, thresholds):
         """Host arrays for the pruned kernels:
@@ -1106,6 +1133,8 @@ class PrunedPlanMixin(StringSearchTopK):
                 lp=lp, lch=self.PRUNED_LCH, cap=capb, C=C, k=kb, T=Tb,
                 exact=exact, has_omc=has_omc, nre=nre, bs_steps=bs_steps,
                 has_filter=has_filter, cand_given=cand_given,
+                fbits=(self._get_device_fbits(fmask_dev, mask_key, capb)
+                       if has_filter else None),
             )
         cand_counts = cand_counts[:B].cpu().numpy()
         if cand_given:

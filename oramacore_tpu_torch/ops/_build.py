@@ -104,6 +104,22 @@ def load(name: str) -> ctypes.CDLL:
     return load_many([name])[name]
 
 
+def load_source(source: Path, tag: str) -> ctypes.CDLL:
+    """A library built from a source outside `csrc/` (an earlier version
+    of a kernel, which a bench times beside the current one) with the same
+    flags, into `build/kernels/lib<tag>_<hash of the source>.so`."""
+    digest = hashlib.sha256(source.read_bytes()).hexdigest()[:16]
+    out = BUILD_DIR / f"lib{tag}_{digest}.so"
+    if not out.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(out),
+                               str(source)], capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}) on {source}:"
+                               f"\n{proc.stdout}{proc.stderr}")
+    return ctypes.CDLL(str(out))
+
+
 def load_all() -> Dict[str, ctypes.CDLL]:
     """Build (in parallel) and load every source under `csrc/`."""
     return load_many(sorted(f.stem for f in CSRC.glob("*.cu")))

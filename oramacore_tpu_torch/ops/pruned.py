@@ -14,15 +14,20 @@ GiB. This tier keeps (B, C) candidate state instead, in two phases:
 - PHASE 2, exact rescore of the candidates, by one of two hand-written
   CUDA kernels (`csrc/pruned_rescore.cu`):
   - `rescore_bsearch` (default route, v4): one thread per (query,
-    candidate) binary-searches the candidate into each of its tokens'
-    doc-sorted ranges, optionally inside a bucket window of the static
-    offset tables (`boff`), and saturates per token with the host idf.
+    candidate, token, range) finds the candidate in the range's bucket
+    window of the static offset tables (`boff`; else the whole range),
+    reading 16 postings at the doc's even-spread place in one round; a
+    block sums its pairs' searches in order and saturates per token with
+    the host idf.
   - `rescore_worklist` (filtered, exact-tf, multi-field and tolerance
-    searches, v3): one block per worklist entry streams up to `lch`
-    postings, looks each doc up in the query's candidate table in shared
-    memory and adds its ntf atomically; the same pass counts df, less
-    the postings whose doc an earlier span of the token already holds
-    (`nre`), and gathers the filter mask. The saturation tail is torch.
+    searches, v3): a grid of (entry, block) streams the worklist's
+    postings in tiles of 2,048 through a two-tile cp.async ring in shared
+    memory; it gathers the filter (a bitmap, `pack_mask_bits`,
+    where the caller has one), looks each kept doc up in the query's
+    candidate table in shared memory and adds its ntf atomically; the
+    same pass counts df, less the postings whose doc an earlier span of
+    the token already holds (`nre`). A second kernel of the same entry
+    point takes df to idf and saturates.
 
 The JAX functions are written around the TPU's lack of a fast scatter:
 the worklist rescore there takes prefix-sum differences over each
@@ -76,16 +81,19 @@ def load_kernels() -> ctypes.CDLL:
             ptr, ptr,                           # idf, cand
             i64, i64, i64, i64, i64,            # B, T, NR, C, bs_steps
             ptr, i64, ptr, ptr,                 # flat, n_flat, base, shift
+            i64,                                # pairs per block
             ptr, ptr, ptr,                      # scores, matched, stream
         ]
         lib.rescore_bsearch_launch.restype = ctypes.c_int
         lib.rescore_worklist_launch.argtypes = [
             ptr, ptr, ptr, i64,                 # p_doc, tf, flen, n
-            ptr, ptr, i64,                      # wl_i, wl_f, W
-            ptr, i64, i64, i64,                 # cand, C, T, lch
+            ptr, ptr, i64, ptr,                 # wl_i, wl_f, W, n_docs
+            ptr, i64, i64, i64, i64,            # cand, B, C, T, lch
             ptr, i64, i64,                      # wl_prev, nre, bs_steps
-            ptr, i64,                           # fmask, n_mask
-            ptr, ptr, ptr,                      # acc, df, stream
+            ptr, ptr, i64,                      # fmask, fbits, n_mask
+            i64,                                # blocks per entry
+            ptr, ptr, ptr,                      # work, scores, matched
+            i64, ptr,                           # parts, stream
         ]
         lib.rescore_worklist_launch.restype = ctypes.c_int
         _lib = lib
@@ -94,6 +102,50 @@ def load_kernels() -> ctypes.CDLL:
 
 def _stream(dev: torch.device) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
+
+
+# launch shapes, as the constants of csrc/pruned_rescore.cu set them
+KERNEL_THREADS = 256
+TILE_POSTINGS = 2048   # a tile of rescore_worklist: 512 16-byte vectors
+
+
+def bsearch_pairs_per_block(T: int, NR: int) -> int:
+    """(query, candidate) pairs one block of rescore_bsearch takes: as
+    many as give each thread one (token, range) search, else one pair
+    whose searches the block's threads share."""
+    tn = T * NR
+    return KERNEL_THREADS // tn if tn < KERNEL_THREADS else 1
+
+
+TILES_PER_BLOCK = 4    # tiles of a full lch entry that one block walks
+
+
+def worklist_tiles(lch: int) -> int:
+    """The most tiles an entry of rescore_worklist has: enough for lch
+    postings read from the 16-byte boundary at or below the entry's start
+    (up to 3 postings ahead of it)."""
+    return -(-(lch + 3) // TILE_POSTINGS)
+
+
+def worklist_blocks(lch: int) -> int:
+    """Blocks per entry in rescore_worklist's (entry, block) grid: block
+    g walks the entry's tiles g, g + blocks, ... (about TILES_PER_BLOCK
+    of a full entry)."""
+    return -(-worklist_tiles(lch) // TILES_PER_BLOCK)
+
+
+def pack_mask_bits(fmask: torch.Tensor) -> torch.Tensor:
+    """The filter mask as the bitmap rescore_worklist reads in its place:
+    int32[ceil(L / 32)], bit d % 32 of word d // 32 set where fmask[d] >
+    0 (1.3 MB at 10.49M docs, against 42 MB of f32)."""
+    keep = fmask > 0
+    pad = (-keep.shape[0]) % 32
+    if pad:
+        keep = torch.cat([keep, keep.new_zeros(pad)])
+    shifts = torch.arange(32, device=fmask.device, dtype=torch.int64)
+    words = (keep.view(-1, 32).to(torch.int64) << shifts).sum(dim=1)
+    return torch.where(words >= 1 << 31, words - (1 << 32), words).to(
+        torch.int32)
 
 
 # ---------------------------------------------------------------------------
@@ -388,7 +440,7 @@ def rescore_bsearch(
             rng_st.data_ptr(), rng_ln.data_ptr(), rng_w.data_ptr(),
             rng_fb.data_ptr(), rng_av.data_ptr(), idf.data_ptr(),
             cand.data_ptr(), B, T, NR, C, bs_steps,
-            flat_p, n_flat, base_p, shift_p,
+            flat_p, n_flat, base_p, shift_p, bsearch_pairs_per_block(T, NR),
             scores.data_ptr(), matched.data_ptr(), _stream(dev),
         )
     _raise_on(err, "rescore_bsearch")
@@ -496,11 +548,14 @@ def rescore_worklist(
     fmask=None,                # f32[L] filter (1 = doc allowed)
     *,
     lch: int, T: int, nre: int = 0, bs_steps: int = 0,
+    fbits=None,                # int32[ceil(L / 32)]: pack_mask_bits(fmask)
 ):
     """v3 phase 2: exact BM25F scores and matched-token counts of the
     candidates, streaming the worklist's postings; df (and so the idf) is
     counted on the device, under the filter and deduplicated across the
-    token's spans. Returns (scores f32[B, C], matched f32[B, C])."""
+    token's spans. `fbits`, the filter's bitmap, is optional: the kernel
+    reads it in place of `fmask`, whose plain version it equals. Returns
+    (scores f32[B, C], matched f32[B, C])."""
     _check(p_doc, "p_doc", torch.int32, 1)
     _check(tf_src, "tf_src", torch.float32, 1)
     _check(p_flen, "p_flen", torch.float32, 1)
@@ -532,28 +587,57 @@ def rescore_worklist(
     if fmask is not None:
         _check(fmask, "fmask", torch.float32, 1)
         tensors.append(fmask)
+    if fbits is not None:
+        if fmask is None:
+            raise ValueError("fbits is the bitmap of fmask: give both")
+        _check(fbits, "fbits", torch.int32, 1)
+        if fbits.shape[0] != -(-fmask.shape[0] // 32):
+            raise ValueError("fbits must hold ceil(len(fmask) / 32) words")
+        tensors.append(fbits)
     dev = _device_of(tensors)
     if dev.type == "cpu":
         return rescore_worklist_plain(
             p_doc, tf_src, p_flen, wl_i, wl_f, n_docs, cand, wl_prev, fmask,
             lch=lch, T=T, nre=nre, bs_steps=bs_steps)
-    acc = torch.zeros((B * T, C), dtype=torch.float32, device=dev)
-    df = torch.zeros(B * T, dtype=torch.int32, device=dev)
-    if W and B * C:
-        lib = load_kernels()
-        with torch.cuda.device(dev):
-            err = lib.rescore_worklist_launch(
-                p_doc.data_ptr(), tf_src.data_ptr(), p_flen.data_ptr(), n,
-                wl_i.data_ptr(), wl_f.data_ptr(), W,
-                cand.data_ptr(), C, T, lch,
-                wl_prev.data_ptr() if nre else None, nre, bs_steps,
-                fmask.data_ptr() if fmask is not None else None,
-                fmask.shape[0] if fmask is not None else 0,
-                acc.data_ptr(), df.data_ptr(), _stream(dev),
-            )
-        _raise_on(err, "rescore_worklist")
-        LAUNCHES["rescore_worklist"] += 1
-    return _worklist_tail(acc, df, cand, n_docs, T)
+    scores = torch.empty((B, C), dtype=torch.float32, device=dev)
+    matched = torch.empty((B, C), dtype=torch.float32, device=dev)
+    if B * C == 0:
+        return scores, matched
+    # the pass's sums f32[B*T, C], then its df counts int32[B*T]
+    work = torch.empty(B * T * C + B * T, dtype=torch.float32, device=dev)
+    _worklist_launch(
+        (p_doc, tf_src, p_flen, wl_i, wl_f, n_docs, cand, wl_prev, fmask,
+         fbits), (work, scores, matched), lch=lch, T=T, nre=nre,
+        bs_steps=bs_steps, parts=7)
+    LAUNCHES["rescore_worklist"] += 1
+    return scores, matched
+
+
+def _worklist_launch(inputs, outputs, *, lch, T, nre, bs_steps, parts):
+    """Enqueue the stages `parts` of rescore_worklist (1 zeroes `work`, 2
+    runs the pass, 4 the tail) on checked CUDA tensors: inputs as the
+    wrapper takes them (p_doc, tf_src, p_flen, wl_i, wl_f, n_docs, cand,
+    wl_prev, fmask, fbits), outputs (work, scores, matched). The wrapper
+    runs all three; benches time the pass alone."""
+    (p_doc, tf_src, p_flen, wl_i, wl_f, n_docs, cand, wl_prev, fmask,
+     fbits) = inputs
+    work, scores, matched = outputs
+    B, C = cand.shape
+    dev = p_doc.device
+    lib = load_kernels()
+    with torch.cuda.device(dev):
+        err = lib.rescore_worklist_launch(
+            p_doc.data_ptr(), tf_src.data_ptr(), p_flen.data_ptr(),
+            p_doc.shape[0], wl_i.data_ptr(), wl_f.data_ptr(), wl_i.shape[1],
+            n_docs.data_ptr(), cand.data_ptr(), B, C, T, lch,
+            wl_prev.data_ptr() if nre else None, nre, bs_steps,
+            fmask.data_ptr() if fmask is not None else None,
+            fbits.data_ptr() if fbits is not None else None,
+            fmask.shape[0] if fmask is not None else 0, worklist_blocks(lch),
+            work.data_ptr(), scores.data_ptr(), matched.data_ptr(), parts,
+            _stream(dev),
+        )
+    _raise_on(err, "rescore_worklist")
 
 
 # ---------------------------------------------------------------------------
@@ -592,12 +676,14 @@ def pruned_fulltext_topk(
     lp: int, lch: int, cap: int, C: int, k: int, T: int,
     exact: bool, has_omc: bool, nre: int = 0, bs_steps: int = 0,
     has_filter: bool = False, cand_given: bool = False,
+    fbits=None,   # int32 bitmap of fmask (pack_mask_bits), optional
 ):
     """Fused v3 pruned full-text search: nomination (skipped when the
     caller gives the candidates), worklist rescore, tail. Returns (vals
     f32[B, k], ids int32[B, k], cand_counts int32[B])."""
     tf_src = p_exact_tf if exact else p_tf
     fm = fmask if has_filter else None
+    fbits = fbits if has_filter else None
     if cand_given:
         cand = cand_in
     else:
@@ -608,7 +694,7 @@ def pruned_fulltext_topk(
         )
     scores, matched = rescore_worklist(
         p_doc, tf_src, p_flen, wl_i, wl_f, n_docs, cand, wl_prev, fm,
-        lch=lch, T=T, nre=nre, bs_steps=bs_steps,
+        lch=lch, T=T, nre=nre, bs_steps=bs_steps, fbits=fbits,
     )
     return _topk_tail(scores, matched, cand, thr_counts, omc, has_omc, cap, k)
 

@@ -533,8 +533,91 @@ def test_rescore_bsearch_kernel(cuda, with_boff):
     assert pm.sum() > 1000 and not pm[3].any()
 
 
+BS_CARD_CASES = ["one_round_windows", "two_round_windows", "no_tables_deep",
+                 "odd_pairs", "many_searches", "misaligned_slab",
+                 "skewed_buckets"]
+
+
+@pytest.mark.parametrize("case", BS_CARD_CASES)
+def test_rescore_bsearch_kernel_windows(cuda, case):
+    """The window reads of rescore_bsearch against its plain version
+    (scores within rtol 1e-6, matched exact, one launch). A first range
+    of consecutive docs at a start 3 postings past a 16-byte boundary
+    gives bucket windows of exactly 16 postings (`one_round_windows`: 19
+    from the boundary, one round of int4 loads) or 32 (`two_round_windows`:
+    probe rounds); `no_tables_deep` searches whole ranges of up to 60k
+    postings (bs_steps 16, no tables); `odd_pairs` has B * C = 6,993 pairs,
+    not a multiple of a block's 17; `many_searches` has T * NR = 320
+    searches a pair, more than a block's threads; `misaligned_slab` gives
+    p_doc 4 bytes past a 16-byte boundary, so windows load one by one;
+    `skewed_buckets` packs each 64-doc bucket's 20 docs at its end, so the
+    chunk read at the even-spread guess misses on either side. An empty
+    token and a row of sentinels in every case."""
+    from oramacore_tpu_torch.ops import pruned as pr
+
+    rng = np.random.default_rng(33)
+    n_docs, capb = 100_000, 1 << 17
+    B, T, NR, C = dict(odd_pairs=(7, 5, 3, 999),
+                       many_searches=(2, 20, 16, 64)).get(case, (6, 3, 2, 512))
+    lead = 3 if case != "misaligned_slab" else 4
+    first = np.arange(4096, dtype=np.int32)
+    if case == "skewed_buckets":
+        first = (64 * np.arange(200)[:, None] + 44 + np.arange(20)).astype(
+            np.int32).ravel()
+    parts = [np.zeros(lead, np.int32), first]
+    parts += [np.sort(rng.choice(n_docs, int(d), replace=False)).astype(np.int32)
+              for d in rng.integers(1000, 60_000, 8)]
+    doc_np = np.concatenate(parts)
+    starts = np.cumsum([0] + [len(p) for p in parts])[:-1]
+    ranges = list(zip(starts[1:].tolist(), [len(p) for p in parts[1:]]))
+    n = len(doc_np)
+    cols = [torch.from_numpy(a).to(cuda) for a in (
+        doc_np, rng.integers(1, 4, n).astype(np.float32),
+        rng.uniform(5, 50, n).astype(np.float32))]
+    if case == "misaligned_slab":   # drop one posting: every range moves back
+        cols = [c[1:] for c in cols]
+        doc_np = doc_np[1:]
+        ranges = [(s - 1, d) for s, d in ranges]
+    doc, tf, flen = cols
+    st = np.zeros((B, T, NR), np.int32)
+    ln = np.zeros((B, T, NR), np.int32)
+    for i in np.ndindex(B, T, NR):
+        s, d = ranges[0] if i[2] == 0 else ranges[int(rng.integers(1, len(ranges)))]
+        st[i], ln[i] = s, d
+    ln[1, T - 1] = 0                                   # an empty token
+    cand = _candidates(rng, B, C, n_docs, C - 7)
+    cand[:, : C // 4] = rng.choice(int(first[-1]) + 20, (B, C // 4))  # range 0
+    cand = np.sort(cand, axis=1)
+    cand[B - 1] = n_docs                               # only sentinels
+    idf = rng.uniform(0.5, 5, (B, T)).astype(np.float32)
+    desc = [torch.from_numpy(np.ascontiguousarray(a)).to(cuda) for a in (
+        st, ln, rng.uniform(0.5, 2, (B, T, NR)).astype(np.float32),
+        rng.uniform(0.3, 0.9, (B, T, NR)).astype(np.float32),
+        rng.uniform(10, 40, (B, T, NR)).astype(np.float32), idf, cand)]
+    steps, boff = 16, None
+    if case != "no_tables_deep":
+        # range 0 holds docs 0..4095: buckets of 2^shift docs hold 2^shift
+        # postings; span 0.5 gives shift 4 there, span 1 shift 5 (and the
+        # skewed range's 4,000 docs shift 6 at span 2)
+        span, sh0 = dict(two_round_windows=(1.0, 5),
+                         skewed_buckets=(2.0, 6)).get(case, (0.5, 4))
+        flat, base, shift, steps = _boff({"p_doc": doc_np}, st, ln, capb, span)
+        assert (shift[..., 0][ln[..., 0] > 0] == sh0).all()
+        boff = tuple(torch.from_numpy(a).to(cuda) for a in (flat, base, shift))
+    before = pr.LAUNCHES["rescore_bsearch"]
+    s, m = pr.rescore_bsearch(doc, tf, flen, *desc, bs_steps=steps, boff=boff)
+    torch.cuda.synchronize()
+    assert pr.LAUNCHES["rescore_bsearch"] == before + 1
+    ps, pm = pr.rescore_bsearch_plain(doc, tf, flen, *desc, bs_steps=steps,
+                                      boff=boff)
+    assert torch.equal(m, pm)
+    torch.testing.assert_close(s, ps, rtol=1e-6, atol=1e-6)
+    assert pm[: B - 1].sum() > B and not pm[B - 1].any()
+
+
 WL_CARD_CASES = ["plain", "fmask", "exact", "nre", "filter_selects_nothing",
-                 "slab_end", "large_c"]
+                 "slab_end", "large_c", "tile_edges", "small_c", "fbits",
+                 "fbits_nre_exact", "misaligned_slab"]
 
 
 @pytest.mark.parametrize("case", WL_CARD_CASES)
@@ -544,20 +627,30 @@ def test_rescore_worklist_kernel(cuda, case):
     exact. Padding entries, repeated and sentinel candidates in every
     case; `slab_end` puts entries within lch of the slab's end (the start
     clamps, as JAX's dynamic_slice does); `large_c` needs more than 48 KB
-    of shared memory for the candidate table."""
+    of shared memory for the candidate table, `small_c` has C = 8;
+    `tile_edges` adds entries of 1, TILE - 1, TILE, TILE + 1 and lch
+    postings at every 16-byte offset; the `fbits` cases hand the kernel
+    the filter's bitmap (the plain version reads the f32 mask);
+    `misaligned_slab` gives columns 4 bytes past a 16-byte boundary, so
+    postings load one by one."""
     from oramacore_tpu_torch.ops import pruned as pr
 
     rng = np.random.default_rng(31)
-    n_docs, B, T, lch = 100_000, 6, 3, 4096
-    C = 16384 if case == "large_c" else 1024
+    n_docs, B, T = 100_000, 6, 3
+    lch = 8192 if case == "tile_edges" else 4096
+    C = {"large_c": 16384, "small_c": 8}.get(case, 1024)
     (doc, tf, etf, flen), ranges = _term_slab(rng, 30, n_docs, cuda)
+    if case == "misaligned_slab":
+        doc, tf, etf, flen = (c[1:] for c in (doc, tf, etf, flen))
+        ranges = [(s - 1, d) for s, d in ranges[1:]]
     n = doc.shape[0]
-    tf_src = etf if case == "exact" else tf
+    tf_src = etf if case in ("exact", "fbits_nre_exact") else tf
+    two = case in ("nre", "fbits_nre_exact")
     wl, prev = [], []
     for b in range(B):
         for t in range(T):
             picks = [ranges[int(rng.integers(0, len(ranges)))]
-                     for _ in range(2 if case == "nre" else 1)]
+                     for _ in range(2 if two else 1)]
             for k, (s, d) in enumerate(picks):
                 for off in range(0, d, lch):
                     wl.append((b, t, s + off, min(lch, d - off)))
@@ -565,12 +658,17 @@ def test_rescore_worklist_kernel(cuda, case):
     if case == "slab_end":
         wl += [(0, 0, n - 100, 100), (1, 1, n - lch + 7, lch - 7)]
         prev += [[], []]
+    if case == "tile_edges":
+        tile = pr.TILE_POSTINGS
+        for k, ln in enumerate([1, tile - 1, tile, tile + 1, lch] * 4):
+            wl.append((k % B, k % T, 1000 + 9000 * k + k % 4, ln))
+            prev.append([])
     W = -(-len(wl) // 128) * 128 + 128                 # padding entries
     wl_i = np.zeros((4, W), np.int32)
     wl_i[:, :len(wl)] = np.array(wl, np.int32).T
     wl_f = np.stack([rng.uniform(0.5, 2, W), rng.uniform(0.3, 0.9, W),
                      np.full(W, 27.5)]).astype(np.float32)
-    nre = 1 if case == "nre" else 0
+    nre = 1 if two else 0
     wl_prev = None
     if nre:
         wl_prev = np.zeros((2, W, 1), np.int32)
@@ -578,18 +676,22 @@ def test_rescore_worklist_kernel(cuda, case):
             if p:
                 wl_prev[:, j, 0] = p[0]
         wl_prev = torch.from_numpy(wl_prev).to(cuda)
-    cand = _candidates(rng, B, C, n_docs, min(C - 40, n_docs // 4))
-    cand[0, 10:20] = cand[0, 10]                       # repeated ids
+    cand = _candidates(rng, B, C, n_docs, max(C // 2, min(C - 40, n_docs // 4)))
+    if C > 20:
+        cand[0, 10:20] = cand[0, 10]                   # repeated ids
     cand = np.sort(cand, axis=1)
-    fmask = None
-    if case in ("fmask", "filter_selects_nothing"):
-        keep = rng.random(n_docs) < (0.5 if case == "fmask" else 0.0)
+    fmask = fbits = None
+    if case in ("fmask", "filter_selects_nothing", "fbits", "fbits_nre_exact"):
+        keep = rng.random(n_docs) < (0.0 if case == "filter_selects_nothing"
+                                     else 0.5)
         fmask = torch.from_numpy(keep.astype(np.float32)).to(cuda)
+        if case.startswith("fbits"):
+            fbits = pr.pack_mask_bits(fmask)
     args = [doc, tf_src, flen] + [torch.from_numpy(a).to(cuda) for a in (
         wl_i, wl_f, np.full(B, float(n_docs), np.float32), cand)]
     kw = dict(lch=lch, T=T, nre=nre, bs_steps=16 if nre else 0)
     before = pr.LAUNCHES["rescore_worklist"]
-    s, m = pr.rescore_worklist(*args, wl_prev, fmask, **kw)
+    s, m = pr.rescore_worklist(*args, wl_prev, fmask, fbits=fbits, **kw)
     torch.cuda.synchronize()
     assert pr.LAUNCHES["rescore_worklist"] == before + 1
     ps, pm = pr.rescore_worklist_plain(*args, wl_prev, fmask, **kw)
@@ -597,9 +699,11 @@ def test_rescore_worklist_kernel(cuda, case):
     torch.testing.assert_close(s, ps, rtol=1e-5, atol=1e-6)
     if case == "filter_selects_nothing":
         assert not pm.any()
-    else:
+    elif C > 20:
         assert pm.sum() > 100
         assert torch.equal(pm[0, 10:20], pm[0, 10:11].expand(10))
+    else:
+        assert pm.sum() > 0
 
 
 def test_pruned_search_on_the_card_equals_the_cpu(cuda):

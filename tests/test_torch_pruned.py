@@ -517,3 +517,124 @@ def test_pruned_fulltext_topk_bs_cand_given_matches_jax(corpus):
     np.testing.assert_allclose(gv.numpy(), ev, rtol=RTOL, atol=1e-6)
     fin = np.isfinite(ev)
     np.testing.assert_array_equal(gi.numpy()[fin], ei[fin])
+
+
+# ---------------------------------------------------------------------------
+# the launch shapes, the filter bitmap and the bounds of the rescore kernels
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("lch", [1, 128, 2045, 2046, 4096, 32768])
+def test_worklist_tiles_cover_lch_from_any_offset(lch):
+    """Enough tiles of TILE_POSTINGS for lch postings read from the
+    16-byte boundary below the start, and no more."""
+    tiles = tpr.worklist_tiles(lch)
+    need = max((h + lch + 3) // 4 for h in range(4))   # vectors, worst offset
+    assert tiles * (tpr.TILE_POSTINGS // 4) >= need
+    assert (tiles - 1) * (tpr.TILE_POSTINGS // 4) < need
+
+
+@pytest.mark.parametrize("lch", [128, 8192, 32768])
+def test_worklist_blocks_walk_every_tile(lch):
+    """Block g of an entry walks tiles g, g + G, ...: G blocks cover the
+    most tiles an entry has, about TILES_PER_BLOCK each."""
+    G, tiles = tpr.worklist_blocks(lch), tpr.worklist_tiles(lch)
+    walked = sorted(t for g in range(G) for t in range(g, tiles, G))
+    assert walked == list(range(tiles))
+    assert (G - 1) * tpr.TILES_PER_BLOCK < tiles <= G * tpr.TILES_PER_BLOCK
+
+
+@pytest.mark.parametrize("T, NR", [(1, 1), (3, 1), (3, 2), (5, 3), (16, 16),
+                                   (20, 16), (256, 1)])
+def test_bsearch_pairs_per_block(T, NR):
+    """One (token, range) search a thread: the most pairs whose searches
+    fit 256 threads, else one pair."""
+    ppb = tpr.bsearch_pairs_per_block(T, NR)
+    tn = T * NR
+    if tn > tpr.KERNEL_THREADS:
+        assert ppb == 1
+    else:
+        assert ppb * tn <= tpr.KERNEL_THREADS < (ppb + 1) * tn
+
+
+@pytest.mark.parametrize("L", [1, 31, 32, 33, 1000, 10_485_760 // 64])
+def test_pack_mask_bits_matches_numpy(L):
+    """Bit d % 32 of word d // 32 is fmask[d] > 0: numpy's little-endian
+    packbits read as int32 words."""
+    rng = np.random.default_rng(L)
+    fmask = np.where(rng.random(L) < 0.5, rng.uniform(0.1, 2, L), 0.0)
+    fmask[rng.random(L) < 0.05] = -1.0                # not > 0: dropped
+    fmask = fmask.astype(np.float32)
+    bits = np.packbits(fmask > 0, bitorder="little")
+    bits = np.concatenate([bits, np.zeros(-len(bits) % 4, np.uint8)])
+    exp = bits.view("<u4").astype(np.int64)
+    exp = np.where(exp >= 2**31, exp - 2**32, exp).astype(np.int32)
+    got = tpr.pack_mask_bits(_t(fmask))
+    assert got.dtype == torch.int32 and got.shape[0] == -(-L // 32)
+    np.testing.assert_array_equal(got.numpy(), exp)
+
+
+def test_rescore_worklist_takes_the_bitmap_beside_the_mask(corpus):
+    """On the CPU the plain version reads the f32 mask and the bitmap
+    changes nothing; a bitmap of the wrong length, or without the mask,
+    is refused."""
+    qs = _queries(30, 4, 3)
+    wl_i, wl_f, *_ = _worklist(corpus, qs, 3)
+    _, _, _, _, _, _, cand = _bs_inputs(corpus, qs, 3)
+    fmask = (np.random.default_rng(4).random(N_DOCS) < 0.5).astype(np.float32)
+    p_doc, p_tf, _, p_flen = _slab(corpus)
+    args = [_t(p_doc), _t(p_tf), _t(p_flen), _t(wl_i), _t(wl_f),
+            _t(np.full(len(qs), float(N_DOCS), np.float32)), _t(cand), None,
+            _t(fmask)]
+    fbits = tpr.pack_mask_bits(_t(fmask))
+    a = tpr.rescore_worklist(*args, lch=LCH, T=3)
+    b = tpr.rescore_worklist(*args, lch=LCH, T=3, fbits=fbits)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    with pytest.raises(ValueError):
+        tpr.rescore_worklist(*args, lch=LCH, T=3, fbits=fbits[:-1])
+    with pytest.raises(ValueError):
+        tpr.rescore_worklist(*args[:8], None, lch=LCH, T=3, fbits=fbits)
+
+
+def _tiny_call():
+    """8 postings of docs 1, 3, ..., 15 (tf 1, flen 10); one query of one
+    token whose range is the slab; candidates 5 (a hit) and 6."""
+    p_doc = torch.arange(1, 16, 2, dtype=torch.int32)
+    ones = torch.ones(8)
+    f = torch.ones((1, 1, 1))
+    bs_args = (p_doc, ones, ones * 10, torch.zeros((1, 1, 1), dtype=torch.int32),
+               torch.full((1, 1, 1), 8, dtype=torch.int32), f, f * 0.75,
+               f * 10, torch.ones((1, 1)), torch.tensor([[5, 6]], dtype=torch.int32))
+    wl_i = torch.tensor([[0, 0], [0, 0], [0, 0], [8, 0]], dtype=torch.int32)
+    wl_f = torch.tensor([[1.0, 0.0], [0.75, 0.0], [10.0, 1.0]])
+    wl_args = (p_doc, ones, ones * 10, wl_i, wl_f, torch.tensor([100.0]),
+               bs_args[9])
+    return bs_args, wl_args
+
+
+def test_rescore_bounds_count_bytes_by_hand():
+    """bsearch_bound: 2 searches x (4 rounds of 4 B + the final doc's 4 B)
+    + 8 B of tf and flen for the one hit + candidates 8 + descriptors 20 +
+    idf 4 + outputs 16 = 96 B, 8 ops a search. worklist_bound: 8 postings
+    x 8 B + flen of the hit 4 + 2 entries x 28 + candidates 8 + sums 8 +
+    df 4 + outputs 16 = 160 B, 6 ops per hit and log2(C) = 1 per posting;
+    a filter adds the bitmap words the docs touch: docs 1-15 one word (4
+    B), docs 10, 30, ..., 150 (no hit: 156 B) five. The sector counts of
+    the redesign: bsearch 2 windows of one sector + 2 sectors of the hit
+    + 48 B once = 176 B; worklist 2 x 1 sector of postings + 1 of flen +
+    56 + 8 + 3 x 12 + 16 = 212 B, + 2 mask sectors (docs 1-15 as f32:
+    bytes 4-60) or 1 bitmap sector."""
+    from oramacore_tpu_torch.benches import pruned_bench as pb
+
+    bs_args, wl_args = _tiny_call()
+    assert pb.bsearch_bound(bs_args, dict(bs_steps=4)) == (96.0, 16.0)
+    assert pb.bsearch_sectors(bs_args, dict(bs_steps=4)) == 176.0
+    kw = dict(lch=8, T=1)
+    assert pb.worklist_bound(wl_args, kw) == (160.0, 14.0)
+    assert pb.worklist_sectors(wl_args, kw) == 212.0
+    fm = torch.ones(16)
+    assert pb.worklist_bound(wl_args + (None, fm), kw)[0] == 164.0
+    spread = (wl_args[0] * 10,) + wl_args[1:]
+    assert pb.worklist_bound(spread + (None, torch.ones(160)), kw)[0] == 176.0
+    assert pb.worklist_sectors(wl_args + (None, fm), kw) == 276.0
+    assert pb.worklist_sectors(wl_args + (None, fm), dict(
+        kw, fbits=tpr.pack_mask_bits(fm))) == 244.0
