@@ -43,13 +43,26 @@ launch counts set to 0 just before it and read just after:
   (B=8, and B=64 sliced by 8); both rescore kernels, `rescore_bsearch`
   and `rescore_worklist`, against their plain versions at the inputs of
   the v4 and v3 B=64 calls (timed), the v4 B=1 call and the v3 exact-tf
-  B=8 call.
+  B=8 call;
+- on the same 10M-doc index and the vector side of that configuration
+  (10,485,760 x 768 int8 IVF layout, 4,096 centroids, window 2,048,
+  nprobe 8, built on the card by
+  `oramacore_tpu_torch/benches/hybrid10m.py`): the pruned facets
+  (`PrunedPlanMixin.facet_counts_pruned` and `facet_match_count`) over a
+  string, a number, a multi-valued string and a multi-valued number
+  column, plain, thresholded, exact tf, under 5% tombstones, hybrid and
+  vector-only; both facet kernels, `facet_hist` and `facet_hist_multi`,
+  against their plain versions at the largest query's reps (timed); the
+  pruned int8 hybrid (`HybridSearchTopK.search_topk_hybrid_int8_pruned`)
+  at v4 B=64 and 256, v3 under a 50% filter, a 1,000-doc filter and
+  exact tf.
 
 Search results are held against numpy references: the BM25 reference
 scorer, bf16-rounded vector products summed in f32, a numpy copy of the
-IVF probe scan, min-max fusion, and a numpy copy of the pruned tier's
+IVF probe scan, min-max fusion, a numpy copy of the pruned tier's
 nomination (ids and scores against the reference scorer restricted to
-the candidates).
+the candidates), and numpy facet counts (distinct matched docs per
+bucket).
 
 Progress goes to stdout. The second-to-last line is a JSON object with
 one entry per kernel; the last line is `{"ok": true, "device": {...}}`.
@@ -109,6 +122,20 @@ N_PRUNED_CHECKED = 4  # queries of each route held against numpy
 KERNEL_CALLS = {"v4 B=64": True, "v3 50% filter B=64": True,
                 "v4 B=1": False, "v3 exact B=8": False}
 
+# phase 13: pruned facets and the pruned int8 hybrid on phase 12's index
+# with benches/hybrid10m_bench.py's vector side
+N_HYBRID10M_LABEL = "10,485,760 x 768"
+FACET_G = 64              # the bench's string bucket (:1430-1435)
+FACET_QUERIES = 32        # the bench's 3-term queries, after the top-3 one
+N_FACET_CHECKED = 2       # facet queries of each case held against numpy
+HYBRID_POOL = 512         # query vectors (the bench's NQ)
+N_HYBRID_PRUNED_CHECKED = 4
+SIMILARITY_10M = 0.3      # the bench's vector similarity (:531-539)
+TOMBSTONES = 0.05         # dead share of the facet cases' alive mask
+FACET_RANGES = np.array([[0, 99], [100, 249], [200, 499], [500, 749],
+                         [750, 999], [0, 999], [333, 333], [990, 1000]],
+                        np.float32)   # inclusive, overlapping
+
 # Every ported kernel entry point: its wrapper module, the CUDA source, the
 # TPU kernel (or, with jitted=True, the jitted JAX function) it replaces,
 # and the path whose run gives its launch count.
@@ -136,6 +163,16 @@ KERNELS = (
          source="oramacore_tpu_torch/ops/csrc/pruned_rescore.cu",
          replaces="oramacore_tpu/ops/pruned.py:242", jitted=True,
          path="pruned"),
+    dict(name="facet_hist",
+         module="oramacore_tpu_torch.ops.facet_hist", route="cuda",
+         source="oramacore_tpu_torch/ops/csrc/facet_hist.cu",
+         replaces="oramacore_tpu/ops/pruned.py:1139", jitted=True,
+         path="facets"),
+    dict(name="facet_hist_multi",
+         module="oramacore_tpu_torch.ops.facet_hist", route="cuda",
+         source="oramacore_tpu_torch/ops/csrc/facet_hist.cu",
+         replaces="oramacore_tpu/ops/pruned.py:1198", jitted=True,
+         path="facets"),
 )
 
 
@@ -705,6 +742,7 @@ def profile_once(label, fn, card):
           f"idle {max(0.0, 1 - dev / wall) * 100:.0f}% [{card}]", flush=True)
     for ms, count, key in sorted(kernels, reverse=True)[:6]:
         print(f"    {ms:9.3f} ms x{count:<5} {key[:100]}", flush=True)
+    return dev
 
 
 def top_hits(hits, k):
@@ -981,11 +1019,6 @@ def phase_hybrid(idx, vec_rows, lay, nprobe, vecs, vb16, batches, refs,
     cplans = [plan_query(idx, q, ["body"], {}, use_champions=True) for q in toks]
     fmasks = list(masks[:HYBRID_BATCH])
 
-    def timed(fn):
-        t = time.perf_counter()
-        res = fn()
-        return res, (time.perf_counter() - t) * 1e3
-
     paths = {
         "hybrid flat": lambda: ex.search_topk_hybrid(
             idx, plans, nd, n_docs, K, flat_rows, qv[:HYBRID_BATCH], sims),
@@ -1007,7 +1040,8 @@ def phase_hybrid(idx, vec_rows, lay, nprobe, vecs, vb16, batches, refs,
     out = {}
     for label, fn in paths.items():
         torch.cuda.reset_peak_memory_stats()
-        runs, launches = counted(label, lambda fn=fn: [timed(fn), timed(fn)])
+        runs, launches = counted(label,
+                                 lambda fn=fn: [timed_ms(fn), timed_ms(fn)])
         out[label] = runs[0][0]
         check(launches["score_ranges_accumulate"] > 0,
               f"the {label} path launched score_ranges_accumulate")
@@ -1144,7 +1178,7 @@ def phase_pruned(device, card):
     from oramacore_tpu_torch.index import string_index as si
     from oramacore_tpu_torch.index.plan import plan_query
     from oramacore_tpu_torch.index.search_exec import (
-        PrunedPlanMixin,
+        HybridSearchTopK,
         host_bm25_reference,
     )
     from oramacore_tpu_torch.ops import pruned as pr
@@ -1157,7 +1191,9 @@ def phase_pruned(device, card):
           f"{pb.N_POSTINGS:,} postings + {len(idx._slab_prefix_ranges)} side "
           f"blocks of {si.PREFIX_LEN:,} ({len(slab_np[0]):,} slab postings)",
           flush=True)
-    ex = PrunedPlanMixin(device)
+    # the hybrid executor is a PrunedPlanMixin; phase 13 reuses it and
+    # its device slab
+    ex = HybridSearchTopK(device)
     t0 = time.perf_counter()
     slab = ex._get_device_slab(idx)
     sync(device)
@@ -1242,7 +1278,6 @@ def phase_pruned(device, card):
         print(f"  {label}: top-{K} overlap with the exact top-{K} "
               f"(information): {', '.join(f'{o:.1f}' for o in overlap)}",
               flush=True)
-    del refs
     timings = {}
     for label, timed in KERNEL_CALLS.items():
         name, (args, kw) = kernel_inputs[label]
@@ -1262,7 +1297,595 @@ def phase_pruned(device, card):
               f"% of bound; this design's sector-level bytes "
               f"{r['sector_bytes'] / 1e6:.1f} MB; library call: none "
               f"[{card}]", flush=True)
-    return timings, total
+    ctx = dict(idx=idx, ex=ex, slab_np=slab_np, refs=refs, masks=masks,
+               shared=shared, C=C)
+    return timings, total, ctx
+
+
+# ---------------------------------------------------------------------------
+# pruned facets and the pruned int8 hybrid (phase 13)
+# ---------------------------------------------------------------------------
+
+def facet_columns(n, seed=13):
+    """The four facet columns over all n docs, seeded: {name: (spec,
+    cache key)}. A single-valued string column of FACET_G ids (the bench's
+    bucket); a number column (integers in [0, 1000), 5% missing) against
+    FACET_RANGES; a multi-valued string column of 1-4 distinct ids from 32;
+    a multi-valued number column of 1-3 values (repeats dedup) against
+    FACET_RANGES. Multi-valued columns become pair tables with the port's
+    numpy `pair_table`."""
+    from oramacore_tpu_torch.index.search_exec import pair_table
+
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(0, FACET_G, n).astype(np.int32)
+    nums = np.round(rng.uniform(0, 1000, n)).astype(np.float32)
+    nums[rng.random(n) < 0.05] = np.nan
+    k = rng.integers(1, 5, n)
+    docs = np.repeat(np.arange(n, dtype=np.int32), k)
+    j = np.arange(len(docs)) - np.repeat(np.cumsum(k) - k, k)
+    v0 = np.repeat(rng.integers(0, 32, n), k)
+    step = np.repeat(rng.integers(1, 8, n), k)   # 4 steps < 32: distinct
+    pd, pv, m = pair_table(docs, ((v0 + j * step) % 32).astype(np.int32), n)
+    k = rng.integers(1, 4, n)
+    docs = np.repeat(np.arange(n, dtype=np.int32), k)
+    vals = np.round(rng.uniform(0, 1000, len(docs))).astype(np.float32)
+    npd, npv, nm = pair_table(docs, vals, n)
+    return {
+        "string G=64": (("cat", ids, FACET_G), ("facet", "str", 1)),
+        "number, 8 ranges": (("num", nums, FACET_RANGES), ("facet", "num", 1)),
+        "multi string G=32": (("mcat", pd, pv, 32, m), ("facet", "mstr", 1)),
+        "multi number, 8 ranges": (("mnum", npd, npv, FACET_RANGES, nm),
+                                   ("facet", "mnum", 1)),
+    }
+
+
+def facet_reference(slab_np, plan, specs, n, thr=0.0, alive=None,
+                    exact=False, vec_docs=None, text=True):
+    """Facet counts in numpy: the docs holding at least max(thr, 1)
+    distinct tokens of the plan's main ranges (tf > 0), inside the alive
+    mask, united with vec_docs; per bucket the distinct matched docs.
+    Returns ([counts per spec], matched count)."""
+    p_doc, p_tf, p_etf = slab_np[:3]
+    tf_src = p_etf if exact else p_tf
+    parts = []
+    for t in range(plan.starts.shape[0] if text else 0):
+        rs = [p_doc[s:s + ln][tf_src[s:s + ln] > 0]
+              for s, ln in zip(plan.starts[t].tolist(), plan.lens[t].tolist())
+              if ln > 0]
+        if rs:
+            parts.append(np.unique(np.concatenate(rs)))
+    hit = np.zeros(n, bool)
+    if parts:
+        docs, cnt = np.unique(np.concatenate(parts), return_counts=True)
+        hit[docs[cnt >= max(thr, 1.0)]] = True
+    if alive is not None:
+        hit &= alive
+    if vec_docs is not None:
+        hit[vec_docs] = True
+    out = []
+    for kind, *rest in specs:
+        if kind == "cat":
+            ids, G = rest[0], rest[1]
+            v = ids[hit]
+            out.append(np.bincount(v[(v >= 0) & (v < G)], minlength=G)[:G])
+        elif kind == "num":
+            v = rest[0][hit]
+            out.append(np.array([((v >= lo) & (v <= hi)).sum()
+                                 for lo, hi in rest[1]]))
+        else:
+            pd, pv = rest[0], rest[1]
+            keep = hit[pd]
+            d, v = pd[keep], pv[keep]
+            if kind == "mcat":
+                G = rest[2]
+                out.append(np.bincount(v[(v >= 0) & (v < G)], minlength=G)[:G])
+            else:
+                out.append(np.array([len(np.unique(d[(v >= lo) & (v <= hi)]))
+                                     for lo, hi in rest[2]]))
+    return out, int(hit.sum())
+
+
+class DeviceRows:
+    """Rows of a device matrix fetched on demand, for numpy_probe."""
+
+    def __init__(self, mat):
+        self.mat = mat
+
+    def __len__(self):
+        return self.mat.shape[0]
+
+    def __getitem__(self, rows):
+        import torch
+
+        idx = torch.from_numpy(np.asarray(rows, np.int64)).to(self.mat.device)
+        return self.mat[idx].cpu().numpy()
+
+
+def layout_numpy(lay):
+    """What numpy_probe reads of an int8 layout: the matrix fetched on
+    demand, the rest on the host."""
+    return dict(q=DeviceRows(lay.mat), scales=lay.scales.cpu().numpy(),
+                docs=lay.row_doc.cpu().numpy(),
+                cen_b16=bf16_round(lay.unit_cen.cpu().numpy()),
+                unit_starts=lay.unit_starts.cpu().numpy(), window=lay.window)
+
+
+def port_probe(lay, q, V, fmask=None):
+    """The port's own probe of one query: its top-V (vals, rows) as the
+    facet path takes them (ivf_int8_topk_masked under the mask)."""
+    import torch
+
+    from oramacore_tpu_torch.ops.vector import ivf_int8_topk_masked
+
+    mat, scales, row_doc, cen, starts, window, nprobe = lay.int8_device_rows()
+    qd = torch.from_numpy(np.asarray(q, np.float32).reshape(1, -1)).to(
+        mat.device)
+    mask2d = None if fmask is None else (fmask > 0)[None, :]
+    vals, rows = ivf_int8_topk_masked(
+        qd, mat, scales, row_doc, cen, starts, mask2d, k=V, nprobe=nprobe,
+        window=window, has_mask=fmask is not None)
+    return vals[0].cpu().numpy(), rows[0].cpu().numpy()
+
+
+def probe_errors(lay_np, nprobe, q, V, vals, rows, doc_mask=None):
+    """The port's probe rows against numpy_probe of the same windows:
+    equal outside near-ties at the V-th value (VEC_TIE)."""
+    nv, nr, kth, tie, _ = numpy_probe(q, lay_np, nprobe, V, doc_mask)
+    if tie:
+        return []   # the nprobe-th unit is near-tied: another window set
+    got = {int(r) for r, v in zip(rows, vals) if r >= 0 and v > NEG_INF / 2}
+    sure = {int(r) for r, v in zip(nr, nv) if r >= 0 and v > kth + VEC_TIE}
+    maybe = {int(r) for r, v in zip(nr, nv) if r >= 0 and v >= kth - VEC_TIE}
+    errs = [f"row {r} missing" for r in sorted(sure - got)[:3]]
+    errs += [f"row {r} not in the numpy top-{V}"
+             for r in sorted(got - maybe)[:3]]
+    if not np.allclose(np.sort(vals)[-8:], np.sort(nv)[-8:], rtol=1e-5,
+                       atol=1e-6):
+        errs.append("top probe values differ")
+    return errs
+
+
+def spread(xs, nd):
+    """mean (p10, p50, p90, min, max) of xs, to nd decimals."""
+    p10, p50, p90 = np.percentile(xs, [10, 50, 90])
+    return (f"mean {np.mean(xs):.{nd}f} (p10 {p10:.{nd}f}, p50 {p50:.{nd}f}, "
+            f"p90 {p90:.{nd}f}, min {min(xs):.{nd}f}, max {max(xs):.{nd}f})")
+
+
+def timed_ms(fn):
+    t = time.perf_counter()
+    res = fn()
+    return res, (time.perf_counter() - t) * 1e3
+
+
+def phase_facets(ctx, lay, lay_np, qpool, device, card):
+    """facet_counts_pruned with every spec kind on the bench's 3-term
+    queries and the query of the three most frequent terms, in seven
+    cases; exact counts against numpy, facet_match_count, the port's probe
+    rows against numpy. Returns (the largest query's phase-B calls,
+    recorded; the launch counts of all cases)."""
+    import torch
+
+    from oramacore_tpu_torch.benches import pruned_bench as pb
+    from oramacore_tpu_torch.index import search_exec as se
+    from oramacore_tpu_torch.index.plan import plan_query
+    from oramacore_tpu_torch.index.search_exec import _ivf_candidates
+
+    idx, ex, slab_np = ctx["idx"], ctx["ex"], ctx["slab_np"]
+    n = pb.N_DOCS
+    t0 = time.perf_counter()
+    columns = facet_columns(n)
+    names = list(columns)
+    specs = [columns[k][0] for k in names]
+    print(f"  facet columns over {n:,} docs (pair tables of "
+          f"{len(specs[2][1]):,} and {len(specs[3][1]):,} rows, M = "
+          f"{specs[2][4]} and {specs[3][4]}): {time.perf_counter() - t0:.1f} "
+          f"s", flush=True)
+    alive = np.random.default_rng(14).random(n) >= TOMBSTONES
+    V = _ivf_candidates(None, n)
+    queries = [["t0", "t1", "t2"]] + pb.make_queries(FACET_QUERIES, seed=31)
+    cases = [
+        ("plain", {}),
+        ("thresholded, thr=2", dict(thr=2.0)),
+        ("thresholded, thr=3", dict(thr=3.0)),
+        ("exact tf", dict(exact=True)),
+        (f"{TOMBSTONES:.0%} tombstones", dict(mask=alive,
+                                              mask_key=("alive", 1))),
+        ("hybrid", dict(vec=True)),
+        ("vec_only", dict(vec=True, vec_only=True)),
+    ]
+    launches_all = {}
+    bad = []
+    for ci, (label, opts) in enumerate(cases):
+        times = []
+
+        def run_case(ci=ci, opts=opts):
+            out = []
+            for qi, q in enumerate(queries):
+                plan = plan_query(idx, q, ["body"], {}, with_prefix=True)
+                kw = dict(opts)
+                qv = qpool[(7 * ci + qi) % len(qpool)]
+                if kw.pop("vec", False):
+                    kw["vec"] = (lay, qv[None, :], SIMILARITY_10M, None)
+                t = []
+                counts = []
+                for name, (spec, key) in columns.items():
+                    c, ms = timed_ms(lambda: ex.facet_counts_pruned(
+                        idx, plan, n, spec, key, **kw))
+                    counts.append(c)
+                    t.append(ms)
+                mc, ms = timed_ms(lambda: ex.facet_match_count(plan))
+                # phase B of the first field again, from the cached reps
+                _, again = timed_ms(lambda: ex.facet_counts_pruned(
+                    idx, plan, n, *columns[names[0]], **kw))
+                times.append((t, again))
+                out.append((plan, qv, kw, counts, mc))
+            return out
+
+        torch.cuda.reset_peak_memory_stats()
+        runs, launches = counted(f"facets, {label}", run_case)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        for k2, v in launches.items():
+            launches_all[k2] = launches_all.get(k2, 0) + v
+        check(launches["facet_hist"] > 0 and launches["facet_hist_multi"] > 0,
+              f"facets, {label}: launched facet_hist "
+              f"({launches['facet_hist']}) and facet_hist_multi "
+              f"({launches['facet_hist_multi']})")
+        whole = [sum(t) for t, _ in times]
+        phase_a = [t[0] - again for t, again in times]
+        phase_b = [np.mean(t[1:] + [again]) for t, again in times]
+        print(f"  facets, {label}: first query (top-3 terms, 4 fields) "
+              f"{whole[0]:.1f} ms, phase A {phase_a[0]:.1f} ms, phase B "
+              f"{phase_b[0]:.3f} ms a field; {len(whole) - 1} distinct 3-term "
+              f"queries: {spread(whole[1:], 2)} ms a query "
+              f"({1e3 / np.mean(whole[1:]):.1f} QPS), phase A "
+              f"{spread(phase_a[1:], 2)} ms, phase B {spread(phase_b[1:], 3)} "
+              f"ms a field; peak device memory {peak:.2f} GiB [{card}]",
+              flush=True)
+        plan = plan_query(idx, queries[1], ["body"], {}, with_prefix=True)
+        kw = dict(runs[1][2])
+        profile_once(f"facets, {label}, one query, 4 fields", lambda: [
+            ex.facet_counts_pruned(idx, plan, n, *columns[k], **kw)
+            for k in names], card)
+        for plan, qv, kw, counts, mc in runs[:N_FACET_CHECKED]:
+            vec_docs = None
+            fmask = None
+            if "mask" in kw:
+                fmask = ex._get_device_fmask(kw["mask"], kw["mask_key"],
+                                             se.round_up_pow2(n, 128))
+            if "vec" in kw:
+                vals, rows = port_probe(lay, qv, V, fmask)
+                bad += [f"{label}: probe: {e}" for e in probe_errors(
+                    lay_np, lay.nprobe, qv, V, vals, rows,
+                    kw.get("mask"))]
+                ok = (rows >= 0) & (vals >= SIMILARITY_10M) & (vals > 0)
+                vec_docs = lay_np["docs"][rows[ok]]
+            ref, n_ref = facet_reference(
+                slab_np, plan, specs, n, thr=kw.get("thr", 0.0),
+                alive=kw.get("mask"), exact=kw.get("exact", False),
+                vec_docs=vec_docs, text=not kw.get("vec_only", False))
+            for name, c, r in zip(names, counts, ref):
+                if c.dtype != np.int32 or not np.array_equal(c, r):
+                    bad.append(f"{label}, {name}: {c.tolist()[:8]} vs "
+                               f"{r.tolist()[:8]}")
+            if mc != n_ref:
+                bad.append(f"{label}: facet_match_count {mc} vs {n_ref}")
+    # phase B's inputs at the top-3 query, recorded after every timed case:
+    # the recording clones every tensor argument (0.5 GiB)
+    plan = plan_query(idx, queries[0], ["body"], {}, with_prefix=True)
+    _, recorded = record_facet_calls(lambda: [
+        ex.facet_counts_pruned(idx, plan, n, *columns[k]) for k in names])
+    report_check(bad, f"facet counts of every field and facet_match_count "
+                      f"equal numpy exactly on {N_FACET_CHECKED} queries of "
+                      f"each of the {len(cases)} cases; the port's probe rows "
+                      f"equal a numpy probe scan outside near-ties")
+    return recorded, launches_all
+
+
+def record_facet_calls(run):
+    """run() with the executor's two phase-B entry points recorded (their
+    tensors cloned): (its result, {spec kind: (args, kwargs)}) of one
+    query's calls, a single- and a multi-valued pair."""
+    from oramacore_tpu_torch.benches import pruned_bench as pb
+    from oramacore_tpu_torch.index import search_exec as se
+
+    out, single = pb.capture(se, "facet_hist", lambda: pb.capture(
+        se, "facet_hist_multi", run))
+    out, multi = out
+    calls = {"num" if kw["numeric"] else "cat": (a, kw)
+             for a, kw in single[:2]}
+    calls.update({"mnum" if kw["numeric"] else "mcat": (a, kw)
+                  for a, kw in multi[:2]})
+    return out, calls
+
+
+def facet_bound(kind, args, kw):
+    """(bytes by 4-byte word, bytes by 32-byte sector) one phase-B call
+    must move: docs and rep (8 B an entry) once, each kept rep's value (a
+    column word) or its rows of the pair table (doc and value, 8 B a row),
+    the bounds and the counts once."""
+    import torch
+
+    docs, rep = args[0], args[1]
+    G = kw["G"]
+    d = docs[rep != 0].to(torch.int64)
+    base = 8 * docs.shape[0] + 12 * G
+    if kind in ("cat", "num"):
+        words = float(d.numel())
+        sectors = float(torch.unique(d // 8).numel())
+        return base + 4 * words, base + 32 * sectors
+    pair_docs = args[2]
+    lo = torch.searchsorted(pair_docs, d.to(torch.int32), right=False)
+    hi = torch.searchsorted(pair_docs, d.to(torch.int32), right=True)
+    hi = torch.minimum(hi, lo + kw["M"])
+    rows = float((hi - lo).sum())
+    r = torch.repeat_interleave(lo, hi - lo) + (
+        torch.arange(int(rows), device=lo.device)
+        - torch.repeat_interleave(torch.cumsum(hi - lo, 0) - (hi - lo),
+                                  hi - lo))
+    sectors = float(torch.unique(r // 8).numel())
+    return base + 8 * rows, base + 2 * 32 * sectors
+
+
+def facet_kernel_checks(recorded, card):
+    """Both phase-B kernels against their plain versions at the largest
+    query's reps for all four specs, timed as CUDA-graph replays (L2 warm,
+    and cold after a 256 MiB write) beside the bound and, for the
+    string column, the library composition."""
+    import torch
+
+    from oramacore_tpu_torch.benches import bound_ms, time_cuda, time_graph
+    from oramacore_tpu_torch.benches import pruned_bench as pb
+    from oramacore_tpu_torch.ops import facet_hist as fh
+
+    flush = torch.empty(64 << 20, device=recorded["cat"][0][0].device)
+    out = {}
+    for kind in ("cat", "num", "mcat", "mnum"):
+        args, kw = recorded[kind]
+        name = "facet_hist" if kind in ("cat", "num") else "facet_hist_multi"
+        kernel, plain = getattr(fh, name), getattr(fh, f"{name}_plain")
+        before = fh.LAUNCHES[name]
+        got = kernel(*args, **kw)
+        exp = plain(*args, **kw)
+        torch.cuda.synchronize()
+        if fh.LAUNCHES[name] != before + 1:
+            raise SmokeFailure(f"{name}: the wrapper did not launch its kernel")
+        err = float((got - exp).abs().max())
+        check(torch.equal(got, exp),
+              f"{name} [{kind}]: equal to its plain version at the largest "
+              f"query's reps (N={args[0].shape[0]:,}, "
+              f"{int((args[1] != 0).sum()):,} kept; max abs err {err:.3g})")
+        ms = time_graph(lambda: kernel(*args, **kw), 20)
+        cold = pb.time_cold(lambda: kernel(*args, **kw), flush, 20)
+        plain_ms = time_cuda(lambda: plain(*args, **kw), 3)
+        by_word, by_sector = facet_bound(kind, args, kw)
+        bound, by = bound_ms(by_word, 0)
+        lib_ms, lib = None, "none"
+        if kind == "cat":
+            docs, rep, bucket = args[0], args[1], args[2]
+            top = pb.N_DOCS - 1   # sentinel docs (rep 0) read a real id
+            lib = (f"torch.bincount(bucket[docs.clamp(max={top})], "
+                   f"weights=rep, minlength=G)")
+            lib_ms = time_cuda(lambda: torch.bincount(
+                bucket[docs.clamp(max=top)], weights=rep, minlength=kw["G"]),
+                10)
+        print(f"  {name} [{kind}, G={kw['G']}]: kernel {ms:.4f} ms (L2 "
+              f"warm), {cold:.4f} ms (L2 cold); plain {plain_ms:.4f} ms; "
+              f"bound {bound * 1e3:.2f} us ({by_word / 1e6:.1f} MB by word; "
+              f"{bound_ms(by_sector, 0)[0] * 1e3:.2f} us, "
+              f"{by_sector / 1e6:.1f} MB by sector); library call {lib}"
+              + (f" {lib_ms:.4f} ms" if lib_ms is not None else "")
+              + f" [{card}]", flush=True)
+        share(f"{name} [{kind}]", ms, bound, by, card)
+        r = dict(ms=ms, cold_ms=cold, plain_ms=plain_ms, bound_ms=bound,
+                 bound_by=by, max_abs_err=err, library_ms=lib_ms)
+        if kind in ("cat", "mcat"):     # the kernels line: string columns
+            out[name] = r
+        else:
+            out[name]["max_abs_err"] = max(out[name]["max_abs_err"], err)
+    return out
+
+
+def hybrid_pruned_errors(ctx, lay, lay_np, run, route, mask, V):
+    """One route's first batch: the candidates against the numpy
+    nomination united with the numpy probe's top-V docs (outside near-ties
+    of either), then the fused top-10 against numpy over the port's own
+    candidates: BM25 from the reference scorer, the int8 row times the
+    bf16 query, min-max fusion; counts exact for cand_given."""
+    from oramacore_tpu_torch.benches import pruned_bench as pb
+    from oramacore_tpu_torch.index.search_exec import PrunedPlanMixin
+
+    (vals, ids, counts), plans, cands, qv = run
+    n = pb.N_DOCS
+    refs = ctx["refs"][route][:N_HYBRID_PRUNED_CHECKED]
+    fm = None if mask is None else mask.astype(np.float32)
+    cand_given = mask is not None and int(mask.sum()) <= ctx["C"]
+    bad = []
+    for b, ref in enumerate(refs):
+        real = np.array(sorted({int(d) for d in cands[b] if d < n}), np.int64)
+        # the route probes unfiltered and drops hits outside the filter
+        pvals, prow, pkth, tie, _ = numpy_probe(qv[b], lay_np, lay.nprobe, V)
+        pdocs = lay_np["docs"][prow[(prow >= 0) & (pvals > NEG_INF / 2)]]
+        if mask is not None:
+            pdocs = pdocs[mask[pdocs]]
+        if cand_given:
+            if real.tolist() != np.nonzero(mask)[0].tolist():
+                bad.append(f"query {b}: the candidates are not the filter")
+        else:
+            idf_row = PrunedPlanMixin._pruned_host_inputs(
+                [plans[b]], [float(n)], None)[4][0]
+            part = pb.nominate_numpy(ctx["slab_np"], plans[b], idf_row, fm)
+            if tie:     # a near-tied window set: other windows' hits
+                extra, edge = (), set(real.tolist())
+            else:       # hits near the V-th probe value may go either way
+                extra = pdocs.tolist()
+                edge = {int(lay_np["docs"][r]) for r, v in zip(prow, pvals)
+                        if r >= 0 and abs(v - pkth) <= VEC_TIE}
+            bad += [f"query {b}: {e}" for e in pb.nomination_errors(
+                real, part, ctx["C"], n, extra=extra, edge=edge)[:3]]
+        # numpy fusion over the port's own candidates
+        rows = lay.pos[real].cpu().numpy() if len(real) else np.zeros(0, int)
+        q8 = DeviceRows(lay.mat)[rows].astype(np.float32)
+        vec = (q8 @ bf16_round(qv[b])) * lay_np["scales"][rows]
+        near = np.abs(vec - SIMILARITY_10M) <= VEC_TIE
+        vec = np.where(vec >= SIMILARITY_10M, vec, 0.0)
+        bm = np.array([ref.get(int(d), 0.0) for d in real])
+        hi = max(float(bm.max(initial=0.0)), float(vec.max(initial=0.0)))
+        fused = (bm + vec) / (hi if hi > 0 else 1.0)
+        present = (bm > 0) | (vec > 0)
+        score_of = {int(d): float(f) for d, f, p in zip(real, fused, present)
+                    if p}
+        order = np.argsort(-np.where(present, fused, -np.inf), kind="stable")
+        top = [i for i in order[:K] if present[i]]
+        errs = topk_errors(ids[b], vals[b], real[top], fused[top], score_of)
+        n_sure = int((present & ~near).sum())
+        if cand_given and not n_sure <= counts[b] <= int(present.sum()) + \
+                int(near.sum()):
+            errs.append(f"count {counts[b]} vs {n_sure} (+{int(near.sum())} "
+                        f"near the similarity floor)")
+        elif not cand_given and counts[b] < n_sure:
+            errs.append(f"count {counts[b]} below the {n_sure} present "
+                        f"candidates")
+        bad += [f"query {b}: {e}" for e in errs]
+    return bad
+
+
+def phase_hybrid_pruned(ctx, lay, lay_np, qpool, device, card):
+    """search_topk_hybrid_int8_pruned on five routes, each with launch
+    counts reset before and read after, first and steady latency, QPS,
+    peak memory and one profile with the gather-dot's share; the first
+    batch's checked queries against numpy."""
+    import torch
+
+    from oramacore_tpu_torch.benches import pruned_bench as pb
+    from oramacore_tpu_torch.benches import time_graph
+    from oramacore_tpu_torch.index.plan import plan_query
+    from oramacore_tpu_torch.index.search_exec import (
+        _ivf_candidates,
+        round_up_pow2,
+    )
+    from oramacore_tpu_torch.ops import pruned as pr
+
+    idx, ex = ctx["idx"], ctx["ex"]
+    n = pb.N_DOCS
+    d2r = lay.int8_doc2row(round_up_pow2(n, 128))
+    rows = lay.int8_device_rows()
+    V = _ivf_candidates(None, n)
+    shared = ctx["shared"]
+    # label, B, search kwargs, mask name, kernel
+    routes = [
+        ("v4 B=64", 64, {}, None, "rescore_bsearch"),
+        ("v4 B=256 (4 chunks)", 256, {}, None, "rescore_bsearch"),
+        ("v3 50% filter B=64", 64, {}, "half", "rescore_worklist"),
+        ("1,000-doc filter B=8 (cand_given)", 8, {}, "small",
+         "rescore_worklist"),
+        ("v3 exact B=8", 8, dict(exact=True), None, "rescore_worklist"),
+    ]
+    bad = []
+    for ri, (label, B, kw, mname, kernel) in enumerate(routes):
+        mask = ctx["masks"].get(mname)
+        skw = dict(kw)
+        if mask is not None:
+            skw.update(mask=mask, mask_key=("pruned", mname))
+
+        def search(j, skw=skw, B=B, ri=ri):
+            qs = pruned_batch(20 + ri, j, B, shared)
+            qv = qpool[[(j * B + i) % len(qpool) for i in range(B)]]
+            plans = [plan_query(idx, q, ["body"], {}, with_prefix=True)
+                     for q in qs]
+            res, ms = timed_ms(lambda: ex.search_topk_hybrid_int8_pruned(
+                idx, plans, [float(n)] * B, n, K, rows, d2r, qv,
+                [SIMILARITY_10M] * B, **skw))
+            return res, plans, qv, ms
+
+        def drive(kernel=kernel, search=search):
+            (first, plans, qv, first_ms), calls = pb.capture(
+                pr, kernel, lambda: search(0))
+            steady = [search(j)[3] for j in range(1, 1 + PRUNED_STEADY)]
+            return first, plans, qv, calls, first_ms, steady
+
+        torch.cuda.reset_peak_memory_stats()
+        (first, plans, qv, calls, first_ms, steady), launches = counted(
+            f"pruned hybrid, {label}", drive)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        check(launches[kernel] > 0, f"pruned hybrid, {label}: launched "
+                                    f"{kernel} ({launches[kernel]} launches)")
+        print(f"  pruned hybrid, {label}: first {first_ms:.1f} ms; steady "
+              f"over {len(steady)} distinct batches mean "
+              f"{np.mean(steady):.1f} ms (min {min(steady):.1f}, max "
+              f"{max(steady):.1f}), {1e3 * B / np.mean(steady):.1f} QPS; peak "
+              f"device memory {peak:.2f} GiB [{card}]", flush=True)
+        # the gather-dot's calls of the profiled search, kept by
+        # reference (the layout is 7.5 GiB) and timed after it as CUDA
+        # graph replays: its device time, without the host's launches
+        real_cv = pr._candidate_vec
+        cv_calls = []
+
+        def recorded_cv(*a, **k):
+            cv_calls.append((a, k))
+            return real_cv(*a, **k)
+
+        pr._candidate_vec = recorded_cv
+        try:
+            dev_ms = profile_once(f"pruned hybrid, {label}",
+                                  lambda: search(1 + PRUNED_STEADY), card)
+        finally:
+            pr._candidate_vec = real_cv
+        g_ms = sum(time_graph(lambda a=a, k=k: real_cv(*a, **k), 10)
+                   for a, k in cv_calls)
+        del cv_calls
+        print(f"  pruned hybrid, {label}: the int8 gather-dot "
+              f"(_candidate_vec, CUDA-graph replays of its calls) "
+              f"{g_ms:.3f} ms of {dev_ms:.3f} device ms "
+              f"({100 * g_ms / max(dev_ms, 1e-9):.1f}%) [{card}]", flush=True)
+        cpos = 9 if kernel == "rescore_bsearch" else 6
+        cands = calls[0][0][cpos].cpu().numpy()
+        bad += [f"{label}: {e}" for e in hybrid_pruned_errors(
+            ctx, lay, lay_np, (first, plans, cands, qv),
+            mname or "all", mask, V)]
+    report_check(bad, f"pruned hybrid: candidates of {N_HYBRID_PRUNED_CHECKED} "
+                      f"queries on each of {len(routes)} routes equal the "
+                      f"numpy nomination united with the numpy probe outside "
+                      f"near-ties, top-{K} ids and scores equal numpy fusion "
+                      f"over them, counts exact where the filter is the "
+                      f"candidate set")
+
+
+def phase_facets_hybrid(ctx, device, card):
+    """Phase 13: the int8 IVF layout of the 10M configuration, the pruned
+    facets, both facet kernels against their plain versions, the pruned
+    int8 hybrid. Returns (kernel timings, the facet path's launches)."""
+    import torch
+
+    from oramacore_tpu_torch.benches import hybrid10m
+    from oramacore_tpu_torch.benches import pruned_bench as pb
+
+    n = pb.N_DOCS
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    lay = hybrid10m.build_layout(n, device)
+    sync(device)
+    print(f"  int8 IVF layout built on the card in "
+          f"{time.perf_counter() - t0:.1f} s: {lay.mat.shape[0]:,} x "
+          f"{lay.mat.shape[1]} int8 ({lay.mat.numel() / 2**30:.2f} GiB), "
+          f"{lay.unit_starts.shape[0]:,} probe units of window {lay.window}, "
+          f"nprobe {lay.nprobe}; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]",
+          flush=True)
+    lay_np = layout_numpy(lay)
+    qpool = hybrid10m.query_vectors(HYBRID_POOL, device)
+    recorded, launches = phase_facets(ctx, lay, lay_np, qpool, device, card)
+    timings = facet_kernel_checks(recorded, card)
+    del recorded
+    phase_hybrid_pruned(ctx, lay, lay_np, qpool, device, card)
+    slab = ctx["ex"]._get_device_slab(ctx["idx"])
+    slab_gib = sum(c.numel() * c.element_size() for c in slab) / 2**30
+    # each path above printed its own peak
+    print(f"  resident: slab {slab_gib:.2f} GiB, int8 layout "
+          f"{lay.mat.numel() / 2**30:.2f} GiB; device memory allocated "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB [{card}]",
+          flush=True)
+    return timings, launches
 
 
 def sync(device):
@@ -1391,8 +2014,20 @@ def main() -> int:
 
     print("[12] the pruned full-text tier on the 10M-doc text configuration "
           "(benches/hybrid10m_bench.py)", flush=True)
-    pruned_timings, path_launches["pruned"] = phase_pruned(device, card)
+    t_phase = time.perf_counter()
+    pruned_timings, path_launches["pruned"], ctx = phase_pruned(device, card)
     timings.update(pruned_timings)
+    print(f"  phase 12: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    print("[13] pruned facets and the pruned int8 hybrid: the same index and "
+          f"a {N_HYBRID10M_LABEL} int8 IVF layout "
+          "(benches/hybrid10m_bench.py's vector side)", flush=True)
+    t_phase = time.perf_counter()
+    facet_timings, path_launches["facets"] = phase_facets_hybrid(
+        ctx, device, card)
+    timings.update(facet_timings)
+    del ctx
+    print(f"  phase 13: {time.perf_counter() - t_phase:.1f} s", flush=True)
 
     kernels = {"kernels": [{
         "name": k["name"],

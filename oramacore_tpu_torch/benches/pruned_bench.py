@@ -175,16 +175,24 @@ def nominate_numpy(slab, plan, idf_row, fmask=None, exact=False) -> Dict[int, fl
 
 
 def nomination_errors(cand_row, partial: Dict[int, float], C: int, cap: int,
-                      rtol: float = 1e-5) -> List[str]:
-    """A device candidate set against the numpy nomination: equal outside
-    near-ties at the C-th partial score (relative rtol)."""
+                      rtol: float = 1e-5, extra=(), edge=()) -> List[str]:
+    """A device candidate set against the numpy nomination united with
+    the docs of `extra` (a probe's hits): equal outside near-ties at the
+    C-th partial score (relative rtol) and outside the docs of `edge`,
+    which may be in the set or not."""
     got = {int(d) for d in cand_row if d < cap}
     ranked = sorted(partial.items(), key=lambda kv: -kv[1])
     kth = ranked[C - 1][1] if len(ranked) >= C else 0.0
+    top, extra = {d for d, _ in ranked[:C]}, set(extra)
     errs = []
-    for d in got ^ {d for d, _ in ranked[:C]}:
+    for d in got ^ (top | extra):
         s = partial.get(d, 0.0)
-        if abs(s - kth) > rtol * max(abs(kth), 1e-30):
+        near = abs(s - kth) <= rtol * max(abs(kth), 1e-30)
+        if d in got:
+            wrong = not (near or d in edge)
+        else:
+            wrong = (d in top and not near) or (d in extra and d not in edge)
+        if wrong:
             errs.append(f"doc {d} (partial {s}, C-th {kth}) "
                         f"{'only on the device' if d in got else 'missed'}")
     return errs

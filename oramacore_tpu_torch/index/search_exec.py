@@ -23,9 +23,11 @@ flat vector slab (`search_topk_hybrid`) or the int8 IVF layout
 
 `PrunedPlanMixin.search_topk_pruned` runs the pruned full-text tier
 (ops/pruned.py) on plans built with `with_prefix=True`; `HybridSearchTopK`
-derives from it, as in the JAX package. Not ported yet: the pruned
-facets (`facet_counts_pruned`, `facet_match_count`, ...) and the pruned
-hybrid (`search_topk_hybrid_int8_pruned`).
+derives from it, as in the JAX package. The mixin also counts facets over
+a pruned plan (`facet_counts_pruned`, with the exact match count of the
+same reps in `facet_match_count`; multi-valued columns come as
+`pair_table`s), and `HybridSearchTopK.search_topk_hybrid_int8_pruned` is
+the pruned hybrid over the int8 IVF layout.
 """
 
 from __future__ import annotations
@@ -55,6 +57,7 @@ from ..ops.bm25 import (
     finalize_topk,
     round_up_pow2,
 )
+from ..ops.facet_hist import facet_hist, facet_hist_multi
 from ..ops.hybrid import (
     hybrid_finalize_topk,
     hybrid_finalize_topk_int8,
@@ -67,6 +70,10 @@ from ..ops.pruned import (
     pruned_exact_counts,
     pruned_fulltext_topk,
     pruned_fulltext_topk_bs,
+    pruned_hybrid_match_reps,
+    pruned_hybrid_topk_int8,
+    pruned_hybrid_topk_int8_bs,
+    pruned_match_reps,
 )
 
 HYBRID_INT8_CANDIDATES = 256  # V: IVF candidate rows per hybrid query
@@ -610,6 +617,9 @@ class PrunedPlanMixin(StringSearchTopK):
     # the commit-time blocks of depth string_index.PREFIX_LEN)
     PRUNED_PREFIX = 8192
     PRUNED_CANDIDATES = 1024
+    # multi-valued facet columns take the device path while no doc holds
+    # more values than this (the read side routes wider ones elsewhere)
+    PRUNED_FACET_MULTI_MAX = 8
     PRUNED_LCH = 32768   # rescore worklist chunk length
     PRUNED_WCH = 128     # worklist entries per JAX scan step (W's bucket)
     # exact-counts batch slice: queries per dispatch of the counting sort
@@ -1158,6 +1168,201 @@ class PrunedPlanMixin(StringSearchTopK):
             counts,
         )
 
+    # ------------------------------------------------------------------
+    # facets over a pruned plan
+    # ------------------------------------------------------------------
+
+    def _facet_worklist(self, plan: QueryPlan, lch: int) -> np.ndarray:
+        """Worklist of the facet reps: every main range of the plan
+        chunked to lch, each row carrying its token index. Returns wl_i
+        int32[4, W], W a power of two."""
+        T, NR = plan.starts.shape
+        wl = []
+        for t in range(T):
+            for r in range(NR):
+                ln = int(plan.lens[t, r])
+                s0 = int(plan.starts[t, r])
+                for off in range(0, max(ln, 0), lch):
+                    wl.append((0, t, s0 + off, min(ln - off, lch)))
+        W = round_up_pow2(max(len(wl), 1), 2)
+        wl_i = np.zeros((4, W), np.int32)
+        if wl:
+            wl_i[:, : len(wl)] = np.asarray(wl, np.int32).T
+        return wl_i
+
+    def _device_column(self, col_key, build):
+        """A facet column on the device, cached in `_fmask_dev` by col_key
+        (none: uploaded for this call only); build() makes its host
+        arrays."""
+        cached = _MISS if col_key is None else self._fmask_dev.get(col_key)
+        if cached is not _MISS:
+            return cached
+        arrs = build()
+        dev = (tuple(self._to_dev(a) for a in arrs) if isinstance(arrs, tuple)
+               else self._to_dev(arrs))
+        if col_key is not None:
+            self._fmask_dev.put(col_key, dev)
+        return dev
+
+    def facet_counts_pruned(
+        self,
+        index: StringIndex,
+        plan: QueryPlan,
+        cap: int,
+        spec,              # ("cat", ids int32[cap], G)
+        #                  | ("num", vals f32[cap] NaN-missing, bounds f32[G, 2])
+        #                  | ("mcat", pair_docs, pair_vals, G, M)
+        #                  | ("mnum", pair_docs, pair_vals, bounds, M)
+        spec_key,          # device-cache key of the column (None: no cache)
+        exact: bool = False,
+        mask: Optional[np.ndarray] = None,
+        mask_key=None,
+        thr: float = 0.0,
+        vec=None,
+        vec_only: bool = False,
+    ) -> np.ndarray:
+        """Facet counts (int32[G]) over a pruned full-text or hybrid
+        search: the distinct matched docs per bucket. Phase A's (docs,
+        rep) pair is computed once per plan and kept in a one-slot cache
+        for the search's other facet fields; phase B runs one kernel per
+        field. `mask` is the alive mask (tombstones): facets count the
+        unfiltered match set. `thr` = min distinct matched tokens. `vec` =
+        (vector index, q f32[1, dim], similarity, rescale) widens the match
+        set by the IVF probe's top-V docs clearing the similarity floor;
+        `vec_only` takes those alone (no text worklist)."""
+        capb = round_up_pow2(cap, 128)
+        has_filter = mask is not None
+        fmask_dev = (self._get_device_fmask(mask, mask_key, capb)
+                     if has_filter else None)
+        # the slot holds a strong reference to the plan, so the `is`
+        # check can never alias a recycled id()
+        reps_key = (index.uid, mask_key, has_filter, exact, float(thr), capb,
+                    vec is not None, vec_only)
+        slot = getattr(self, "_facet_reps_slot", None)
+        if slot is not None and slot[1] is plan and slot[0] == reps_key:
+            docs_dev, rep_dev = slot[2], slot[3]
+        else:
+            if vec_only:
+                # the probe alone, deduplicated against all-sentinel reps
+                if vec is None:
+                    raise ValueError("vec_only facets need vec")
+                docs_dev = torch.full((self.PRUNED_LCH,), capb,
+                                      dtype=torch.int32, device=self.device)
+                rep_dev = torch.zeros(self.PRUNED_LCH, dtype=torch.float32,
+                                      device=self.device)
+            else:
+                slab = self._get_device_slab(index)
+                wl_i = self._facet_worklist(plan, self.PRUNED_LCH)
+                docs_dev, rep_dev = pruned_match_reps(
+                    slab.doc, slab.tf, slab.exact_tf, self._to_dev(wl_i),
+                    float(thr), fmask_dev, lch=self.PRUNED_LCH, cap=capb,
+                    exact=exact, has_filter=has_filter,
+                )
+            if vec is not None:
+                vector_index, q, sim_v, rescale = vec
+                *layout, window, nprobe = vector_index.int8_device_rows()
+                docs_dev, rep_dev = pruned_hybrid_match_reps(
+                    docs_dev, rep_dev, *layout,
+                    self._to_dev(np.asarray(q, np.float32).reshape(1, -1)),
+                    float(sim_v), fmask_dev,
+                    V=_ivf_candidates(None, int(layout[0].shape[0])),
+                    nprobe=nprobe, window=window, cap=capb,
+                    pad=self.PRUNED_LCH, has_filter=has_filter,
+                    **_rescale_kw(rescale),
+                )
+            self._facet_reps_slot = (reps_key, plan, docs_dev, rep_dev)
+        col_key = (spec_key, capb) if spec_key is not None else None
+        kind = spec[0]
+        if kind in ("mcat", "mnum"):
+            numeric = kind == "mnum"
+            pair_docs, pair_vals = spec[1], spec[2]
+            if numeric:
+                bounds = spec[3]
+                G, M = bounds.shape[0], int(spec[4])
+            else:
+                G, M = int(spec[3]), int(spec[4])
+                bounds = np.zeros((G, 2), np.float32)
+
+            def pairs():
+                # a sentinel row (> any doc id, != the reps' cap) keeps
+                # the binary search inside the table
+                return (
+                    np.concatenate([np.asarray(pair_docs, np.int32),
+                                    np.full(1, 2**30, np.int32)]),
+                    np.concatenate([
+                        np.asarray(pair_vals,
+                                   np.float32 if numeric else np.int32),
+                        np.zeros(1, np.float32 if numeric else np.int32)]),
+                )
+
+            pd_dev, pv_dev = self._device_column(col_key, pairs)
+            counts = facet_hist_multi(
+                docs_dev, rep_dev, pd_dev, pv_dev,
+                self._to_dev(np.asarray(bounds, np.float32)),
+                G=G, numeric=numeric, M=max(M, 1),
+            )
+            return counts.cpu().numpy()
+        return self._facet_hist_single(spec, col_key, capb, docs_dev,
+                                       rep_dev)
+
+    def facet_match_count(self, plan) -> Optional[int]:
+        """The exact match count of the search whose facets were just
+        counted: phase A's rep sum, summed in int32 (an f32 sum of ones is
+        exact only to 2^24 docs). None when the reps slot holds another
+        plan."""
+        slot = getattr(self, "_facet_reps_slot", None)
+        if slot is None or slot[1] is not plan:
+            return None
+        return int(slot[3].to(torch.int32).sum())
+
+    def _facet_hist_single(self, spec, col_key, capb, docs_dev,
+                           rep_dev) -> np.ndarray:
+        """Phase B of a single-valued field: the column on the device,
+        padded to capb ("num" with NaN, "cat" with -1), and one
+        `facet_hist` launch over the cached reps."""
+        numeric = spec[0] == "num"
+        if numeric:
+            vals, bounds = spec[1], spec[2]
+            G = bounds.shape[0]
+            fill, dtype = np.nan, np.float32
+        else:
+            vals, G = spec[1], int(spec[2])
+            bounds = np.zeros((G, 2), np.float32)
+            fill, dtype = -1, np.int32
+
+        def column():
+            arr = np.full((capb,), fill, dtype)
+            arr[: min(len(vals), capb)] = vals[:capb]
+            return arr
+
+        counts = facet_hist(
+            docs_dev, rep_dev, self._device_column(col_key, column),
+            self._to_dev(np.asarray(bounds, np.float32)), G=G,
+            numeric=numeric,
+        )
+        return counts.cpu().numpy()
+
+
+def pair_table(docs: np.ndarray, vals: np.ndarray, cap: int):
+    """A multi-valued column's (doc, value) rows as the facet kernels take
+    them (numpy, as the JAX package's `filter_fields` column builds them):
+    rows of docs < cap, sorted by (doc, value) and deduplicated, and the
+    most distinct values one doc holds. Returns (pair_docs int32[P]
+    ascending, pair_vals, M)."""
+    docs, vals = np.asarray(docs), np.asarray(vals)
+    keep = docs < cap
+    docs, vals = docs[keep], vals[keep]
+    if not len(docs):
+        return np.zeros(0, np.int32), vals[:0], 0
+    order = np.lexsort((vals, docs))
+    d = docs[order].astype(np.int32)
+    v = vals[order]
+    first = np.ones(len(d), bool)
+    first[1:] = (d[1:] != d[:-1]) | (v[1:] != v[:-1])
+    d, v = d[first], v[first]
+    ends = np.flatnonzero(np.r_[d[1:] != d[:-1], True])
+    return d, v, int(np.diff(np.r_[-1, ends]).max())
+
 
 def _rescale_kw(rescale: Optional[Tuple[float, float]]) -> dict:
     return dict(
@@ -1259,6 +1464,149 @@ class HybridSearchTopK(PrunedPlanMixin):
             with_bitmap=with_bitmap, **_rescale_kw(rescale),
         )
         return self._results(out, pb, k, cap, with_bitmap)
+
+    def search_topk_hybrid_int8_pruned(
+        self,
+        index: StringIndex,
+        plans: Sequence[QueryPlan],
+        n_docs: Sequence[float],
+        cap: int,
+        k: int,
+        vec_int8,                 # VectorIndex.int8_device_rows() tuple
+        doc2row,                  # int32[capb + 1] doc -> packed row, device
+        queries: np.ndarray,      # f32[B, dim] L2-normalized
+        similarities: Sequence[float],
+        exact: bool = False,
+        thresholds: Optional[Sequence[float]] = None,
+        omc: Optional[np.ndarray] = None,
+        omc_key=None,
+        rescale: Optional[Tuple[float, float]] = None,
+        candidates: Optional[int] = None,  # V rows per query (default 256)
+        mask: Optional[np.ndarray] = None,
+        mask_key=None,
+    ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """Pruned hybrid over the int8 IVF layout, for corpora past the
+        dense tier: the full-text top-C candidates united with the IVF
+        probe's top-V docs, both sides scored exactly on that set and fused
+        by min-max (ops/pruned.py). Routes as `search_topk_pruned`: v4
+        (`rescore_bsearch`, in chunks of `_pruned_bs_chunk` queries) for
+        unfiltered, non-exact, single-span searches, v3
+        (`rescore_worklist`) otherwise. `mask` filters every plan; a mask
+        of at most PRUNED_CANDIDATES docs is the candidate set itself, so
+        both sides and the counts are exact over it. Returns (vals f32[B,
+        k], ids int32[B, k], counts int32[B])."""
+        slab = self._get_device_slab(index)
+        B = len(plans)
+        capb = round_up_pow2(cap, 128)
+        (pre_idesc, pre_fdesc, wl_i, wl_f, idf, nd, thr, dfs, lp, Tb,
+         wl_prev, nre, bs_steps) = (
+            self._pruned_host_inputs(plans, n_docs, thresholds)
+        )
+        *layout, window, nprobe = vec_int8
+        V = _ivf_candidates(candidates, int(layout[0].shape[0]))
+        # no small-corpus clamp here, as in the JAX executor
+        C = self.PRUNED_CANDIDATES
+        has_omc = omc is not None
+        if has_omc:
+            omc_dev = self._get_device_omc(omc, omc_key, capb)
+        else:
+            omc_dev = torch.ones((1,), dtype=torch.float32, device=self.device)
+        Bb = idf.shape[0]
+        has_filter = mask is not None
+        fmask_dev = None
+        cand_in = None
+        cand_given = False
+        sel = None
+        if has_filter:
+            fmask_dev, cand_in, cand_given, sel = self._pruned_mask_inputs(
+                mask, mask_key, cap, capb, Bb, C
+            )
+        Ct = C if cand_given else C + V
+        q = np.zeros((Bb, queries.shape[1]), np.float32)
+        q[: len(queries)] = queries
+        sims = np.zeros((Bb,), np.float32)
+        sims[: len(similarities)] = similarities
+        use_bs = (
+            self.PRUNED_BS and not exact and not has_filter and nre == 0
+        )
+        S = self._pruned_bs_chunk(plans) if use_bs else B
+        if B > S:
+            parts = [
+                self.search_topk_hybrid_int8_pruned(
+                    index, plans[i:i + S], n_docs[i:i + S], cap, k,
+                    vec_int8, doc2row, queries[i:i + S],
+                    similarities[i:i + S], exact=exact,
+                    thresholds=(
+                        thresholds[i:i + S] if thresholds is not None
+                        else None
+                    ),
+                    omc=omc, omc_key=omc_key, rescale=rescale,
+                    candidates=candidates,
+                )
+                for i in range(0, B, S)
+            ]
+            return (
+                np.concatenate([p[0] for p in parts]),
+                np.concatenate([p[1] for p in parts]),
+                np.concatenate([p[2] for p in parts]),
+            )
+        dev = self._to_dev
+        vkw = dict(V=V, nprobe=nprobe, window=window, **_rescale_kw(rescale))
+        if use_bs:
+            rng_i, rng_f, rbs_steps = self._pruned_bs_inputs(plans)
+            bflat, bbase, bshift, rbs_steps = self._pruned_bs_boff(
+                index, rng_i, capb, rbs_steps
+            )
+            if self.PRUNED_BS_ACCUM:
+                Cb = min(self.PRUNED_BS_C, round_up_pow2(cap, 8))
+            else:
+                Cb = pre_idesc.shape[2] * pre_idesc.shape[3] * \
+                    self.PRUNED_BS_HP
+            kb = min(round_up_pow2(k, 8), Cb + V)
+            vals, ids, cand_counts = pruned_hybrid_topk_int8_bs(
+                slab.doc, slab.tf, slab.flen,
+                dev(pre_idesc[0]), dev(pre_idesc[1]), dev(rng_i), dev(rng_f),
+                dev(idf), dev(thr), *layout, doc2row, dev(q), dev(sims),
+                omc_dev, None,
+                dev(pre_fdesc) if self.PRUNED_BS_ACCUM else None,
+                (bflat, dev(bbase), dev(bshift))
+                if bflat is not None else None,
+                hp=self.PRUNED_BS_HP, cap=capb, k=kb, bs_steps=rbs_steps,
+                has_omc=has_omc, nom_accum=self.PRUNED_BS_ACCUM,
+                lp=lp if self.PRUNED_BS_ACCUM else 0,
+                C=Cb if self.PRUNED_BS_ACCUM else 0, **vkw,
+            )
+        else:
+            kb = min(round_up_pow2(k, 8), Ct)
+            vals, ids, cand_counts = pruned_hybrid_topk_int8(
+                slab.doc, slab.tf, slab.exact_tf, slab.flen,
+                dev(pre_idesc), dev(pre_fdesc), dev(wl_i), dev(wl_f),
+                dev(idf), dev(nd), dev(thr), *layout, doc2row, dev(q),
+                dev(sims), omc_dev,
+                dev(wl_prev) if wl_prev is not None else None,
+                fmask_dev, cand_in,
+                lp=lp, lch=self.PRUNED_LCH, cap=capb, C=C, k=kb, T=Tb,
+                exact=exact, has_omc=has_omc, nre=nre, bs_steps=bs_steps,
+                has_filter=has_filter, cand_given=cand_given,
+                fbits=(self._get_device_fbits(fmask_dev, mask_key, capb)
+                       if has_filter else None),
+                **vkw,
+            )
+        cand_counts = cand_counts[:B].cpu().numpy()
+        if cand_given:
+            counts = cand_counts
+        else:
+            sel_frac = 1.0
+            if sel is not None:
+                sel_frac = sel / max(float(nd[0]), 1.0)
+            counts = self._pruned_counts(
+                cand_counts, dfs, nd, thresholds, B, sel_frac=sel_frac
+            )
+        return (
+            vals[:B, :k].cpu().numpy(),
+            ids[:B, :k].cpu().numpy(),
+            counts,
+        )
 
 
 SHARED_LENGTH_CLASSES = (1024, 16384, 131072)

@@ -42,6 +42,15 @@ fused searches (nomination, rescore, threshold / OMC / top-k tail);
 sort of the batch's postings). A wrapper given CPU tensors runs its
 plain PyTorch version; given CUDA tensors it launches its kernel or
 raises.
+
+Facets over a pruned plan run in two phases: `pruned_match_reps` (phase
+A) sorts the plan's postings once and flags one rep per distinct matched
+doc; the `facet_hist` kernels (ops/facet_hist.py, phase B) count the
+reps per bucket of one field. `pruned_hybrid_match_reps` widens phase A by the IVF
+probe's docs. `pruned_hybrid_topk_int8` (v3) and
+`pruned_hybrid_topk_int8_bs` (v4) are the pruned hybrid searches over the
+int8 IVF layout: the full-text candidates united with the probe's, both
+sides scored exactly on them and fused by min-max.
 """
 
 from __future__ import annotations
@@ -52,8 +61,9 @@ import torch
 
 from . import _build
 from .bm25 import K1
+from .hybrid import _rescale
 from .score_windows import _check, _device_of, _raise_on
-from .vector import _top_k
+from .vector import _bf16, _top_k, ivf_int8_topk_masked
 
 NEG_INF = -1e30
 
@@ -807,3 +817,285 @@ def estimate_match_count(n_docs: float, dfs) -> int:
     for df in dfs:
         miss *= max(0.0, 1.0 - float(df) / n)
     return int(round(n * (1.0 - miss)))
+
+
+# ---------------------------------------------------------------------------
+# facets: phase A (run-end reps of the matched docs), phase B (histograms)
+# ---------------------------------------------------------------------------
+
+def _match_reps_core(p_doc, tf_src, wl_i, thr: float, fmask=None, *,
+                     lch: int, cap: int):
+    """Distinct matched docs of a plan as sorted run-end reps: every
+    worklist posting (the (W, lch) slices, clamped as JAX's), one sort of
+    int64 keys doc << 32 | token (JAX's 2-key sort on (doc, token)), then
+    rep = 1.0 at the end of each doc's run whose distinct-token count
+    clears thr (thr <= 1 keeps any match). A run's count is the inclusive
+    new-token scan at its end less the scan at its first element, which
+    `searchsorted` over the sorted doc keys finds without a cummax.
+    Returns (docs int32[N] ascending, cap = empty; rep f32[N]), N = W *
+    lch."""
+    P = p_doc.shape[0]
+    dev = p_doc.device
+    tw, st, ln = (wl_i[r].to(torch.int64) for r in (1, 2, 3))
+    docs, s_eff = _slices(p_doc, st, lch)
+    tf, _ = _slices(tf_src, st, lch)
+    iot = torch.arange(lch, device=dev)
+    valid = (iot < ln[:, None]) & ((s_eff[:, None] + iot) < P) & (tf > 0)
+    if fmask is not None:
+        valid &= fmask[docs.clamp(0, fmask.shape[0] - 1).long()] > 0.0
+    dk = torch.where(valid, docs.to(torch.int64), cap)
+    tk = torch.where(valid, tw[:, None], 2**30)
+    key = torch.sort(((dk << 32) | tk).reshape(-1)).values
+    dk = key >> 32
+    validk = dk < cap
+    one = torch.ones(1, dtype=torch.bool, device=dev)
+    new_tok = torch.cat([one, key[1:] != key[:-1]]) & validk
+    is_end = torch.cat([dk[1:] != dk[:-1], one]) & validk
+    s = torch.cumsum(new_tok.to(torch.int32), dim=0)
+    first = torch.searchsorted(dk, dk, right=False)
+    tokcnt = s - s[first] + 1
+    rep = (is_end & (tokcnt >= max(float(thr), 1.0))).to(torch.float32)
+    return dk.to(torch.int32), rep
+
+
+def pruned_match_reps(
+    p_doc, p_tf, p_exact_tf,
+    wl_i,         # int32[4, W]: b(=0), t, start, len<=lch
+    thr: float,   # min distinct matched tokens (<= 1 = any)
+    fmask=None,   # f32[cap] alive mask (used when has_filter)
+    *,
+    lch: int, cap: int, exact: bool, has_filter: bool = False,
+):
+    """Phase A of the facet path: (docs, rep) for phase B, computed once
+    per plan. rep.sum() is the exact match count under the threshold and
+    the mask."""
+    tf_src = p_exact_tf if exact else p_tf
+    return _match_reps_core(p_doc, tf_src, wl_i, thr,
+                            fmask if has_filter else None, lch=lch, cap=cap)
+
+
+def _vec_reps_core(vdocs, docs_ft, rep_ft, cap: int):
+    """One rep per distinct vector-candidate doc that the full-text reps do
+    not already count: vdocs int32[V] (cap = none) sorted; a doc is counted
+    by the full-text side when its run end (lower_bound(doc + 1) - 1 in
+    the ascending docs_ft) has rep > 0. A doc that fails its threshold has
+    rep 0 there, so the vector side counts it. Returns (vd int32[V], vrep
+    f32[V])."""
+    vd = torch.sort(vdocs).values
+    one = torch.ones(1, dtype=torch.bool, device=vd.device)
+    is_end = torch.cat([vd[1:] != vd[:-1], one]) & (vd < cap)
+    ub = torch.searchsorted(docs_ft, vd + 1, right=False) - 1
+    ubc = ub.clamp(min=0)
+    member = (ub >= 0) & (docs_ft[ubc] == vd) & (rep_ft[ubc] > 0.0)
+    return vd, (is_end & ~member).to(torch.float32)
+
+
+def _probe_docs(queries, mat_i8, scales, row_doc, unit_cen, unit_starts,
+                doc_mask, *, V: int, nprobe: int, window: int, cap: int):
+    """The IVF probe's top-V rows as (vals f32[B, V], docs int32[B, V]),
+    docs = cap where a slot holds no row. `doc_mask` bool[B, L] pushes a
+    filter into the scan (None: no filter)."""
+    vals, rows = ivf_int8_topk_masked(
+        queries, mat_i8, scales, row_doc, unit_cen, unit_starts, doc_mask,
+        k=V, nprobe=nprobe, window=window, has_mask=doc_mask is not None)
+    docs = row_doc[rows.clamp(0, row_doc.shape[0] - 1).long()]
+    ok = (rows >= 0) & (vals > NEG_INF / 2)
+    return vals, torch.where(ok, docs, cap)
+
+
+def pruned_hybrid_match_reps(
+    docs_ft, rep_ft,   # phase A's full-text reps (pruned_match_reps)
+    mat_i8, scales, row_doc, unit_cen, unit_starts,
+    query,             # f32[1, dim] L2-normalized
+    sim: float,        # similarity floor
+    fmask=None,        # f32[cap] alive mask (used when has_filter)
+    *,
+    V: int, nprobe: int, window: int, cap: int, pad: int,
+    has_filter: bool, has_rescale: bool,
+    rescale_lo: float, rescale_hi: float,
+):
+    """Hybrid phase A: the IVF probe's top-V rows (under the mask), kept
+    where valid, >= sim and > 0 after rescale (as the dense int8 path's
+    scatter-max sets its match set), deduplicated against the full-text
+    reps and appended, padded with `pad - V` sentinel slots."""
+    mask2d = (fmask > 0.0)[None, :] if has_filter else None
+    vals, rows = ivf_int8_topk_masked(
+        query, mat_i8, scales, row_doc, unit_cen, unit_starts, mask2d,
+        k=V, nprobe=nprobe, window=window, has_mask=has_filter)
+    vals, rows = vals[0], rows[0]
+    if has_rescale:
+        vals = _rescale(vals, rescale_lo, rescale_hi)
+    keep = (rows >= 0) & (vals >= sim) & (vals > 0.0)
+    vd = torch.where(
+        keep, row_doc[rows.clamp(0, row_doc.shape[0] - 1).long()], cap)
+    vd, vrep = _vec_reps_core(vd, docs_ft, rep_ft, cap)
+    fill = pad - V
+    vd = torch.cat([vd, vd.new_full((fill,), cap)])
+    vrep = torch.cat([vrep, vrep.new_zeros(fill)])
+    return torch.cat([docs_ft, vd]), torch.cat([rep_ft, vrep])
+
+
+# ---------------------------------------------------------------------------
+# the pruned hybrid over the int8 IVF layout
+# ---------------------------------------------------------------------------
+
+# f32 elements of the upcast candidate rows one step of the gather-dot
+# materialises (1 GiB)
+_GATHER_ELEMS = 1 << 28
+
+
+def _candidate_vec(cand, doc2row, mat_i8, scales, queries, cap: int):
+    """Each candidate's vector score: its doc's int8 row (doc2row) times
+    the bf16-rounded query, in f32, times the row's scale; 0 where the doc
+    has no row or the slot is empty. f32[B, Ct]."""
+    B, Ct = cand.shape
+    rows_c = doc2row[cand.clamp(0, doc2row.shape[0] - 1).long()]
+    safe = rows_c.clamp(0, mat_i8.shape[0] - 1).long()
+    q = _bf16(queries)
+    vec = torch.empty((B, Ct), dtype=torch.float32, device=cand.device)
+    step = max(1, _GATHER_ELEMS // max(Ct * mat_i8.shape[1], 1))
+    for b0 in range(0, B, step):
+        sl = slice(b0, b0 + step)
+        tiles = mat_i8[safe[sl]].float()                     # (b, Ct, D)
+        vec[sl] = torch.bmm(tiles, q[sl, :, None]).squeeze(2)
+    vec = vec * scales[safe]
+    return torch.where((rows_c >= 0) & (cand < cap), vec, 0.0)
+
+
+def _hybrid_tail(scores, matched, cand, v_vals, v_docs, vec, sim, thr_counts,
+                 omc, *, has_omc: bool, cap: int, k: int, has_rescale: bool,
+                 rescale_lo: float, rescale_hi: float):
+    """Fold the probe's own values into the candidates' vector scores
+    (scatter-max: a miss writes max(vec, 0) at its clamped slot, as JAX's
+    `.at[].max` does), rescale, similarity floor, min-max fusion over the
+    candidates (span 1 where nothing scored), OMC, -inf for absent docs,
+    top-k in `lax.top_k`'s order. Returns (vals, ids, counts)."""
+    Ct = cand.shape[1]
+    pos = _lower_bound(cand, v_docs).clamp(max=Ct - 1).long()
+    hit = (cand.gather(1, pos) == v_docs) & (v_docs < cap)
+    vec = vec.scatter_reduce(1, pos, torch.where(hit, v_vals, 0.0), "amax",
+                             include_self=True)
+    if has_rescale:
+        vec = _rescale(vec, rescale_lo, rescale_hi)
+    vec = torch.where(vec >= sim[:, None], vec, 0.0)
+    ft_keep = (scores > 0.0) & (matched >= thr_counts[:, None]) & (cand < cap)
+    vc_keep = (vec > 0.0) & (cand < cap)
+    ft = torch.where(ft_keep, scores, 0.0)
+    vc = torch.where(vc_keep, vec, 0.0)
+    hi = torch.maximum(ft.amax(dim=1), vc.amax(dim=1))
+    span = torch.where(hi > 0.0, hi, 1.0)
+    fused = (ft + vc) / span[:, None]
+    if has_omc:
+        fused = fused * omc[cand.clamp(0, omc.shape[0] - 1).long()]
+    present = ft_keep | vc_keep
+    counts = present.sum(dim=1).to(torch.int32)
+    s = torch.where(present, fused, float("-inf"))
+    vals, ci = _top_k(s, k)
+    return vals, cand.gather(1, ci), counts
+
+
+def pruned_hybrid_topk_int8(
+    p_doc, p_tf, p_exact_tf, p_flen,
+    pre_idesc, pre_fdesc, wl_i, wl_f,
+    idf, n_docs, thr_counts,
+    mat_i8,       # int8[N, D] packed by cluster
+    scales,       # f32[N]
+    row_doc,      # int32[N] packed row -> doc id
+    unit_cen,     # f32[U, D]
+    unit_starts,  # int32[U]
+    doc2row,      # int32[cap + 1] doc id -> packed row (-1 = no vector)
+    queries,      # f32[B, dim] L2-normalized
+    sim,          # f32[B] similarity floor
+    omc,          # f32[cap] (dummy (1,) when has_omc=False)
+    wl_prev=None, # int32[2, W, NRE] earlier spans (multi-field df)
+    fmask=None,   # f32[cap] filter mask (used when has_filter)
+    cand_in=None, # int32[B, Ct] caller-supplied candidates (small filters)
+    *,
+    lp: int, lch: int, cap: int, C: int, k: int, T: int,
+    exact: bool, has_omc: bool,
+    V: int, nprobe: int, window: int,
+    has_rescale: bool, rescale_lo: float, rescale_hi: float,
+    nre: int = 0, bs_steps: int = 0,
+    has_filter: bool = False, cand_given: bool = False,
+    fbits=None,   # int32 bitmap of fmask (pack_mask_bits), optional
+):
+    """Fused v3 pruned hybrid: candidates = the full-text top C (or the
+    caller's) united with the IVF probe's top-V docs (inside the filter),
+    both sides scored exactly on them (`rescore_worklist`; the int8 row
+    gather-dot), fused by min-max over the candidates. Returns (vals f32[B,
+    k], ids int32[B, k], counts int32[B])."""
+    tf_src = p_exact_tf if exact else p_tf
+    fm = fmask if has_filter else None
+    v_vals, v_docs = _probe_docs(
+        queries, mat_i8, scales, row_doc, unit_cen, unit_starts, None,
+        V=V, nprobe=nprobe, window=window, cap=cap)
+    if fm is not None:
+        # out-of-filter probe hits never become candidates
+        inside = fm[v_docs.clamp(0, fm.shape[0] - 1).long()] > 0.0
+        v_docs = torch.where(inside, v_docs, cap)
+    if cand_given:
+        cand = cand_in
+    else:
+        ft_cand = _prefix_candidates(
+            p_doc, tf_src, p_flen, pre_idesc[0], pre_idesc[1],
+            pre_fdesc[0], pre_fdesc[1], pre_fdesc[2], idf, fm,
+            lp=lp, cap=cap, C=C,
+        )
+        cand = _dedup_sorted(torch.cat([ft_cand, v_docs], dim=1), cap)
+    scores, matched = rescore_worklist(
+        p_doc, tf_src, p_flen, wl_i, wl_f, n_docs, cand, wl_prev, fm,
+        lch=lch, T=T, nre=nre, bs_steps=bs_steps,
+        fbits=fbits if has_filter else None,
+    )
+    vec = _candidate_vec(cand, doc2row, mat_i8, scales, queries, cap)
+    return _hybrid_tail(
+        scores, matched, cand, v_vals, v_docs, vec, sim, thr_counts, omc,
+        has_omc=has_omc, cap=cap, k=k, has_rescale=has_rescale,
+        rescale_lo=rescale_lo, rescale_hi=rescale_hi)
+
+
+def pruned_hybrid_topk_int8_bs(
+    p_doc, p_tf, p_flen,
+    pre_starts, pre_lens, rng_i, rng_f,
+    idf, thr_counts,
+    mat_i8, scales, row_doc, unit_cen, unit_starts, doc2row,
+    queries, sim, omc,
+    cand_in=None,
+    pre_fdesc=None,
+    boff=None,                 # (flat, base, shift) bucket-offset tables
+    *,
+    hp: int, cap: int, k: int, bs_steps: int, has_omc: bool,
+    V: int, nprobe: int, window: int,
+    has_rescale: bool, rescale_lo: float, rescale_hi: float,
+    cand_given: bool = False,
+    nom_accum: bool = False, lp: int = 0, C: int = 0,
+):
+    """Fused v4 pruned hybrid: the full-text side nominates as
+    `pruned_fulltext_topk_bs` does and rescores with `rescore_bsearch`;
+    the vector side and the fusion are those of v3. Same gating as the
+    full-text v4 route (no filter, non-exact tf, single-span tokens)."""
+    v_vals, v_docs = _probe_docs(
+        queries, mat_i8, scales, row_doc, unit_cen, unit_starts, None,
+        V=V, nprobe=nprobe, window=window, cap=cap)
+    if cand_given:
+        cand = cand_in
+    else:
+        if nom_accum:
+            ft_cand = _prefix_candidates(
+                p_doc, p_tf, p_flen, pre_starts, pre_lens,
+                pre_fdesc[0], pre_fdesc[1], pre_fdesc[2], idf, None,
+                lp=lp, cap=cap, C=C,
+            )
+        else:
+            ft_cand = _sliced_candidates(p_doc, pre_starts, pre_lens, hp=hp,
+                                         cap=cap)
+        cand = _dedup_sorted(torch.cat([ft_cand, v_docs], dim=1), cap)
+    scores, matched = rescore_bsearch(
+        p_doc, p_tf, p_flen, rng_i[0], rng_i[1], rng_f[0], rng_f[1],
+        rng_f[2], idf, cand, bs_steps=bs_steps, boff=boff,
+    )
+    vec = _candidate_vec(cand, doc2row, mat_i8, scales, queries, cap)
+    return _hybrid_tail(
+        scores, matched, cand, v_vals, v_docs, vec, sim, thr_counts, omc,
+        has_omc=has_omc, cap=cap, k=k, has_rescale=has_rescale,
+        rescale_lo=rescale_lo, rescale_hi=rescale_hi)

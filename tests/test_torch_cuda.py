@@ -743,3 +743,224 @@ def test_pruned_search_on_the_card_equals_the_cpu(cuda):
         _near_tie_ok(gv, gi, cv, ci)
         np.testing.assert_array_equal(gc, cc, err_msg=name)
         assert np.isfinite(cv[:, 0]).all(), name
+
+
+def _reps(rng, n, n_docs, cap, kept=0.6):
+    """Phase A's shape: sorted docs with a sentinel tail (doc == cap,
+    rep 0) and 0/1 reps."""
+    docs = np.sort(rng.integers(0, n_docs, n)).astype(np.int32)
+    docs[-n // 4:] = cap
+    rep = (rng.random(n) < kept).astype(np.float32)
+    rep[-n // 4:] = 0.0
+    return docs, rep
+
+
+def _overlapping_bounds(rng, G):
+    a = np.round(rng.uniform(0, 100, G) * 2) / 2
+    return np.stack([a, a + np.round(rng.uniform(0, 40, G) * 2) / 2],
+                    axis=1).astype(np.float32)
+
+
+def _num_column(rng, n):
+    v = (np.round(rng.uniform(0, 100, n) * 2) / 2).astype(np.float32)
+    v[rng.random(n) < 0.1] = np.nan
+    return v
+
+
+# case -> (numeric, G, what the reps hold)
+FACET_CARD_CASES = {
+    "cat_G64": (False, 64, "kept"),
+    "cat_G1": (False, 1, "kept"),
+    "cat_G1024": (False, 1024, "kept"),
+    "cat_G20000_smem_over_48k": (False, 20000, "kept"),
+    "cat_no_kept_reps": (False, 64, "none"),
+    "cat_all_sentinels": (False, 64, "sentinels"),
+    "num_overlapping_ranges": (True, 8, "kept"),
+    "num_G1": (True, 1, "kept"),
+    "num_G1024": (True, 1024, "kept"),
+    "num_G8000_smem_over_48k": (True, 8000, "kept"),
+}
+
+
+def _facet_reps(rng, held, n=1 << 20, n_docs=3_000_000, cap=1 << 22):
+    docs, rep = _reps(rng, n, n_docs, cap)
+    if held == "none":
+        rep[:] = 0.0
+    elif held == "sentinels":
+        docs[:] = cap
+        rep[:] = 0.0
+    return docs, rep
+
+
+@pytest.mark.parametrize("case", list(FACET_CARD_CASES))
+def test_facet_hist_kernel(cuda, case):
+    """facet_hist against its plain version: ids -1 and >= G, NaN and
+    overlapping inclusive ranges; exact int32 counts."""
+    from oramacore_tpu_torch.ops import facet_hist as fh
+
+    numeric, G, held = FACET_CARD_CASES[case]
+    rng = np.random.default_rng(len(case))
+    cap = 1 << 22
+    docs, rep = _facet_reps(rng, held, cap=cap)
+    if numeric:
+        col = _num_column(rng, cap)
+        bounds = _overlapping_bounds(rng, G)
+    else:
+        col = rng.integers(-1, G + 3, cap).astype(np.int32)
+        bounds = np.zeros((G, 2), np.float32)
+    args = [torch.from_numpy(a).to(cuda) for a in (docs, rep, col, bounds)]
+    before = fh.LAUNCHES["facet_hist"]
+    got = fh.facet_hist(*args, G=G, numeric=numeric)
+    torch.cuda.synchronize()
+    assert fh.LAUNCHES["facet_hist"] == before + 1
+    exp = fh.facet_hist_plain(*args, G, numeric)
+    assert got.dtype == torch.int32 and torch.equal(got, exp)
+    if held == "kept":
+        assert int(got.sum()) > 0
+    else:
+        assert int(got.sum()) == 0
+
+
+# case -> (numeric, G, M, what the reps hold)
+MULTI_CARD_CASES = {
+    "cat_M8": (False, 32, 8, "kept"),
+    "cat_M1": (False, 32, 1, "kept"),
+    "cat_G1": (False, 1, 4, "kept"),
+    "cat_G1024": (False, 1024, 4, "kept"),
+    "cat_last_real_row": (False, 32, 4, "last"),
+    "cat_no_kept_reps": (False, 32, 4, "none"),
+    "cat_all_sentinels": (False, 32, 4, "sentinels"),
+    "num_overlapping_ranges": (True, 8, 3, "kept"),
+    "num_M8_G1024": (True, 1024, 8, "kept"),
+    "num_last_real_row": (True, 8, 3, "last"),
+}
+
+
+def _pair_table(rng, n_docs, M, G, numeric):
+    """Doc-sorted deduped (doc, value) rows, 0..M values a doc (the last
+    doc M of them), and the sentinel row."""
+    k = rng.integers(0, M + 1, n_docs)
+    k[-1] = M
+    docs = np.repeat(np.arange(n_docs, dtype=np.int32), k)
+    if numeric:
+        vals = _num_column(rng, len(docs))
+    else:
+        vals = rng.integers(-1, G + 3, len(docs)).astype(np.int32)
+    order = np.lexsort((vals, docs))
+    docs, vals = docs[order], vals[order]
+    first = np.r_[True, (docs[1:] != docs[:-1]) | (vals[1:] != vals[:-1])]
+    docs, vals = docs[first], vals[first]
+    return (np.r_[docs, 2**30].astype(np.int32),
+            np.r_[vals, 0].astype(vals.dtype))
+
+
+@pytest.mark.parametrize("case", list(MULTI_CARD_CASES))
+def test_facet_hist_multi_kernel(cuda, case):
+    """facet_hist_multi against its plain version: value_counts for ids,
+    range_counts (one count per range a doc's values hit) for numbers; a
+    doc at the table's last real row; no kept reps; only sentinels."""
+    from oramacore_tpu_torch.ops import facet_hist as fh
+
+    numeric, G, M, held = MULTI_CARD_CASES[case]
+    rng = np.random.default_rng(100 + len(case))
+    n_docs, cap = 2_000_000, 1 << 21
+    pd, pv = _pair_table(rng, n_docs, M, G, numeric)
+    docs, rep = _facet_reps(rng, "sentinels" if held == "sentinels" else
+                            "none" if held == "none" else "kept",
+                            n=1 << 19, n_docs=n_docs, cap=cap)
+    if held == "last":
+        docs[:] = cap
+        rep[:] = 0.0
+        docs[0], rep[0] = n_docs - 1, 1.0
+    bounds = (_overlapping_bounds(rng, G) if numeric
+              else np.zeros((G, 2), np.float32))
+    args = [torch.from_numpy(a).to(cuda) for a in (docs, rep, pd, pv, bounds)]
+    before = fh.LAUNCHES["facet_hist_multi"]
+    got = fh.facet_hist_multi(*args, G=G, M=M, numeric=numeric)
+    torch.cuda.synchronize()
+    assert fh.LAUNCHES["facet_hist_multi"] == before + 1
+    exp = fh.facet_hist_multi_plain(*args, G, M, numeric)
+    assert got.dtype == torch.int32 and torch.equal(got, exp)
+    if held in ("none", "sentinels"):
+        assert int(got.sum()) == 0
+    elif held == "last":
+        last = pd[:-1] == n_docs - 1
+        if numeric:
+            v = pv[:-1][last]
+            want = sum(bool(((v >= lo) & (v <= hi)).any()) for lo, hi in bounds)
+        else:
+            v = pv[:-1][last]
+            want = int(((v >= 0) & (v < G)).sum())
+        assert int(got.sum()) == want
+    else:
+        assert int(got.sum()) > 0
+
+
+def test_pruned_facets_and_hybrid_on_the_card_equal_the_cpu(cuda, monkeypatch):
+    """facet_counts_pruned (text, thresholded, hybrid, vec_only; every
+    spec kind) and search_topk_hybrid_int8_pruned (v4, v3 filtered,
+    cand_given) on one small index and int8 layout, the card against the
+    CPU."""
+    from oramacore_tpu_torch.benches import hybrid10m as h
+    from oramacore_tpu_torch.index import search_exec as ex
+    from oramacore_tpu_torch.index import string_index as si
+    from oramacore_tpu_torch.index.plan import plan_query
+
+    rng = np.random.default_rng(33)
+    vocab = [f"w{i}" for i in range(40)]
+    p = 1.0 / (np.arange(40) + 3.0)
+    idx = si.StringIndex()
+    n_docs = 6000
+    old = si.PREFIX_LEN
+    si.PREFIX_LEN = 512
+    try:
+        for d in range(n_docs):
+            words = rng.choice(vocab, int(rng.integers(3, 12)), p=p / p.sum())
+            idx.index_text(d, "body", [(w, ["stem" + w[1:]]) for w in words])
+        idx.commit()
+        qs = [list(rng.choice(vocab[:20], 3)) for _ in range(8)]
+        plans = [plan_query(idx, q, ["body"], {}, with_prefix=True) for q in qs]
+    finally:
+        si.PREFIX_LEN = old
+    for name, v in dict(D=32, N_CENTERS=16, N_CENTROIDS=64, SAMPLE=4096,
+                        CHUNK=4096, WINDOW=256, LLOYD_BLOCK=1024).items():
+        monkeypatch.setattr(h, name, v)
+    lay_cpu = h.build_layout(n_docs, "cpu")
+    lay_gpu = h.Int8Layout(*(t.to(cuda) for t in (
+        lay_cpu.mat, lay_cpu.scales, lay_cpu.row_doc, lay_cpu.unit_cen,
+        lay_cpu.unit_starts, lay_cpu.pos)), window=lay_cpu.window,
+        nprobe=lay_cpu.nprobe)
+    q = h.query_vectors(8, "cpu")
+    ids = rng.integers(-1, 12, n_docs).astype(np.int32)
+    vals = _num_column(rng, n_docs)
+    bounds = _overlapping_bounds(rng, 8)
+    mdocs = np.repeat(np.arange(n_docs), rng.integers(0, 4, n_docs))
+    pd, pv, m = ex.pair_table(mdocs, rng.integers(0, 10, len(mdocs)), n_docs)
+    npd, npv, nm = ex.pair_table(mdocs, _num_column(rng, len(mdocs)), n_docs)
+    specs = [("cat", ids, 10), ("num", vals, bounds), ("mcat", pd, pv, 10, m),
+             ("mnum", npd, npv, bounds, nm)]
+    for opts in (dict(), dict(thr=2.0), dict(vec=True),
+                 dict(vec=True, vec_only=True)):
+        counts = []
+        for dev, lay in (("cpu", lay_cpu), (cuda, lay_gpu)):
+            e = ex.HybridSearchTopK(dev)
+            kw2 = dict(opts)
+            if kw2.pop("vec", False):
+                kw2["vec"] = (lay, q[:1], 0.3, None)
+            counts.append([e.facet_counts_pruned(idx, plans[0], n_docs, s,
+                                                 None, **kw2) for s in specs])
+            counts[-1].append(e.facet_match_count(plans[0]))
+        for c, g in zip(*counts):
+            np.testing.assert_array_equal(g, c, err_msg=str(opts))
+    capb = ex.round_up_pow2(n_docs, 128)
+    small = np.zeros(n_docs, bool)
+    small[rng.choice(n_docs, 500, replace=False)] = True
+    for kw3 in (dict(), dict(mask=rng.random(n_docs) < 0.5), dict(mask=small)):
+        out = [ex.HybridSearchTopK(dev).search_topk_hybrid_int8_pruned(
+            idx, plans, [float(n_docs)] * 8, n_docs, 10, lay.int8_device_rows(),
+            lay.int8_doc2row(capb), q, [0.3] * 8, **kw3)
+            for dev, lay in (("cpu", lay_cpu), (cuda, lay_gpu))]
+        (cv, ci, cc), (gv, gi, gc) = out
+        _near_tie_ok(gv, gi, cv, ci)
+        np.testing.assert_array_equal(gc, cc)
+        assert np.isfinite(cv[:, 0]).all()

@@ -81,8 +81,24 @@ _NO_JAX_SCRIPT = textwrap.dedent("""
         sv, si, _ = ex.search_topk_shared(idx, qs, ["body"], {}, 200.0, 200, 5,
                                           queries=q, similarities=[0.1, 0.1], **tail)
         assert sv[0, 0] > 0
+    from oramacore_tpu_torch.benches import hybrid10m
+    for name, v in dict(D=16, N_CENTERS=4, N_CENTROIDS=8, SAMPLE=128,
+                        CHUNK=64, WINDOW=32, LLOYD_BLOCK=64).items():
+        setattr(hybrid10m, name, v)
+    lay = hybrid10m.build_layout(200, "cpu")
+    hx = HybridSearchTopK("cpu")
+    fc = hx.facet_counts_pruned(
+        idx, pplans[0], 200, ("cat", np.arange(200) % 3, 3), None,
+        vec=(lay, lay.mat[:1].float().numpy(), 0.0, None))
+    assert fc.sum() >= hx.facet_match_count(pplans[0]) > 0
+    hv2, _, _ = hx.search_topk_hybrid_int8_pruned(
+        idx, pplans, [200.0, 200.0], 200, 5, lay.int8_device_rows(),
+        lay.int8_doc2row(256), q[:, :16].copy(), [0.1, 0.1])
+    assert hv2[0, 0] > 0
     for name in ("oramacore_tpu_torch.ops.gather_windows",
                  "oramacore_tpu_torch.ops.pruned",
+                 "oramacore_tpu_torch.ops.facet_hist",
+                 "oramacore_tpu_torch.benches.hybrid10m",
                  "oramacore_tpu_torch.benches.pallas_bench",
                  "oramacore_tpu_torch.ops.hybrid",
                  "oramacore_tpu_torch.index.vector_index"):
@@ -250,7 +266,9 @@ def test_kernel_table_covers_every_wrapper_and_perf_row():
         else:
             assert "pl.pallas_call" in text, path
             replaced.add(path)
-    assert jitted == 2   # rescore_bsearch, rescore_worklist (the pruned tier)
+    # rescore_bsearch, rescore_worklist (the pruned tier), facet_hist,
+    # facet_hist_multi (its facets)
+    assert jitted == 4
     pallas_files = set()
     for root, _, files in os.walk(os.path.join(REPO, "oramacore_tpu")):
         for fn in files:

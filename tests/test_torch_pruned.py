@@ -638,3 +638,26 @@ def test_rescore_bounds_count_bytes_by_hand():
     assert pb.worklist_sectors(wl_args + (None, fm), kw) == 276.0
     assert pb.worklist_sectors(wl_args + (None, fm), dict(
         kw, fbits=tpr.pack_mask_bits(fm))) == 244.0
+
+
+@pytest.mark.parametrize("got, extra, edge, wrong", [
+    ({1, 2, 3}, (), (), set()),
+    ({1, 2, 4}, (), (), set()),             # docs 3 and 4 tie at the C-th
+    ({1, 3}, (), (), {2}),                  # a nominated doc missed
+    ({1, 2, 3, 5}, (), (), {5}),            # neither nominated nor extra
+    ({1, 2, 3, 5}, (5,), (), set()),        # a probe hit
+    ({1, 2, 3}, (5,), (), {5}),             # a probe hit missed
+    ({1, 2, 3}, (5,), {5}, set()),          # ... at the probe's edge
+    ({1, 2, 3, 7}, (), {7}, set()),
+    ({1, 3}, (), {2}, {2}),                 # the edge excuses no nomination
+])
+def test_nomination_errors_with_extra_docs(got, extra, edge, wrong):
+    """nomination_errors: the device set equals the top-C partial scores
+    united with `extra`, outside ties at the C-th score and the `edge`
+    docs; docs >= cap are sentinels."""
+    from oramacore_tpu_torch.benches import pruned_bench as pb
+
+    partial = {1: 5.0, 2: 4.0, 3: 3.0, 4: 3.0, 5: 1.0}
+    errs = pb.nomination_errors(sorted(got) + [100, 100], partial, 3, 100,
+                                extra=extra, edge=edge)
+    assert {int(e.split()[1]) for e in errs} == wrong, errs
