@@ -125,16 +125,12 @@ KERNEL_CALLS = {"v4 B=64": True, "v3 50% filter B=64": True,
 # phase 13: pruned facets and the pruned int8 hybrid on phase 12's index
 # with benches/hybrid10m_bench.py's vector side
 N_HYBRID10M_LABEL = "10,485,760 x 768"
-FACET_G = 64              # the bench's string bucket (:1430-1435)
 FACET_QUERIES = 32        # the bench's 3-term queries, after the top-3 one
 N_FACET_CHECKED = 2       # facet queries of each case held against numpy
 HYBRID_POOL = 512         # query vectors (the bench's NQ)
 N_HYBRID_PRUNED_CHECKED = 4
 SIMILARITY_10M = 0.3      # the bench's vector similarity (:531-539)
 TOMBSTONES = 0.05         # dead share of the facet cases' alive mask
-FACET_RANGES = np.array([[0, 99], [100, 249], [200, 499], [500, 749],
-                         [750, 999], [0, 999], [333, 333], [990, 1000]],
-                        np.float32)   # inclusive, overlapping
 
 # Every ported kernel entry point: its wrapper module, the CUDA source, the
 # TPU kernel (or, with jitted=True, the jitted JAX function) it replaces,
@@ -1306,39 +1302,6 @@ def phase_pruned(device, card):
 # pruned facets and the pruned int8 hybrid (phase 13)
 # ---------------------------------------------------------------------------
 
-def facet_columns(n, seed=13):
-    """The four facet columns over all n docs, seeded: {name: (spec,
-    cache key)}. A single-valued string column of FACET_G ids (the bench's
-    bucket); a number column (integers in [0, 1000), 5% missing) against
-    FACET_RANGES; a multi-valued string column of 1-4 distinct ids from 32;
-    a multi-valued number column of 1-3 values (repeats dedup) against
-    FACET_RANGES. Multi-valued columns become pair tables with the port's
-    numpy `pair_table`."""
-    from oramacore_tpu_torch.index.search_exec import pair_table
-
-    rng = np.random.default_rng(seed)
-    ids = rng.integers(0, FACET_G, n).astype(np.int32)
-    nums = np.round(rng.uniform(0, 1000, n)).astype(np.float32)
-    nums[rng.random(n) < 0.05] = np.nan
-    k = rng.integers(1, 5, n)
-    docs = np.repeat(np.arange(n, dtype=np.int32), k)
-    j = np.arange(len(docs)) - np.repeat(np.cumsum(k) - k, k)
-    v0 = np.repeat(rng.integers(0, 32, n), k)
-    step = np.repeat(rng.integers(1, 8, n), k)   # 4 steps < 32: distinct
-    pd, pv, m = pair_table(docs, ((v0 + j * step) % 32).astype(np.int32), n)
-    k = rng.integers(1, 4, n)
-    docs = np.repeat(np.arange(n, dtype=np.int32), k)
-    vals = np.round(rng.uniform(0, 1000, len(docs))).astype(np.float32)
-    npd, npv, nm = pair_table(docs, vals, n)
-    return {
-        "string G=64": (("cat", ids, FACET_G), ("facet", "str", 1)),
-        "number, 8 ranges": (("num", nums, FACET_RANGES), ("facet", "num", 1)),
-        "multi string G=32": (("mcat", pd, pv, 32, m), ("facet", "mstr", 1)),
-        "multi number, 8 ranges": (("mnum", npd, npv, FACET_RANGES, nm),
-                                   ("facet", "mnum", 1)),
-    }
-
-
 def facet_reference(slab_np, plan, specs, n, thr=0.0, alive=None,
                     exact=False, vec_docs=None, text=True):
     """Facet counts in numpy: the docs holding at least max(thr, 1)
@@ -1467,6 +1430,10 @@ def phase_facets(ctx, lay, lay_np, qpool, device, card):
     import torch
 
     from oramacore_tpu_torch.benches import pruned_bench as pb
+    from oramacore_tpu_torch.benches.facet_bench import (
+        facet_columns,
+        record_facet_calls,
+    )
     from oramacore_tpu_torch.index import search_exec as se
     from oramacore_tpu_torch.index.plan import plan_query
     from oramacore_tpu_torch.index.search_exec import _ivf_candidates
@@ -1582,51 +1549,6 @@ def phase_facets(ctx, lay, lay_np, qpool, device, card):
     return recorded, launches_all
 
 
-def record_facet_calls(run):
-    """run() with the executor's two phase-B entry points recorded (their
-    tensors cloned): (its result, {spec kind: (args, kwargs)}) of one
-    query's calls, a single- and a multi-valued pair."""
-    from oramacore_tpu_torch.benches import pruned_bench as pb
-    from oramacore_tpu_torch.index import search_exec as se
-
-    out, single = pb.capture(se, "facet_hist", lambda: pb.capture(
-        se, "facet_hist_multi", run))
-    out, multi = out
-    calls = {"num" if kw["numeric"] else "cat": (a, kw)
-             for a, kw in single[:2]}
-    calls.update({"mnum" if kw["numeric"] else "mcat": (a, kw)
-                  for a, kw in multi[:2]})
-    return out, calls
-
-
-def facet_bound(kind, args, kw):
-    """(bytes by 4-byte word, bytes by 32-byte sector) one phase-B call
-    must move: docs and rep (8 B an entry) once, each kept rep's value (a
-    column word) or its rows of the pair table (doc and value, 8 B a row),
-    the bounds and the counts once."""
-    import torch
-
-    docs, rep = args[0], args[1]
-    G = kw["G"]
-    d = docs[rep != 0].to(torch.int64)
-    base = 8 * docs.shape[0] + 12 * G
-    if kind in ("cat", "num"):
-        words = float(d.numel())
-        sectors = float(torch.unique(d // 8).numel())
-        return base + 4 * words, base + 32 * sectors
-    pair_docs = args[2]
-    lo = torch.searchsorted(pair_docs, d.to(torch.int32), right=False)
-    hi = torch.searchsorted(pair_docs, d.to(torch.int32), right=True)
-    hi = torch.minimum(hi, lo + kw["M"])
-    rows = float((hi - lo).sum())
-    r = torch.repeat_interleave(lo, hi - lo) + (
-        torch.arange(int(rows), device=lo.device)
-        - torch.repeat_interleave(torch.cumsum(hi - lo, 0) - (hi - lo),
-                                  hi - lo))
-    sectors = float(torch.unique(r // 8).numel())
-    return base + 8 * rows, base + 2 * 32 * sectors
-
-
 def facet_kernel_checks(recorded, card):
     """Both phase-B kernels against their plain versions at the largest
     query's reps for all four specs, timed as CUDA-graph replays (L2 warm,
@@ -1636,6 +1558,10 @@ def facet_kernel_checks(recorded, card):
 
     from oramacore_tpu_torch.benches import bound_ms, time_cuda, time_graph
     from oramacore_tpu_torch.benches import pruned_bench as pb
+    from oramacore_tpu_torch.benches.facet_bench import (
+        design_sectors,
+        facet_bound,
+    )
     from oramacore_tpu_torch.ops import facet_hist as fh
 
     flush = torch.empty(64 << 20, device=recorded["cat"][0][0].device)
@@ -1669,11 +1595,14 @@ def facet_kernel_checks(recorded, card):
             lib_ms = time_cuda(lambda: torch.bincount(
                 bucket[docs.clamp(max=top)], weights=rep, minlength=kw["G"]),
                 10)
+        mine = design_sectors(kind, args, kw)
         print(f"  {name} [{kind}, G={kw['G']}]: kernel {ms:.4f} ms (L2 "
               f"warm), {cold:.4f} ms (L2 cold); plain {plain_ms:.4f} ms; "
               f"bound {bound * 1e3:.2f} us ({by_word / 1e6:.1f} MB by word; "
               f"{bound_ms(by_sector, 0)[0] * 1e3:.2f} us, "
-              f"{by_sector / 1e6:.1f} MB by sector); library call {lib}"
+              f"{by_sector / 1e6:.1f} MB by sector for a search per rep, "
+              f"{bound_ms(mine, 0)[0] * 1e3:.2f} us, {mine / 1e6:.1f} MB in "
+              f"this one); library call {lib}"
               + (f" {lib_ms:.4f} ms" if lib_ms is not None else "")
               + f" [{card}]", flush=True)
         share(f"{name} [{kind}]", ms, bound, by, card)

@@ -57,7 +57,7 @@ from ..ops.bm25 import (
     finalize_topk,
     round_up_pow2,
 )
-from ..ops.facet_hist import facet_hist, facet_hist_multi
+from ..ops.facet_hist import facet_hist, facet_hist_multi, row_ptr_table
 from ..ops.hybrid import (
     hybrid_finalize_topk,
     hybrid_finalize_topk_int8,
@@ -1190,19 +1190,26 @@ class PrunedPlanMixin(StringSearchTopK):
             wl_i[:, : len(wl)] = np.asarray(wl, np.int32).T
         return wl_i
 
-    def _device_column(self, col_key, build):
-        """A facet column on the device, cached in `_fmask_dev` by col_key
-        (none: uploaded for this call only); build() makes its host
-        arrays."""
+    def _device_column(self, col_key, build, bounds):
+        """A facet column's device arrays and its (G, 2) ranges, cached in
+        `_fmask_dev` by col_key (none: made for this call only); build()
+        makes the arrays, as host arrays to upload or device tensors. The
+        ranges come with each search, not with the column: the entry keeps
+        the last range set beside the column, and another set is uploaded
+        in its place."""
+        b = np.ascontiguousarray(bounds, np.float32)
         cached = _MISS if col_key is None else self._fmask_dev.get(col_key)
         if cached is not _MISS:
-            return cached
-        arrs = build()
-        dev = (tuple(self._to_dev(a) for a in arrs) if isinstance(arrs, tuple)
-               else self._to_dev(arrs))
+            arrs, b_bytes, b_dev = cached
+            if b_bytes == b.tobytes():
+                return arrs + (b_dev,)
+        else:
+            arrs = tuple(a if isinstance(a, torch.Tensor) else self._to_dev(a)
+                         for a in build())
+        b_dev = self._to_dev(b)
         if col_key is not None:
-            self._fmask_dev.put(col_key, dev)
-        return dev
+            self._fmask_dev.put(col_key, (arrs, b.tobytes(), b_dev))
+        return arrs + (b_dev,)
 
     def facet_counts_pruned(
         self,
@@ -1285,20 +1292,25 @@ class PrunedPlanMixin(StringSearchTopK):
 
             def pairs():
                 # a sentinel row (> any doc id, != the reps' cap) keeps
-                # the binary search inside the table
+                # the plain version's search inside the table; row_ptr,
+                # made on the device, gives the kernel the rows of each
+                # doc below cap
+                pd_dev = self._to_dev(np.concatenate([
+                    np.asarray(pair_docs, np.int32),
+                    np.full(1, 2**30, np.int32)]))
                 return (
-                    np.concatenate([np.asarray(pair_docs, np.int32),
-                                    np.full(1, 2**30, np.int32)]),
+                    pd_dev,
                     np.concatenate([
                         np.asarray(pair_vals,
                                    np.float32 if numeric else np.int32),
                         np.zeros(1, np.float32 if numeric else np.int32)]),
+                    row_ptr_table(pd_dev, cap),
                 )
 
-            pd_dev, pv_dev = self._device_column(col_key, pairs)
+            pd_dev, pv_dev, rp_dev, b_dev = self._device_column(
+                col_key, pairs, bounds)
             counts = facet_hist_multi(
-                docs_dev, rep_dev, pd_dev, pv_dev,
-                self._to_dev(np.asarray(bounds, np.float32)),
+                docs_dev, rep_dev, pd_dev, pv_dev, rp_dev, b_dev,
                 G=G, numeric=numeric, M=max(M, 1),
             )
             return counts.cpu().numpy()
@@ -1333,13 +1345,11 @@ class PrunedPlanMixin(StringSearchTopK):
         def column():
             arr = np.full((capb,), fill, dtype)
             arr[: min(len(vals), capb)] = vals[:capb]
-            return arr
+            return (arr,)
 
-        counts = facet_hist(
-            docs_dev, rep_dev, self._device_column(col_key, column),
-            self._to_dev(np.asarray(bounds, np.float32)), G=G,
-            numeric=numeric,
-        )
+        col_dev, b_dev = self._device_column(col_key, column, bounds)
+        counts = facet_hist(docs_dev, rep_dev, col_dev, b_dev, G=G,
+                            numeric=numeric)
         return counts.cpu().numpy()
 
 

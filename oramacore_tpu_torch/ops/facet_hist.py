@@ -14,9 +14,12 @@ They return the distinct matched docs per facet bucket as int32[G]:
   (the ranges may overlap).
 - `facet_hist_multi`, a multi-valued column as its doc-sorted, deduped
   (doc, value) pair table whose last row is a sentinel doc larger than
-  any real one; M bounds the rows a doc has. Categorical: one count per
-  distinct value of the doc; numeric: one count per range that any of
-  the doc's values falls in.
+  any real one, and `row_ptr` int32[L + 1], each doc's first row
+  (`row_ptr_table`); M bounds the rows a doc has. Categorical: one count
+  per distinct value of the doc; numeric: one count per range that any
+  of the doc's values falls in. A kept doc outside [0, L) counts nothing
+  (JAX's probes find no row for such a doc, but for one equal to the
+  table's sentinel, which they match against the sentinel row).
 
 JAX counts with chunked bf16 one-hot matmuls into f32, exact below 2^24;
 these counts are exact in int32. A wrapper given CPU tensors runs its
@@ -39,6 +42,8 @@ LAUNCHES = {"facet_hist": 0, "facet_hist_multi": 0}
 
 # dynamic shared memory one block of an H100 can use
 SMEM_LIMIT = 232448
+# facet_hist_multi's ring of kept docs, 256 int32 for each of 8 warps
+MULTI_RING_BYTES = 8 * 256 * 4
 
 _lib = None
 
@@ -65,7 +70,7 @@ def load_kernels() -> ctypes.CDLL:
         lib.facet_hist_launch.restype = ctypes.c_int
         lib.facet_hist_multi_launch.argtypes = [
             ptr, ptr, i64,              # docs, rep, n
-            ptr, ptr, i64, ptr,         # pair_docs, pair_vals, P, bounds
+            ptr, i64, ptr, i64, ptr,    # row_ptr, L, pair_vals, P, bounds
             i64, i64, i64, ptr, ptr,    # G, M, numeric, out, stream
         ]
         lib.facet_hist_multi_launch.restype = ctypes.c_int
@@ -73,13 +78,29 @@ def load_kernels() -> ctypes.CDLL:
     return _lib
 
 
-def smem_bytes(G: int, numeric: bool) -> int:
-    """Shared memory of one block: G int32 counters, and the G ranges of
-    a numeric column."""
-    return G * (12 if numeric else 4)
+def smem_bytes(G: int, numeric: bool, multi: bool = False) -> int:
+    """Shared memory of one block: G int32 counters, the G ranges of a
+    numeric column, and facet_hist_multi's rings."""
+    return G * (12 if numeric else 4) + (MULTI_RING_BYTES if multi else 0)
 
 
-def _check_common(docs, rep, bounds, G: int, numeric: bool) -> None:
+def max_buckets(numeric: bool, multi: bool = False) -> int:
+    """The largest G one block holds."""
+    return (SMEM_LIMIT - (MULTI_RING_BYTES if multi else 0)) // (
+        12 if numeric else 4)
+
+
+def row_ptr_table(pair_docs: torch.Tensor, L: int) -> torch.Tensor:
+    """int32[L + 1] on pair_docs' device: row_ptr[d] = lower_bound(
+    pair_docs, d) for d in [0, L], the first row of doc d in a doc-sorted
+    pair table and, at d + 1, the end of its rows (a sentinel row and rows
+    of docs past L lie after row_ptr[L])."""
+    docs = torch.arange(L + 1, dtype=torch.int32, device=pair_docs.device)
+    return torch.searchsorted(pair_docs, docs, out_int32=True)
+
+
+def _check_common(docs, rep, bounds, G: int, numeric: bool,
+                  multi: bool = False) -> None:
     _check(docs, "docs", torch.int32, 1)
     _check(rep, "rep", torch.float32, 1)
     _check(bounds, "bounds", torch.float32, 2)
@@ -89,7 +110,7 @@ def _check_common(docs, rep, bounds, G: int, numeric: bool) -> None:
         raise ValueError(f"G must be positive, got {G}")
     if tuple(bounds.shape) != (G, 2):
         raise ValueError(f"bounds must be ({G}, 2), got {tuple(bounds.shape)}")
-    need = smem_bytes(G, numeric)
+    need = smem_bytes(G, numeric, multi)
     if need > SMEM_LIMIT:
         kind = "numeric" if numeric else "categorical"
         raise ValueError(
@@ -124,7 +145,8 @@ def facet_hist(docs, rep, bucket, bounds, *, G: int, numeric: bool):
     """Distinct matched docs per bucket of a single-valued column: int32[G].
     `bucket` is int32[L] value ids (numeric=False) or f32[L] values
     (numeric=True), indexed by doc (docs clip to [0, L - 1], as JAX's
-    gather does; only kept reps read it)."""
+    gather does; only kept reps read it). One block holds at most
+    `max_buckets(numeric)` buckets: 58,112 ids or 19,370 ranges."""
     _check_common(docs, rep, bounds, G, numeric)
     _check(bucket, "bucket", _values_dtype(numeric), 1)
     if bucket.shape[0] < 1:
@@ -145,12 +167,15 @@ def facet_hist(docs, rep, bucket, bounds, *, G: int, numeric: bool):
     return out
 
 
-def facet_hist_multi_plain(docs, rep, pair_docs, pair_vals, bounds, G: int,
-                           M: int, numeric: bool):
-    """Plain PyTorch version of `facet_hist_multi` (JAX's probes: at most M
-    rows from lower_bound(pair_docs, doc), each kept while it is inside
-    the table and holds the doc)."""
+def facet_hist_multi_plain(docs, rep, pair_docs, pair_vals, row_ptr, bounds,
+                           G: int, M: int, numeric: bool):
+    """Plain PyTorch version of `facet_hist_multi`: JAX's probes (at most
+    M rows from lower_bound(pair_docs, doc), each kept while it is inside
+    the table and holds the doc) for the kept docs in [0, L), L =
+    len(row_ptr) - 1; it reads only row_ptr's length."""
+    L = row_ptr.shape[0] - 1
     d = docs[rep != 0]
+    d = d[(d >= 0) & (d < L)]
     P = pair_docs.shape[0]
     counts = torch.zeros(G, dtype=torch.int64, device=docs.device)
     step = max(1, _PLAIN_ELEMS // (G if numeric else 1))
@@ -175,32 +200,38 @@ def facet_hist_multi_plain(docs, rep, pair_docs, pair_vals, bounds, G: int,
     return counts.to(torch.int32)
 
 
-def facet_hist_multi(docs, rep, pair_docs, pair_vals, bounds, *, G: int,
-                     M: int, numeric: bool):
+def facet_hist_multi(docs, rep, pair_docs, pair_vals, row_ptr, bounds, *,
+                     G: int, M: int, numeric: bool):
     """Distinct matched docs per bucket of a multi-valued column: int32[G].
     pair_docs int32[P] ascending, its last row a sentinel larger than any
-    doc; pair_vals int32[P] value ids or f32[P] values; M >= 1 bounds the
-    rows of one doc."""
-    _check_common(docs, rep, bounds, G, numeric)
+    doc; pair_vals int32[P] value ids or f32[P] values; row_ptr int32[L +
+    1] = row_ptr_table(pair_docs, L); M >= 1 bounds the rows of one doc.
+    The warps' rings share the block with the counters, so it holds at
+    most `max_buckets(numeric, multi=True)` buckets: 56,064 ids or 18,688
+    ranges."""
+    _check_common(docs, rep, bounds, G, numeric, multi=True)
     _check(pair_docs, "pair_docs", torch.int32, 1)
     _check(pair_vals, "pair_vals", _values_dtype(numeric), 1)
+    _check(row_ptr, "row_ptr", torch.int32, 1)
     P = pair_docs.shape[0]
     if P < 1 or pair_vals.shape[0] != P:
         raise ValueError("pair_docs and pair_vals must have one length >= 1 "
                          "(the sentinel row)")
+    if row_ptr.shape[0] < 1:
+        raise ValueError("row_ptr must hold L + 1 >= 1 rows")
     if M < 1:
         raise ValueError(f"M must be positive, got {M}")
-    dev = _device_of([docs, rep, pair_docs, pair_vals, bounds])
+    dev = _device_of([docs, rep, pair_docs, pair_vals, row_ptr, bounds])
     if dev.type == "cpu":
-        return facet_hist_multi_plain(docs, rep, pair_docs, pair_vals, bounds,
-                                      G, M, numeric)
+        return facet_hist_multi_plain(docs, rep, pair_docs, pair_vals,
+                                      row_ptr, bounds, G, M, numeric)
     out = torch.empty(G, dtype=torch.int32, device=dev)
     lib = load_kernels()
     with torch.cuda.device(dev):
         err = lib.facet_hist_multi_launch(
             docs.data_ptr(), rep.data_ptr(), docs.shape[0],
-            pair_docs.data_ptr(), pair_vals.data_ptr(), P, bounds.data_ptr(),
-            G, M, int(numeric), out.data_ptr(),
+            row_ptr.data_ptr(), row_ptr.shape[0] - 1, pair_vals.data_ptr(), P,
+            bounds.data_ptr(), G, M, int(numeric), out.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, "facet_hist_multi")
     LAUNCHES["facet_hist_multi"] += 1

@@ -767,7 +767,8 @@ def _num_column(rng, n):
     return v
 
 
-# case -> (numeric, G, what the reps hold)
+# case -> (numeric, G, what the reps hold); "G_max" is the most buckets
+# one block holds
 FACET_CARD_CASES = {
     "cat_G64": (False, 64, "kept"),
     "cat_G1": (False, 1, "kept"),
@@ -779,46 +780,102 @@ FACET_CARD_CASES = {
     "num_G1": (True, 1, "kept"),
     "num_G1024": (True, 1024, "kept"),
     "num_G8000_smem_over_48k": (True, 8000, "kept"),
+    "cat_unsorted": (False, 64, "unsorted"),
+    "num_unsorted": (True, 8, "unsorted"),
+    "cat_hybrid_runs": (False, 64, "hybrid"),
+    "num_hybrid_runs": (True, 8, "hybrid"),
+    "cat_docs_outside_the_column": (False, 64, "outside"),
+    "cat_one_bucket": (False, 64, "one_bucket"),
+    "num_one_range_value": (True, 8, "one_bucket"),
+    "cat_n0": (False, 64, "n0"),
+    "num_n0": (True, 8, "n0"),
+    "cat_odd_n": (False, 64, "odd_n"),
+    "num_odd_n": (True, 40, "odd_n"),
+    "cat_misaligned_views": (False, 64, "misaligned"),
+    "num_misaligned_views": (True, 8, "misaligned"),
+    "cat_G_max": (False, "G_max", "kept"),
+    "num_G_max": (True, "G_max", "kept"),
 }
 
 
 def _facet_reps(rng, held, n=1 << 20, n_docs=3_000_000, cap=1 << 22):
+    """Phase A's reps (`_reps`), or the case's variant: no kept rep, only
+    sentinels, shuffled, the hybrid's two ascending runs and sentinel
+    padding, kept docs outside [0, n_docs) (negative, past it, the cap and
+    the 2**30 sentinel), n = 0, n not a multiple of 4 or 8."""
+    if held == "n0":
+        return np.zeros(0, np.int32), np.zeros(0, np.float32)
+    if held == "odd_n":
+        n -= 3
     docs, rep = _reps(rng, n, n_docs, cap)
     if held == "none":
         rep[:] = 0.0
     elif held == "sentinels":
         docs[:] = cap
         rep[:] = 0.0
+    elif held == "unsorted":
+        perm = rng.permutation(n)
+        docs, rep = docs[perm], rep[perm]
+    elif held == "hybrid":
+        vd = np.sort(rng.choice(n_docs, n // 8, replace=False)).astype(np.int32)
+        vrep = (rng.random(n // 8) < 0.7).astype(np.float32)
+        docs = np.concatenate([docs, vd, np.full(n // 16, cap, np.int32)])
+        rep = np.concatenate([rep, vrep, np.zeros(n // 16, np.float32)])
+    elif held == "outside":
+        at = rng.choice(n - n // 4, 64, replace=False)
+        docs[at] = rng.choice(np.array([-7, -1, n_docs, n_docs + 5, cap, 2**30],
+                                       np.int32), 64)
+        rep[at] = 1.0
     return docs, rep
+
+
+def _card_views(cuda, held, docs, rep):
+    """docs and rep on the card; "misaligned": views one word into their
+    buffers (not 16-byte aligned)."""
+    if held != "misaligned":
+        return torch.from_numpy(docs).to(cuda), torch.from_numpy(rep).to(cuda)
+    return (torch.from_numpy(np.r_[np.int32(0), docs]).to(cuda)[1:],
+            torch.from_numpy(np.r_[np.float32(0), rep]).to(cuda)[1:])
 
 
 @pytest.mark.parametrize("case", list(FACET_CARD_CASES))
 def test_facet_hist_kernel(cuda, case):
     """facet_hist against its plain version: ids -1 and >= G, NaN and
-    overlapping inclusive ranges; exact int32 counts."""
+    overlapping inclusive ranges, docs in any order, docs clipped into the
+    column, one bucket taking every rep, n = 0, a ragged n, misaligned
+    views, G from 1 to the most one block holds; exact int32 counts."""
     from oramacore_tpu_torch.ops import facet_hist as fh
 
     numeric, G, held = FACET_CARD_CASES[case]
+    if G == "G_max":
+        G = fh.max_buckets(numeric)
     rng = np.random.default_rng(len(case))
     cap = 1 << 22
-    docs, rep = _facet_reps(rng, held, cap=cap)
+    docs, rep = _facet_reps(rng, held, n_docs=cap - 1000, cap=cap)
     if numeric:
         col = _num_column(rng, cap)
         bounds = _overlapping_bounds(rng, G)
+        if held == "one_bucket":
+            col[:] = bounds[0, 0]
     else:
         col = rng.integers(-1, G + 3, cap).astype(np.int32)
         bounds = np.zeros((G, 2), np.float32)
-    args = [torch.from_numpy(a).to(cuda) for a in (docs, rep, col, bounds)]
+        if held == "one_bucket":
+            col[:] = G // 2
+    args = [*_card_views(cuda, held, docs, rep)] + [
+        torch.from_numpy(a).to(cuda) for a in (col, bounds)]
     before = fh.LAUNCHES["facet_hist"]
     got = fh.facet_hist(*args, G=G, numeric=numeric)
     torch.cuda.synchronize()
     assert fh.LAUNCHES["facet_hist"] == before + 1
     exp = fh.facet_hist_plain(*args, G, numeric)
     assert got.dtype == torch.int32 and torch.equal(got, exp)
-    if held == "kept":
-        assert int(got.sum()) > 0
-    else:
+    if held in ("none", "sentinels", "n0"):
         assert int(got.sum()) == 0
+    else:
+        assert int(got.sum()) > 0
+    if held == "one_bucket" and not numeric:
+        assert int(got[G // 2]) == int((rep != 0).sum())
 
 
 # case -> (numeric, G, M, what the reps hold)
@@ -833,6 +890,24 @@ MULTI_CARD_CASES = {
     "num_overlapping_ranges": (True, 8, 3, "kept"),
     "num_M8_G1024": (True, 1024, 8, "kept"),
     "num_last_real_row": (True, 8, 3, "last"),
+    "cat_unsorted": (False, 32, 4, "unsorted"),
+    "num_unsorted": (True, 8, 3, "unsorted"),
+    "cat_hybrid_runs": (False, 32, 4, "hybrid"),
+    "num_hybrid_runs": (True, 8, 3, "hybrid"),
+    "cat_docs_outside_row_ptr": (False, 32, 4, "outside"),
+    "num_docs_outside_row_ptr": (True, 8, 3, "outside"),
+    "cat_M_below_the_rows": (False, 32, 2, "truncated"),
+    "num_M_below_the_rows": (True, 8, 2, "truncated"),
+    "cat_one_bucket": (False, 32, 4, "one_bucket"),
+    "num_one_range_value": (True, 8, 3, "one_bucket"),
+    "cat_n0": (False, 32, 4, "n0"),
+    "num_n0": (True, 8, 3, "n0"),
+    "cat_odd_n": (False, 32, 4, "odd_n"),
+    "num_odd_n_G40": (True, 40, 3, "odd_n"),
+    "cat_misaligned_views": (False, 32, 4, "misaligned"),
+    "num_misaligned_views": (True, 8, 3, "misaligned"),
+    "cat_G_max": (False, "G_max", 4, "kept"),
+    "num_G_max": (True, "G_max", 3, "kept"),
 }
 
 
@@ -858,30 +933,47 @@ def _pair_table(rng, n_docs, M, G, numeric):
 def test_facet_hist_multi_kernel(cuda, case):
     """facet_hist_multi against its plain version: value_counts for ids,
     range_counts (one count per range a doc's values hit) for numbers; a
-    doc at the table's last real row; no kept reps; only sentinels."""
+    doc at the table's last real row; no kept reps; only sentinels; docs
+    in any order; kept docs outside [0, L), the 2**30 sentinel doc among
+    them, which count nothing; M below a doc's rows; one bucket taking
+    every rep; n = 0, a ragged n, misaligned views; G up to the most one
+    block holds."""
     from oramacore_tpu_torch.ops import facet_hist as fh
 
     numeric, G, M, held = MULTI_CARD_CASES[case]
+    if G == "G_max":
+        G = fh.max_buckets(numeric, multi=True)
     rng = np.random.default_rng(100 + len(case))
     n_docs, cap = 2_000_000, 1 << 21
-    pd, pv = _pair_table(rng, n_docs, M, G, numeric)
-    docs, rep = _facet_reps(rng, "sentinels" if held == "sentinels" else
-                            "none" if held == "none" else "kept",
-                            n=1 << 19, n_docs=n_docs, cap=cap)
+    pd, pv = _pair_table(rng, n_docs, 8 if held == "truncated" else M, G,
+                         numeric)
+    if held == "one_bucket":
+        pv[:] = 0.5 if numeric else G // 2
+        # pairs stay distinct as the kernel takes them: one row a doc
+        keep = np.r_[True, pd[1:] != pd[:-1]]
+        pd, pv = pd[keep], pv[keep]
+    docs, rep = _facet_reps(rng, held if held not in ("last", "truncated",
+                                                      "one_bucket") else
+                            "kept", n=1 << 19, n_docs=n_docs, cap=cap)
     if held == "last":
         docs[:] = cap
         rep[:] = 0.0
         docs[0], rep[0] = n_docs - 1, 1.0
     bounds = (_overlapping_bounds(rng, G) if numeric
               else np.zeros((G, 2), np.float32))
-    args = [torch.from_numpy(a).to(cuda) for a in (docs, rep, pd, pv, bounds)]
+    if held == "one_bucket" and numeric:
+        bounds[:] = [0.0, 1.0]
+    pd_dev = torch.from_numpy(pd).to(cuda)
+    args = [*_card_views(cuda, held, docs, rep), pd_dev,
+            torch.from_numpy(pv).to(cuda), fh.row_ptr_table(pd_dev, n_docs),
+            torch.from_numpy(bounds).to(cuda)]
     before = fh.LAUNCHES["facet_hist_multi"]
     got = fh.facet_hist_multi(*args, G=G, M=M, numeric=numeric)
     torch.cuda.synchronize()
     assert fh.LAUNCHES["facet_hist_multi"] == before + 1
     exp = fh.facet_hist_multi_plain(*args, G, M, numeric)
     assert got.dtype == torch.int32 and torch.equal(got, exp)
-    if held in ("none", "sentinels"):
+    if held in ("none", "sentinels", "n0"):
         assert int(got.sum()) == 0
     elif held == "last":
         last = pd[:-1] == n_docs - 1
@@ -894,6 +986,18 @@ def test_facet_hist_multi_kernel(cuda, case):
         assert int(got.sum()) == want
     else:
         assert int(got.sum()) > 0
+    if held == "outside":   # the outside docs alone count nothing
+        out = (docs < 0) | (docs >= n_docs)
+        assert (out & (rep != 0) & (docs == 2**30)).any()
+        d2 = torch.from_numpy(docs[out]).to(cuda)
+        got = fh.facet_hist_multi(d2, torch.ones_like(d2, dtype=torch.float32),
+                                  *args[2:], G=G, M=M, numeric=numeric)
+        assert int(got.sum()) == 0
+    if held == "one_bucket":
+        n_kept = int(((rep != 0) & (docs < n_docs)).sum())
+        counts = got.cpu().numpy()
+        assert int(counts[0 if numeric else G // 2]) > 0
+        assert int(counts.max()) <= n_kept
 
 
 def test_pruned_facets_and_hybrid_on_the_card_equal_the_cpu(cuda, monkeypatch):

@@ -230,6 +230,13 @@ def _multi_column(rng, numeric, M, n_docs, G):
     return col
 
 
+def _with_sentinel(pd, pv, numeric):
+    """The pair table as the executor uploads it: a 2**30 sentinel row."""
+    return (np.concatenate([pd, [2**30]]).astype(np.int32),
+            np.concatenate([pv, [0]]).astype(np.float32 if numeric
+                                              else np.int32))
+
+
 @pytest.mark.parametrize("numeric", [False, True])
 @pytest.mark.parametrize("M", [1, 8])
 def test_pruned_facet_hist_multi_matches_jax(numeric, M):
@@ -242,16 +249,163 @@ def test_pruned_facet_hist_multi_matches_jax(numeric, M):
     np.testing.assert_array_equal(tpv, pv)
     assert tm == m and 1 <= m <= M and pd[-1] == n_docs - 1
     docs, rep = _rep_inputs(rng, n_docs=n_docs, cap=cap)
-    pdx = np.concatenate([pd, [2**30]]).astype(np.int32)
-    pvx = np.concatenate([pv, [0]]).astype(np.float32 if numeric else np.int32)
+    pdx, pvx = _with_sentinel(pd, pv, numeric)
     bounds = _bounds(rng, G) if numeric else np.zeros((G, 2), np.float32)
     exp = jpr.pruned_facet_hist_multi(_j(docs), _j(rep), _j(pdx), _j(pvx),
                                       _j(bounds), G=G, numeric=numeric, M=m)
     got = fh.facet_hist_multi(_t(docs), _t(rep), _t(pdx), _t(pvx),
-                              _t(bounds), G=G, numeric=numeric, M=m)
+                              fh.row_ptr_table(_t(pd), cap), _t(bounds), G=G,
+                              numeric=numeric, M=m)
     assert got.dtype == torch.int32
     np.testing.assert_array_equal(got.numpy(), np.asarray(exp))
     assert got.sum() > 0
+
+
+def test_row_ptr_table_is_lower_bound_of_every_doc():
+    """row_ptr[d] = searchsorted(pair_docs, d) for every d in [0, L]: docs
+    without rows, runs of several rows, rows past L and the sentinel row,
+    and an empty table."""
+    rng = np.random.default_rng(5)
+    k = rng.integers(0, 4, 700)
+    k[:3] = 0                                     # no rows at the start
+    pd = np.repeat(np.arange(700, dtype=np.int32), k)
+    for table, L in ((pd, 700), (pd, 650), (pd, 900),
+                     (np.r_[pd, 2**30].astype(np.int32), 700),
+                     (np.zeros(0, np.int32), 5), (pd, 0)):
+        rp = fh.row_ptr_table(_t(table), L)
+        assert rp.dtype == torch.int32 and rp.shape == (L + 1,)
+        np.testing.assert_array_equal(
+            rp.numpy(), np.searchsorted(table, np.arange(L + 1)))
+
+
+def _hybrid_reps(rng, n_docs, cap, n=4096, pad=512):
+    """The hybrid's reps: phase A's ascending run with its sentinel tail,
+    a second ascending run (the probe's docs) and sentinel padding."""
+    docs, rep = _rep_inputs(rng, n=n, n_docs=n_docs, cap=cap)
+    vd = np.sort(rng.choice(n_docs, 600, replace=False)).astype(np.int32)
+    vrep = (rng.random(600) < 0.7).astype(np.float32)
+    return (np.concatenate([docs, vd, np.full(pad, cap, np.int32)]),
+            np.concatenate([rep, vrep, np.zeros(pad, np.float32)]))
+
+
+@pytest.mark.parametrize("order", ["shuffled", "hybrid"])
+@pytest.mark.parametrize("rows", ["1", "2", "max"])
+@pytest.mark.parametrize("numeric", [False, True])
+def test_facet_hist_multi_row_ptr_matches_jax(numeric, rows, order):
+    """M below a doc's row count truncates at M rows, as JAX's probes do;
+    the order of the reps does not matter."""
+    rng = np.random.default_rng(11 + 5 * numeric + len(rows) + len(order))
+    n_docs, cap, G = 3000, 4096, (8 if numeric else 16)
+    col = _multi_column(rng, numeric, 6, n_docs, G)
+    pd, pv, m = col.pair_table(cap)
+    M = m if rows == "max" else int(rows)
+    assert m > 2
+    if order == "shuffled":
+        docs, rep = _rep_inputs(rng, n_docs=n_docs, cap=cap)
+        perm = rng.permutation(len(docs))
+        docs, rep = docs[perm], rep[perm]
+    else:
+        docs, rep = _hybrid_reps(rng, n_docs, cap)
+    pdx, pvx = _with_sentinel(pd, pv, numeric)
+    bounds = _bounds(rng, G) if numeric else np.zeros((G, 2), np.float32)
+    exp = jpr.pruned_facet_hist_multi(_j(docs), _j(rep), _j(pdx), _j(pvx),
+                                      _j(bounds), G=G, numeric=numeric, M=M)
+    got = fh.facet_hist_multi(_t(docs), _t(rep), _t(pdx), _t(pvx),
+                              fh.row_ptr_table(_t(pd), cap), _t(bounds), G=G,
+                              numeric=numeric, M=M)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(exp))
+    assert got.sum() > 0
+
+
+@pytest.mark.parametrize("numeric", [False, True])
+def test_facet_hist_multi_counts_nothing_outside_row_ptr(numeric):
+    """Kept docs outside [0, L) count nothing: negative docs, docs at or
+    past L, and the table's 2**30 sentinel doc, which JAX's probes match
+    against the sentinel row (value 0)."""
+    pd = np.array([0, 0, 3, 5, 5, 5], np.int32)
+    pv = (np.array([0, 1, 2, 0, 3, 4], np.float32) if numeric
+          else np.array([0, 1, 2, 0, 3, 4], np.int32))
+    pdx, pvx = _with_sentinel(pd, pv, numeric)
+    G = 5
+    bounds = (np.array([[0, 0], [0, 2], [1, 4], [9, 9], [-1, 10]], np.float32)
+              if numeric else np.zeros((G, 2), np.float32))
+    rp = fh.row_ptr_table(_t(pd), 8)
+    outside = np.array([-1, 8, 9, 2**30, 2**30], np.int32)
+    inside = np.array([5, 0, 3, 1], np.int32)
+    for docs, want in ((outside, 0), (np.r_[inside, outside], None)):
+        rep = np.ones(len(docs), np.float32)
+        got = fh.facet_hist_multi(_t(docs), _t(rep), _t(pdx), _t(pvx), rp,
+                                  _t(bounds), G=G, numeric=numeric, M=3)
+        if want is not None:
+            assert int(got.sum()) == want
+        else:
+            exp = jpr.pruned_facet_hist_multi(
+                _j(inside), _j(np.ones(4, np.float32)), _j(pdx), _j(pvx),
+                _j(bounds), G=G, numeric=numeric, M=3)
+            np.testing.assert_array_equal(got.numpy(), np.asarray(exp))
+    sentinel = np.array([2**30], np.int32)
+    exp = jpr.pruned_facet_hist_multi(
+        _j(sentinel), _j(np.ones(1, np.float32)), _j(pdx), _j(pvx),
+        _j(bounds), G=G, numeric=numeric, M=3)
+    assert float(np.asarray(exp).sum()) > 0   # JAX counts the sentinel row
+
+
+def test_facet_bench_bound_and_sectors_on_toy_inputs():
+    """facet_bound and design_sectors, counted by hand: entries 8 B each,
+    bounds and counts 12 B a bucket, kept values by word and by 32-byte
+    sector (8 words); multi-valued rows truncated at M, docs outside
+    [0, L) without rows, row_ptr's sectors of d and d + 1."""
+    from oramacore_tpu_torch.benches import facet_bench as fb
+
+    G = 4
+    base = 8 * 5 + 12 * G
+    docs = torch.tensor([0, 7, 17, 9, 255], dtype=torch.int32)
+    rep = torch.tensor([1.0, 1.0, 0.0, 1.0, 1.0])
+    args = (docs, rep, torch.zeros(300, dtype=torch.int32), torch.zeros((G, 2)))
+    kw = dict(G=G, numeric=False)
+    # kept 0, 7, 9, 255: 4 words in sectors 0, 0, 1, 31
+    assert fb.facet_bound("cat", args, kw) == (base + 16, base + 3 * 32)
+    assert fb.design_sectors("cat", args, kw) == base + 3 * 32
+    pd = torch.tensor([0, 0, 0, 3, 8, 8, 9, 2**30], dtype=torch.int32)
+    rp = fh.row_ptr_table(pd, 10)
+    docs = torch.tensor([0, 3, 9, 12, 5], dtype=torch.int32)
+    rep = torch.tensor([1.0, 1.0, 1.0, 1.0, 0.0])
+    args = (docs, rep, pd, torch.zeros(8, dtype=torch.int32), rp,
+            torch.zeros((G, 2)))
+    kw = dict(G=G, M=2, numeric=False)
+    # rows 0, 1 (doc 0, cut at M = 2), 3 (doc 3), 6 (doc 9); doc 12 is
+    # past L: one value sector; row_ptr at 0, 1, 3, 4, 9, 10: sectors 0, 1
+    assert fb.facet_bound("mcat", args, kw) == (base + 4 * 8, base + 2 * 32)
+    assert fb.design_sectors("mcat", args, kw) == base + 3 * 32
+
+
+def test_facet_bench_limit_cases():
+    """`stream` gathers nothing (one column word; no doc with rows) and
+    `gather` runs the kept reps alone, to the same counts."""
+    from oramacore_tpu_torch.benches import facet_bench as fb
+
+    rng = np.random.default_rng(8)
+    docs, rep = _rep_inputs(rng)
+    col = rng.integers(0, 16, 4096).astype(np.int32)
+    col[0] = 3
+    args = (_t(docs), _t(rep), _t(col), _t(np.zeros((16, 2), np.float32)))
+    kw = dict(G=16, numeric=False)
+    cases = fb.limit_cases("cat", args, kw)
+    stream = fh.facet_hist(*cases["stream"][0], **kw)
+    assert int(stream[3]) == int(stream.sum()) == int((rep != 0).sum())
+    assert torch.equal(fh.facet_hist(*cases["gather"][0], **kw),
+                       fh.facet_hist(*args, **kw))
+    col = _multi_column(rng, False, 4, 3000, 16)
+    pd, pv, m = col.pair_table(4096)
+    pdx, pvx = _with_sentinel(pd, pv, False)
+    args = (_t(docs), _t(rep), _t(pdx), _t(pvx),
+            fh.row_ptr_table(_t(pd), 4096), _t(np.zeros((16, 2), np.float32)))
+    kw = dict(G=16, M=m, numeric=False)
+    cases = fb.limit_cases("mcat", args, kw)
+    assert int(fh.facet_hist_multi(*cases["stream"][0], **kw).sum()) == 0
+    full = fh.facet_hist_multi(*args, **kw)
+    assert full.sum() > 0
+    assert torch.equal(fh.facet_hist_multi(*cases["gather"][0], **kw), full)
 
 
 def test_facet_hist_refuses_what_shared_memory_cannot_hold():
@@ -268,6 +422,20 @@ def test_facet_hist_refuses_what_shared_memory_cannot_hold():
     with pytest.raises(TypeError):     # a numeric column of ids
         fh.facet_hist(docs, rep, torch.zeros(8, dtype=torch.int32),
                       torch.zeros((4, 2)), G=4, numeric=True)
+    # facet_hist_multi's rings share the block: fewer buckets fit
+    pd = torch.tensor([0, 2**30], dtype=torch.int32)
+    rp = torch.tensor([0, 1], dtype=torch.int32)
+    for numeric in (False, True):
+        G = fh.max_buckets(numeric, multi=True)
+        assert fh.smem_bytes(G, numeric, multi=True) <= fh.SMEM_LIMIT
+        assert fh.smem_bytes(G + 1, numeric, multi=True) > fh.SMEM_LIMIT
+        pv = torch.zeros(2, dtype=torch.float32 if numeric else torch.int32)
+        fh.facet_hist_multi(docs, rep, pd, pv, rp, torch.zeros((G, 2)), G=G,
+                            M=1, numeric=numeric)
+        with pytest.raises(ValueError, match="shared memory"):
+            fh.facet_hist_multi(docs, rep, pd, pv, rp,
+                                torch.zeros((G + 1, 2)), G=G + 1, M=1,
+                                numeric=numeric)
 
 
 # ---------------------------------------------------------------------------
@@ -408,6 +576,78 @@ def test_facet_counts_pruned_matches_jax(index, vectors, case):
         assert got.sum() > 0, kind
     count = tx.facet_match_count(tp[0])
     assert count == jx.facet_match_count(jp[0]) and count > 0
+
+
+def test_facet_columns_upload_once_per_key(index, monkeypatch):
+    """A keyed column's device arrays (the pair table, its row_ptr made
+    on the device, the bounds) are made by its first call only: the same
+    fields of the same search again upload nothing and count the same,
+    equal to the JAX package. Without a key every call uploads them."""
+    specs = _specs()
+    jp, tp = _plans(index, [["w0", "w1", "w7"]], PROPS)
+    jx, tx = _executors()
+    uploads = []
+    real = tx._to_dev
+
+    def spy(a):
+        uploads.append(np.shape(a))
+        return real(a)
+
+    monkeypatch.setattr(tx, "_to_dev", spy)
+    rounds = []
+    for _ in range(2):
+        rounds.append({k: tx.facet_counts_pruned(index.torch, tp[0], N_DOCS,
+                                                 *specs[k]) for k in specs})
+        rounds[-1]["uploads"] = len(uploads)
+    assert rounds[0]["uploads"] > 0 and rounds[1]["uploads"] == rounds[0]["uploads"]
+    for k, (spec, key) in specs.items():
+        exp = jx.facet_counts_pruned(index.jax, jp[0], N_DOCS, spec, key)
+        np.testing.assert_array_equal(rounds[0][k], np.asarray(exp), err_msg=k)
+        np.testing.assert_array_equal(rounds[1][k], rounds[0][k], err_msg=k)
+    (pd_dev, pv_dev, rp_dev), _, b_dev = tx._fmask_dev.get(
+        (specs["mcat"][1], CAPB))
+    assert rp_dev.shape == (N_DOCS + 1,) and b_dev.shape == (10, 2)
+    np.testing.assert_array_equal(
+        rp_dev.numpy(), np.searchsorted(pd_dev.numpy(), np.arange(N_DOCS + 1)))
+    (col_dev,), _, b_dev = tx._fmask_dev.get((specs["num"][1], CAPB))
+    assert col_dev.shape == (CAPB,) and b_dev.shape == (8, 2)
+    before = len(uploads)
+    tx.facet_counts_pruned(index.torch, tp[0], N_DOCS, specs["mnum"][0], None)
+    assert len(uploads) - before == 3      # pairs, values, bounds
+
+
+@pytest.mark.parametrize("kind", ["num", "mnum"])
+def test_facet_ranges_change_under_one_column_key(index, kind, monkeypatch):
+    """Ranges come with each search, the column with its key: a number
+    field counted again under the same key with other ranges (as many, and
+    fewer) counts those ranges, equal to the JAX package, and uploads only
+    the new ranges; the first ranges again count as they did."""
+    spec, key = _specs()[kind]
+    rng = np.random.default_rng(17)
+    at = 2 if kind == "num" else 3
+    range_sets = [spec[at], _bounds(rng, 8), _bounds(rng, 3), spec[at]]
+    jp, tp = _plans(index, [["w0", "w1", "w7"]], PROPS)
+    jx, tx = _executors()
+    uploads = []
+    real = tx._to_dev
+
+    def spy(a):
+        uploads.append(np.shape(a))
+        return real(a)
+
+    monkeypatch.setattr(tx, "_to_dev", spy)
+    got = []
+    for bounds in range_sets:
+        s = spec[:at] + (bounds,) + spec[at + 1:]
+        exp = jx.facet_counts_pruned(index.jax, jp[0], N_DOCS, s, key)
+        before = len(uploads)
+        got.append(tx.facet_counts_pruned(index.torch, tp[0], N_DOCS, s, key))
+        np.testing.assert_array_equal(got[-1], np.asarray(exp))
+        assert got[-1].shape == (len(bounds),) and got[-1].sum() > 0
+        if len(got) > 1:
+            assert uploads[before:] == [np.shape(bounds)]
+    assert not np.array_equal(got[1], got[0])
+    np.testing.assert_array_equal(got[3], got[0])
 
 
 def test_facet_reps_cache_holds_one_plan(index, monkeypatch):
