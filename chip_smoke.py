@@ -55,7 +55,19 @@ launch counts set to 0 just before it and read just after:
   against their plain versions at the largest query's reps (timed); the
   pruned int8 hybrid (`HybridSearchTopK.search_topk_hybrid_int8_pruned`)
   at v4 B=64 and 256, v3 under a 50% filter, a 1,000-doc filter and
-  exact tf.
+  exact tf;
+- the text encoder (`oramacore_tpu_torch/embeddings/`) with both bundled
+  checkpoints, `models/semantic-base` and `models/semantic-mini`, loaded
+  by hand (safetensors reader, WordPiece tokenizer): its attention
+  kernel, `encoder_attention`, against its plain version in f64 at the
+  encoder's shapes, BGEBase's geometry and the edge cases (timed beside
+  `scaled_dot_product_attention`); the golden vectors of the JAX encoder;
+  65,536 seeded passages through `EmbeddingsService.calculate_embeddings`
+  (`SemanticBase`, calls of 100 as the write side batches), 1,024 of them
+  held against the plain path in f64; B=1024 encode throughput of each
+  model; B=1 query latency; then flat, IVF and hybrid search
+  (`HybridSearchTopK.search_topk_hybrid` over a `StringIndex` of the same
+  passages) with embedded query texts.
 
 Search results are held against numpy references: the BM25 reference
 scorer, bf16-rounded vector products summed in f32, a numpy copy of the
@@ -132,6 +144,27 @@ N_HYBRID_PRUNED_CHECKED = 4
 SIMILARITY_10M = 0.3      # the bench's vector similarity (:531-539)
 TOMBSTONES = 0.05         # dead share of the facet cases' alive mask
 
+# phase 14: the text encoder, from passage text to search
+ENC_PASSAGES = 65_536     # the ingest corpus (benches/encoder_bench.py)
+ENC_SEED = 14
+ENC_CALL = 100            # texts a call: the write side's batch_limit
+                          # (write/__init__.py:200)
+ENC_CHECKED = 1_024       # ingested passages held against the f64 plain path
+ENC_THROUGHPUT_B = 1_024  # one encode call of each model
+ENC_QUERIES = 64          # B=1 query embeddings timed
+ENC_SEARCH_B = 64         # embedded queries a flat / IVF batch
+ENC_HYBRID_SIM = 0.5      # the hybrid's vector similarity threshold
+ENC_ATOL = 2e-5           # |d| of unit vectors: against the JAX encoder's
+                          # golden vectors and the f64 plain path
+ATTN_TOL = 1e-5           # encoder_attention against its f64 plain version
+                          # (rtol and atol; f32 sums of up to 512 terms)
+# tests/test_semantic_encoder.py:46-75
+ENC_SYNONYMS = ["car", "automobile", "doctor", "physician", "storm"]
+ENC_PHRASE_Q = ["buy car", "fast boat trip", "doctor visit",
+                "cold storm night"]
+ENC_PHRASE_T = ["automobile purchase", "rapid vessel voyage",
+                "physician appointment", "icy tempest evening"]
+
 # Every ported kernel entry point: its wrapper module, the CUDA source, the
 # TPU kernel (or, with jitted=True, the jitted JAX function) it replaces,
 # and the path whose run gives its launch count.
@@ -169,6 +202,11 @@ KERNELS = (
          source="oramacore_tpu_torch/ops/csrc/facet_hist.cu",
          replaces="oramacore_tpu/ops/pruned.py:1198", jitted=True,
          path="facets"),
+    dict(name="encoder_attention",
+         module="oramacore_tpu_torch.ops.attention", route="cuda",
+         source="oramacore_tpu_torch/ops/csrc/encoder_attention.cu",
+         replaces="oramacore_tpu/embeddings/flax_encoder.py:69", jitted=True,
+         path="encoder"),
 )
 
 
@@ -855,7 +893,9 @@ def numpy_probe(q, lay, nprobe, k, doc_mask=None):
     return cat_v[sel], cat_r[sel], cat_v[sel[-1]], tie, (s, rows)
 
 
-def phase_ivf(vidx, vecs, batches, flat_ref, device, card):
+def phase_ivf(vidx, vecs, batches, flat_ref, device, card,
+              recall_note="the rows are uniform, so clusters do not fit "
+                          "them"):
     """The IVF int8 tier: _build_ivf on the same index, search_many B=64
     and a filtered search, held against numpy_probe + the f32 rerank on
     the port's own layout; recall@10 against exact search as information."""
@@ -917,8 +957,7 @@ def phase_ivf(vidx, vecs, batches, flat_ref, device, card):
                       f"filtered call equal a numpy probe + f32 rerank of the "
                       f"same layout outside near-ties")
     print(f"  IVF recall@{K} against exact flat search (information, not a "
-          f"gate; the rows are uniform, so clusters do not fit them): "
-          f"{np.mean(recalls):.3f}", flush=True)
+          f"gate; {recall_note}): {np.mean(recalls):.3f}", flush=True)
     return lay, nprobe
 
 
@@ -1817,6 +1856,384 @@ def phase_facets_hybrid(ctx, device, card):
     return timings, launches
 
 
+# ---------------------------------------------------------------------------
+# the text encoder: passage text -> vectors -> search (phase 14)
+# ---------------------------------------------------------------------------
+
+def sdpa_ms(qkv, mask, H, reps):
+    """The library yardstick: one F.scaled_dot_product_attention call on
+    the same inputs (Q, K, V as (B, H, L, hd) views of qkv, an additive
+    f32 mask of 0 / -1e9), CUDA-graph replays; and its output as the
+    kernel's (B, L, D), for its error."""
+    import torch
+    import torch.nn.functional as F
+
+    from oramacore_tpu_torch.benches import time_graph
+
+    B, L, D3 = qkv.shape
+    D = D3 // 3
+    q, k, v = (t.view(B, L, H, D // H).transpose(1, 2)
+               for t in qkv.split(D, dim=-1))
+    bias = torch.where(mask > 0, 0.0, -1e9).float()[:, None, None, :]
+
+    def call():
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=bias)
+
+    ms = time_graph(call, reps)
+    return ms, call().transpose(1, 2).reshape(B, L, D)
+
+
+def attention_checks(device, card):
+    """encoder_attention against its plain version in f64 at every case of
+    benches/encoder_bench.py (the shapes phase 14's encoder gives it,
+    BGEBase's geometry, padded batch rows, L=1), each timed as CUDA-graph
+    replays, warm and L2-cold, beside its bound, the plain version and
+    scaled_dot_product_attention on the same inputs. The kernels line
+    takes the first case, SemanticBase at B=1024, L=64."""
+    import torch
+
+    from oramacore_tpu_torch.benches import bound_ms, time_cuda, time_graph
+    from oramacore_tpu_torch.benches.encoder_bench import (
+        ATTENTION_CASES,
+        attention_inputs,
+        attention_reference,
+    )
+    from oramacore_tpu_torch.benches.pruned_bench import time_cold
+    from oramacore_tpu_torch.ops import attention as at
+
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=device)
+    out, errs = {}, []
+    for i, (label, case) in enumerate(ATTENTION_CASES.items()):
+        B, L, H, hd = case["B"], case["L"], case["H"], case["hd"]
+        qkv, mask = attention_inputs(case, 140 + i, device)
+        got = at.encoder_attention(qkv, mask, H)
+        ref = attention_reference(qkv, mask, H)
+        sync(device)
+        err = float((got.double() - ref).abs().max())
+        errs.append(err)
+        check(bool(torch.isfinite(got).all()) and torch.allclose(
+            got.double(), ref, rtol=ATTN_TOL, atol=ATTN_TOL),
+            f"encoder_attention [{label}, S={at.split_for(B, H, L)}]: within "
+            f"rtol/atol {ATTN_TOL} of its plain version in f64 (max abs err "
+            f"{err:.3g})")
+        n_bytes, n_ops = at.attention_work(B, L, H, hd)
+        bound, by = bound_ms(n_bytes, n_ops)
+        warm = time_graph(lambda: at.encoder_attention(qkv, mask, H), 20)
+        cold = time_cold(lambda: at.encoder_attention(qkv, mask, H), flush,
+                         10)
+        plain_ms = time_cuda(lambda: at.encoder_attention_plain(qkv, mask, H),
+                             5)
+        lib_ms, lib_out = sdpa_ms(qkv, mask, H, 20)
+        lib_err = float((lib_out.double() - ref).abs().max())
+        print(f"  encoder_attention [{label}]: kernel {warm:.4f} ms warm, "
+              f"{cold:.4f} ms L2-cold; plain {plain_ms:.4f} ms; library "
+              f"scaled_dot_product_attention (additive f32 mask) "
+              f"{lib_ms:.4f} ms (max abs err {lib_err:.3g}); bound "
+              f"{bound:.4f} ms ({by}: {n_bytes / 1e6:.1f} MB, "
+              f"{n_ops / 1e9:.2f} GFLOP) [{card}]", flush=True)
+        share(f"encoder_attention [{label}], L2-cold", cold, bound, by, card)
+        if i == 0:
+            out["encoder_attention"] = dict(
+                ms=cold, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                library_ms=lib_ms)
+    del flush
+    out["encoder_attention"]["max_abs_err"] = max(errs)
+    return out
+
+
+def device_ms(fn):
+    """(result, device ms) of one call between CUDA events."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    res = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return res, start.elapsed_time(end)
+
+
+def synonym_checks(encs):
+    """tests/test_semantic_encoder.py's synonym (:46-56) and phrase
+    (:59-88) checks on the card's vectors."""
+    for name, enc in encs.items():
+        v = dict(zip(ENC_SYNONYMS, enc.encode(ENC_SYNONYMS)))
+        cos = {pair: float(v[pair[0]] @ v[pair[1]]) for pair in (
+            ("car", "automobile"), ("doctor", "physician"), ("car", "doctor"),
+            ("automobile", "storm"))}
+        check(cos[("car", "automobile")] > 0.8
+              and cos[("doctor", "physician")] > 0.8
+              and cos[("car", "doctor")] < 0.6
+              and cos[("automobile", "storm")] < 0.6,
+              f"{name}: synonyms close, other words apart "
+              f"({', '.join(f'{a}~{b} {c:.3f}' for (a, b), c in cos.items())})")
+    margins = {}
+    for name, enc in encs.items():
+        S = np.array(enc.encode(ENC_PHRASE_Q)) @ np.array(
+            enc.encode(ENC_PHRASE_T)).T
+        n = len(ENC_PHRASE_Q)
+        check(bool((np.argmax(S, axis=1) == np.arange(n)).all()),
+              f"{name}: each phrase query ranks its paraphrase first")
+        margins[name] = float(np.mean(np.diag(S) - np.max(
+            S - np.eye(n) * 9.0, axis=1)))
+    check(margins["SemanticBase"] > margins["SemanticMini"] + 0.02
+          and margins["SemanticBase"] > 0.4,
+          f"phrase margins: SemanticBase {margins['SemanticBase']:.4f}, "
+          f"SemanticMini {margins['SemanticMini']:.4f}")
+
+
+def embed(svc, texts, intent, model="SemanticBase"):
+    """One calculate_embeddings call of short texts: (f32[n, D], host
+    ms)."""
+    out, ms = timed_ms(lambda: svc.calculate_embeddings(texts, intent, model))
+    if any(len(v) != 1 for v in out):
+        raise SmokeFailure("a query of 2-4 words gave other than one vector")
+    return np.stack([v[0] for v in out]), ms
+
+
+def ingest(svc, corpus, device, card):
+    """The corpus through calculate_embeddings(..., PASSAGE, SemanticBase)
+    in calls of ENC_CALL texts, as the write side batches; returns the
+    vectors and the launch counts of the run."""
+    import torch
+    from oramacore_tpu_torch.embeddings import Intent
+
+    def run():
+        vecs = []
+        for i in range(0, len(corpus), ENC_CALL):
+            out = svc.calculate_embeddings(corpus[i:i + ENC_CALL],
+                                           Intent.PASSAGE, "SemanticBase")
+            if any(len(v) != 1 for v in out):
+                raise SmokeFailure("a passage of <= 64 words gave several "
+                                   "chunks")
+            vecs += [v[0] for v in out]
+        return np.stack(vecs)
+
+    torch.cuda.reset_peak_memory_stats()
+    (vecs, secs), launches = counted(
+        "encoder ingest", lambda: timed_ms(run))
+    secs /= 1e3
+    n_calls = -(-len(corpus) // ENC_CALL)
+    print(f"  ingest: {len(corpus):,} passages in {n_calls} calls of "
+          f"{ENC_CALL}: {secs:.2f} s, {len(corpus) / secs:,.1f} passages/s; "
+          f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f}"
+          f" GiB [{card}]", flush=True)
+    return vecs, launches
+
+
+def phase_encoder(device, card):
+    """Phase 14: encoder_attention against its plain version and timed;
+    both bundled checkpoints loaded through safetensors_io and wordpiece;
+    the golden vectors; the ingest corpus through the service, held
+    against the plain f64 path; encode throughput; B=1 query latency;
+    flat, IVF and hybrid search with embedded queries, held against
+    numpy. Returns (timings, the ingest run's launch counts)."""
+    import copy
+
+    import torch
+
+    from oramacore_tpu_torch.benches.encoder_bench import (
+        passages,
+        vocab_words,
+    )
+    from oramacore_tpu_torch.embeddings import EmbeddingsService, Intent
+    from oramacore_tpu_torch.embeddings import encoder as em
+    from oramacore_tpu_torch.index.plan import plan_query
+    from oramacore_tpu_torch.index.search_exec import (
+        HybridSearchTopK,
+        host_bm25_reference,
+    )
+    from oramacore_tpu_torch.index.string_index import StringIndex
+    from oramacore_tpu_torch.index.vector_index import (
+        VectorIndex,
+        VectorIndexConfig,
+    )
+    from oramacore_tpu_torch.ops import attention as at
+
+    timings = attention_checks(device, card)
+
+    encs = {}
+    for name, sub in em.BUNDLED:
+        t0 = time.perf_counter()
+        enc = em.load_torch_encoder(os.path.join(ROOT, "models", sub), device)
+        sync(device)
+        check(enc is not None, f"{name}: models/{sub} loaded through "
+                               f"safetensors_io and wordpiece in "
+                               f"{time.perf_counter() - t0:.2f} s")
+        print(f"  {name}: {len(enc.model.layers)} layers, width {enc.dim}, "
+              f"{enc.n_heads} heads, max_len {enc.max_len}", flush=True)
+        encs[name] = enc
+    check(em.register_bundled_checkpoints(device) == [n for n, _ in em.BUNDLED],
+          "SemanticBase and SemanticMini bound lazily to the service")
+    base = encs["SemanticBase"]
+    n_layers = len(base.model.layers)
+
+    with np.load(os.path.join(ROOT, "oramacore_tpu_torch", "embeddings",
+                              "golden_semantic.npz")) as f:
+        gold = {k: f[k] for k in f.files}
+    for name, enc in encs.items():
+        got = np.stack(enc.encode(gold["texts"].tolist()))
+        err = float(np.abs(got - gold[name]).max())
+        check(got.shape == gold[name].shape and err <= ENC_ATOL,
+              f"{name}: {len(got)} golden texts within {ENC_ATOL} of the JAX "
+              f"encoder's vectors (max |d| {err:.3g})")
+    synonym_checks(encs)
+
+    words = vocab_words(os.path.join(ROOT, "models", "semantic-base",
+                                     "vocab.txt"))
+    t0 = time.perf_counter()
+    corpus = passages(words, ENC_PASSAGES, seed=ENC_SEED)
+    qtexts = passages(words, ENC_SEARCH_B * (1 + VEC_STEADY), seed=ENC_SEED + 1,
+                      n_words=(2, 4))
+    print(f"  corpus: {len(corpus):,} passages of 8-64 words ("
+          f"{sum(len(p.split()) for p in corpus):,} words; zipf over the "
+          f"{len(words)} words of the vocabulary, 5% made-up words), "
+          f"{len(qtexts)} queries of 2-4 words: {time.perf_counter() - t0:.1f} "
+          f"s of host time", flush=True)
+    svc = EmbeddingsService()
+    vecs, launches = ingest(svc, corpus, device, card)
+    n_calls = -(-len(corpus) // ENC_CALL)
+    check(launches["encoder_attention"] == n_calls * n_layers,
+          f"the ingest path launched encoder_attention "
+          f"{launches['encoder_attention']} times ({n_calls} calls x "
+          f"{n_layers} layers)")
+    norms = np.linalg.norm(vecs, axis=1)
+    check(vecs.shape == (len(corpus), base.dim) and np.isfinite(vecs).all()
+          and np.abs(norms - 1).max() < 1e-5,
+          f"{vecs.shape[0]:,} finite unit vectors of width {base.dim}")
+    batch = corpus[:ENC_CALL]
+    (ids, mask), tok_ms = timed_ms(lambda: base.tokenize(batch))
+    _, dev_ms = device_ms(lambda: base.forward(ids, mask))
+    _, wall_ms = timed_ms(lambda: svc.calculate_embeddings(
+        batch, Intent.PASSAGE, "SemanticBase"))
+    print(f"  one ingest call of {ENC_CALL} ({ids.shape[0]} x {ids.shape[1]} "
+          f"padded): tokenize {tok_ms:.2f} ms (host), forward {dev_ms:.3f} ms "
+          f"between CUDA events (the card also waits there for the host's "
+          f"launches), whole call {wall_ms:.2f} ms [{card}]", flush=True)
+    profile_once(f"one ingest call of {ENC_CALL}",
+                 lambda: svc.calculate_embeddings(batch, Intent.PASSAGE,
+                                                  "SemanticBase"), card)
+    ref_model = copy.deepcopy(base.model).double()
+    ref_model.attention = at.encoder_attention_plain
+    err = 0.0
+    with torch.inference_mode():
+        for i in range(0, ENC_CHECKED, ENC_CALL):
+            part = corpus[i:min(i + ENC_CALL, ENC_CHECKED)]
+            ids, mask = base.tokenize(part)
+            ref = ref_model(torch.from_numpy(ids).to(device),
+                            torch.from_numpy(mask).to(device))[:len(part)]
+            err = max(err, float(np.abs(
+                vecs[i:i + len(part)] - ref.cpu().numpy()).max()))
+    check(err <= ENC_ATOL, f"{ENC_CHECKED:,} ingested vectors within {ENC_ATOL} "
+                           f"of the plain path in f64 (max |d| {err:.3g})")
+    del ref_model
+
+    for name, enc in encs.items():
+        texts = corpus[-ENC_THROUGHPUT_B:]
+        enc.encode(texts)                      # one warm call
+        ids, mask = enc.tokenize(texts)
+        _, wall = timed_ms(lambda enc=enc: enc.encode(texts))
+        _, dev = device_ms(lambda enc=enc: enc.forward(ids, mask))
+        print(f"  {name} encode B={len(texts)} ({ids.shape[0]} x "
+              f"{ids.shape[1]}): {wall:.2f} ms, {len(texts) / wall * 1e3:,.1f} "
+              f"passages/s; forward {dev:.3f} ms between CUDA events "
+              f"[{card}]", flush=True)
+        profile_once(f"{name} encode B={len(texts)}",
+                     lambda enc=enc: enc.encode(texts), card)
+
+    tok, dev, wall = [], [], []
+    for q in qtexts[:ENC_QUERIES]:
+        (ids, mask), ms = timed_ms(lambda q=q: base.tokenize([q]))
+        tok.append(ms)
+        dev.append(device_ms(lambda: base.forward(ids, mask))[1])
+        wall.append(timed_ms(lambda q=q: svc.calculate_embeddings(
+            [q], Intent.QUERY, "SemanticBase"))[1])
+    print(f"  B=1 query embedding over {ENC_QUERIES} queries, ms: tokenize "
+          f"{spread(tok, 3)}; forward between CUDA events {spread(dev, 3)}; "
+          f"calculate_embeddings {spread(wall, 3)} [{card}]", flush=True)
+    _, qlaunch = counted("B=1 query embedding", lambda: svc.calculate_embeddings(
+        [qtexts[0]], Intent.QUERY, "SemanticBase"))
+    check(qlaunch["encoder_attention"] == n_layers,
+          f"a B=1 query embedding launched encoder_attention {n_layers} times")
+    profile_once("B=1 query embedding", lambda: svc.calculate_embeddings(
+        [qtexts[1]], Intent.QUERY, "SemanticBase"), card)
+
+    # search with embedded queries
+    t0 = time.perf_counter()
+    vidx = VectorIndex(VectorIndexConfig(dim=base.dim), device)
+    for d, v in enumerate(vecs):
+        vidx.insert(d, [v])
+    vidx.commit()
+    print(f"  {len(vecs):,} vectors inserted and committed: "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    qb, embed_ms = [], []
+    for j in range(1 + VEC_STEADY):
+        q, ms = embed(svc, qtexts[j * ENC_SEARCH_B:(j + 1) * ENC_SEARCH_B],
+                      Intent.QUERY)
+        qb.append(q)
+        embed_ms.append(ms)
+    sims = [-1.0] * ENC_SEARCH_B
+    flat_ref = phase_flat(vidx, bf16_round(vecs), qb, device, card)
+    flat_ms = timed_ms(lambda: vidx.search_many(qb[1], K, sims))[1]
+    one = qb[1][:ENC_SEARCH_B // 4]
+    flat_one = np.median([timed_ms(lambda q=q: vidx.search([q], K, -1.0))[1]
+                          for q in one])
+    flat_rows = vidx.flat_device_rows()
+    phase_ivf(vidx, vecs, qb, flat_ref, device, card,
+              recall_note="embedded passages")
+    ivf_ms = timed_ms(lambda: vidx.search_many(qb[1], K, sims))[1]
+    ivf_one = np.median([timed_ms(lambda q=q: vidx.search([q], K, -1.0))[1]
+                         for q in one])
+
+    t0 = time.perf_counter()
+    idx = StringIndex()
+    for d, p in enumerate(corpus):
+        idx.index_text(d, "body", [(w, [w]) for w in p.split()])
+    idx.commit()
+    n = len(corpus)
+    print(f"  StringIndex of the same passages: {time.perf_counter() - t0:.1f} "
+          f"s of host time", flush=True)
+    htexts = qtexts[:HYBRID_BATCH]
+    qv, hembed_ms = embed(svc, htexts, Intent.QUERY)
+    toks = [t.split() for t in htexts]
+    plans = [plan_query(idx, t, ["body"], {}) for t in toks]
+    ex = HybridSearchTopK(device)
+    nd = [float(n)] * HYBRID_BATCH
+    hsims = [ENC_HYBRID_SIM] * HYBRID_BATCH
+    runs, hl = counted("encoder hybrid", lambda: [timed_ms(
+        lambda: ex.search_topk_hybrid(idx, plans, nd, n, K, flat_rows, qv,
+                                      hsims)) for _ in range(3)])
+    check(hl["score_ranges_accumulate"] > 0,
+          "the hybrid path launched score_ranges_accumulate")
+    vb16 = bf16_round(vecs)
+    sims_ref = vb16 @ bf16_round(qv).T
+    refs = []
+    for b, t in enumerate(toks):
+        bm25 = dense_scores(host_bm25_reference(idx, t, ["body"], {},
+                                                float(n)), n)
+        s = sims_ref[:, b]
+        vec = np.where(s >= ENC_HYBRID_SIM, s, 0.0)
+        maybe = set(np.nonzero(np.abs(s - ENC_HYBRID_SIM) <= VEC_TIE)[0].tolist())
+        refs.append(fused_reference(bm25, vec, maybe))
+    report_check(hybrid_errors(runs[0][0], refs, "encoder hybrid"),
+                 f"hybrid top-{K} and match counts of {HYBRID_BATCH} embedded "
+                 f"queries equal the numpy fusion of the reference scorer and "
+                 f"bf16 products ({int(sum((sims_ref >= ENC_HYBRID_SIM).sum(0)))} "
+                 f"vector hits at similarity {ENC_HYBRID_SIM})")
+    hyb_ms = runs[-1][1]
+    print(f"  per query, embed ms beside search ms [{card}]:\n"
+          f"    flat B={ENC_SEARCH_B}: embed {embed_ms[1] / ENC_SEARCH_B:.3f} "
+          f"(a B={ENC_SEARCH_B} call), search_many {flat_ms / ENC_SEARCH_B:.3f}\n"
+          f"    IVF B={ENC_SEARCH_B}: embed {embed_ms[1] / ENC_SEARCH_B:.3f}, "
+          f"search_many {ivf_ms / ENC_SEARCH_B:.3f}\n"
+          f"    hybrid B={HYBRID_BATCH}: embed {hembed_ms / HYBRID_BATCH:.3f}, "
+          f"search_topk_hybrid {hyb_ms / HYBRID_BATCH:.3f}\n"
+          f"    B=1 query (medians): embed {np.median(wall):.3f}, search flat "
+          f"{flat_one:.3f}, IVF {ivf_one:.3f}", flush=True)
+    return timings, launches
+
+
 def sync(device):
     import torch
 
@@ -1957,6 +2374,16 @@ def main() -> int:
     timings.update(facet_timings)
     del ctx
     print(f"  phase 13: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    print("[14] the text encoder: SemanticBase and SemanticMini from passage "
+          f"text ({ENC_PASSAGES:,} passages) to vector and hybrid search",
+          flush=True)
+    t_phase = time.perf_counter()
+    enc_timings, path_launches["encoder"] = phase_encoder(device, card)
+    timings.update(enc_timings)
+    print(f"  phase 14: {time.perf_counter() - t_phase:.1f} s", flush=True)
 
     kernels = {"kernels": [{
         "name": k["name"],

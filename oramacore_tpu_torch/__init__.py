@@ -1,7 +1,8 @@
 """oramacore_tpu_torch — the PyTorch / CUDA port of oramacore_tpu.
 
-This package runs the full-text (BM25F), vector and hybrid search paths
-on an NVIDIA Hopper card. It mirrors the layout of `oramacore_tpu` (so
+This package runs the full-text (BM25F), vector and hybrid search paths,
+and the text encoder that embeds passages and queries for them
+(`embeddings/`), on an NVIDIA Hopper card. It mirrors the layout of `oramacore_tpu` (so
 `oramacore_tpu_torch/ops/bm25.py` is the counterpart of
 `oramacore_tpu/ops/bm25.py`) and is held against that package in the
 tests: the same numpy inputs go through the JAX function and its port.

@@ -1,0 +1,157 @@
+"""Encoder self-attention: the wrapper of `csrc/encoder_attention.cu`.
+
+The port of the attention inside the jitted JAX function
+`oramacore_tpu/embeddings/flax_encoder.py::bert_forward` (`:97-105`;
+JAX jits it, there is no pallas_call):
+
+    q, k, v = (B, L, H, hd) views of the fused projection
+    att = softmax(einsum("bqhd,bkhd->bhqk", q, k) / sqrt(hd) + neg)
+    ctx = einsum("bhqk,bkhd->bqhd", att, v).reshape(B, L, D)
+
+with `neg` 0 where `mask[b, j] > 0` and -1e9 elsewhere.
+`encoder_attention(qkv, mask, n_heads)` takes the projection output
+`qkv` f32[B, L, 3D] (Q, K, V side by side, head h at columns h * hd of
+each) and the key mask int32[B, L], and returns ctx f32[B, L, D].
+`encoder_attention_plain` is the same math step by step in PyTorch, in
+the dtype it is given (the card's check runs it in f64).
+
+- Supported: 1 <= L <= 512 and head width hd in {32, 64}, which cover
+  every model of the registry; anything else raises ValueError, on every
+  device. Nothing gives way to the plain version on the card.
+- A batch row whose mask is all zero (the padding rows of a power-of-two
+  batch) gets the mean of V in every query row, as in JAX: -1e9 is added
+  to every score, and at 1e9 the f32 ulp is 64, so all its scores round
+  to one value while they stay within ±32. A boolean mask in
+  `scaled_dot_product_attention` gives NaN there instead.
+
+A CPU tensor runs the plain version. A CUDA tensor launches the kernel or
+raises; it never falls back.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from . import _build
+from .score_windows import _device_of, _raise_on
+
+MAX_LEN = 512
+HEAD_DIMS = (32, 64)
+MASKED = -1e9
+
+# Kernel launches, counted only where the kernel is enqueued (never for
+# the plain version). Reset with reset_launch_counts.
+LAUNCHES = {"encoder_attention": 0}
+
+# rows a block of the kernel's 128 threads covers is 128 / S; S lanes
+# share a query row and split its keys
+_THREADS = 128
+_SPLITS = (1, 2, 4, 8)
+# threads worth launching before rows are split further: 1,024 a
+# streaming multiprocessor on the H100's 132
+_TARGET_THREADS = 132 * 1024
+
+_lib = None
+
+
+def reset_launch_counts() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def load_kernels() -> ctypes.CDLL:
+    """Build (first call) and bind the CUDA library."""
+    global _lib
+    if _lib is None:
+        lib = _build.load("encoder_attention")
+        ptr, i64 = ctypes.c_void_p, ctypes.c_int64
+        lib.encoder_attention_launch.argtypes = [
+            ptr, ptr, ptr, i64, i64, i64, i64, i64, ctypes.c_float, ptr]
+        lib.encoder_attention_launch.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def check_shapes(qkv: torch.Tensor, mask: torch.Tensor,
+                 n_heads: int) -> tuple:
+    """(B, L, D, hd) of a supported call; ValueError otherwise."""
+    if qkv.dim() != 3 or qkv.shape[2] % 3:
+        raise ValueError(f"qkv must be (B, L, 3D), got {tuple(qkv.shape)}")
+    B, L, D3 = qkv.shape
+    D = D3 // 3
+    if n_heads <= 0 or D % n_heads:
+        raise ValueError(f"width {D} is not a multiple of {n_heads} heads")
+    hd = D // n_heads
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"head width {hd} is not one of {HEAD_DIMS}")
+    if not 1 <= L <= MAX_LEN:
+        raise ValueError(f"sequence length {L} is outside [1, {MAX_LEN}]")
+    if tuple(mask.shape) != (B, L):
+        raise ValueError(f"mask must be ({B}, {L}), got {tuple(mask.shape)}")
+    return B, L, D, hd
+
+
+def split_for(B: int, n_heads: int, L: int) -> int:
+    """Lanes S that share a query row in the kernel: enough to keep a
+    block's 128 / S rows within L rounded up to 16, and to launch
+    `_TARGET_THREADS` threads where the batch allows; at most 8."""
+    span = max(16, -(-L // 16) * 16)
+    fits = [S for S in _SPLITS if _THREADS // S <= span]   # 8 always fits
+    for S in fits:
+        if B * n_heads * L * S >= _TARGET_THREADS:
+            return S
+    return fits[-1]
+
+
+def attention_work(B: int, L: int, n_heads: int, hd: int) -> tuple:
+    """(bytes, FLOPs) one call needs: Q, K, V read once and ctx written
+    once (4 B each) plus the int32 mask; 2 * L * hd FLOPs for the scores
+    and as many for the weighted sum, per (b, h, query row)."""
+    D = n_heads * hd
+    return 4 * B * L * D * 4 + B * L * 4, 4 * B * n_heads * L * L * hd
+
+
+def encoder_attention_plain(qkv: torch.Tensor, mask: torch.Tensor,
+                            n_heads: int) -> torch.Tensor:
+    """Plain PyTorch version: the JAX code step by step, in qkv's dtype."""
+    B, L, D, hd = check_shapes(qkv, mask, n_heads)
+    q, k, v = (t.reshape(B, L, n_heads, hd) for t in qkv.split(D, dim=-1))
+    # a 0-d tensor divisor divides (a Python scalar would multiply by the
+    # reciprocal on the card); f32(sqrt(hd)) as JAX rounds np.sqrt(hd)
+    div = torch.tensor(np.sqrt(hd), dtype=qkv.dtype, device=qkv.device)
+    att = torch.einsum("bqhd,bkhd->bhqk", q, k) / div
+    zero = torch.zeros((), dtype=qkv.dtype, device=qkv.device)
+    neg = torch.where(mask[:, None, None, :] > 0, zero, zero + MASKED)
+    att = torch.softmax(att + neg, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", att, v).reshape(B, L, D)
+
+
+def encoder_attention(qkv: torch.Tensor, mask: torch.Tensor,
+                      n_heads: int) -> torch.Tensor:
+    """ctx f32[B, L, D] of the attention; see the module doc."""
+    B, L, D, hd = check_shapes(qkv, mask, n_heads)
+    dev = _device_of((qkv, mask))
+    if dev.type == "cpu":
+        return encoder_attention_plain(qkv, mask, n_heads)
+    if qkv.dtype != torch.float32:
+        raise TypeError(f"qkv: expected torch.float32, got {qkv.dtype}")
+    if mask.dtype != torch.int32:
+        raise TypeError(f"mask: expected torch.int32, got {mask.dtype}")
+    if not (qkv.is_contiguous() and mask.is_contiguous()):
+        raise ValueError("qkv and mask must be contiguous")
+    if qkv.data_ptr() % 16:
+        raise ValueError("qkv must start on a 16-byte boundary")
+    lib = load_kernels()
+    ctx = torch.empty((B, L, D), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.encoder_attention_launch(
+            qkv.data_ptr(), mask.data_ptr(), ctx.data_ptr(), B, L, n_heads,
+            hd, split_for(B, n_heads, L), float(np.float32(np.sqrt(hd))),
+            stream)
+    _raise_on(err, "encoder_attention")
+    LAUNCHES["encoder_attention"] += 1
+    return ctx

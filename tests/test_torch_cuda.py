@@ -1068,3 +1068,59 @@ def test_pruned_facets_and_hybrid_on_the_card_equal_the_cpu(cuda, monkeypatch):
         _near_tie_ok(gv, gi, cv, ci)
         np.testing.assert_array_equal(gc, cc)
         assert np.isfinite(cv[:, 0]).all()
+
+
+def _attention_case(cuda, label, seed):
+    from oramacore_tpu_torch.benches.encoder_bench import (
+        ATTENTION_CASES,
+        attention_inputs,
+    )
+
+    case = ATTENTION_CASES[label]
+    qkv, mask = attention_inputs(case, seed, cuda)
+    return case, qkv, mask
+
+
+@pytest.mark.parametrize("label", [
+    "SemanticBase B=1024 L=64", "SemanticBase B=1024 L=16",
+    "SemanticMini B=1024 L=64", "BGEBase B=8 L=128", "BGEBase B=8 L=512",
+    "SemanticBase B=128 L=32, 28 padded rows", "SemanticBase B=1 L=16",
+    "SemanticBase B=2 L=1, 1 padded row", "BGEBase B=4 L=77, 1 padded row"])
+def test_encoder_attention_kernel(cuda, label):
+    """The kernel (f32) against its plain version in f64 on the same
+    inputs (`attention_reference`: rows whose keys are all masked take the
+    mean of V, as the f32 math gives): within 1e-5 (f32 sums of up to 512
+    terms and an online softmax against exact f64)."""
+    from oramacore_tpu_torch.benches.encoder_bench import attention_reference
+    from oramacore_tpu_torch.ops import attention as at
+
+    case, qkv, mask = _attention_case(cuda, label, 40)
+    before = at.LAUNCHES["encoder_attention"]
+    got = at.encoder_attention(qkv, mask, case["H"])
+    torch.cuda.synchronize()
+    assert at.LAUNCHES["encoder_attention"] == before + 1
+    assert got.dtype == torch.float32 and torch.isfinite(got).all()
+    ref = attention_reference(qkv, mask, case["H"])
+    torch.testing.assert_close(got.double(), ref, rtol=1e-5, atol=1e-5)
+    # the plain version in f32 on the card agrees too, padded rows included
+    plain = at.encoder_attention_plain(qkv, mask, case["H"])
+    torch.testing.assert_close(got, plain, rtol=1e-5, atol=1e-5)
+
+
+def test_encoder_attention_refuses_what_it_cannot_run(cuda):
+    from oramacore_tpu_torch.ops import attention as at
+
+    qkv = torch.zeros((2, 16, 3 * 256), device=cuda)
+    mask = torch.ones((2, 16), dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError):
+        at.encoder_attention(qkv.double(), mask, 8)
+    with pytest.raises(TypeError):
+        at.encoder_attention(qkv, mask.long(), 8)
+    with pytest.raises(ValueError):
+        at.encoder_attention(qkv, mask, 16)          # hd 16
+    with pytest.raises(ValueError):
+        at.encoder_attention(qkv[:, :, 1:-2], mask, 8)
+    with pytest.raises(ValueError):
+        at.encoder_attention(torch.zeros((1, 513, 3 * 256), device=cuda),
+                             torch.ones((1, 513), dtype=torch.int32,
+                                        device=cuda), 8)
