@@ -60,8 +60,9 @@ launch counts set to 0 just before it and read just after:
   checkpoints, `models/semantic-base` and `models/semantic-mini`, loaded
   by hand (safetensors reader, WordPiece tokenizer): its attention
   kernel, `encoder_attention`, against its plain version in f64 at the
-  encoder's shapes, BGEBase's geometry and the edge cases (timed beside
-  `scaled_dot_product_attention`); the golden vectors of the JAX encoder;
+  encoder's shapes, BGEBase's and BGESmall's geometry and the edge cases
+  (timed beside `scaled_dot_product_attention`); the golden vectors of
+  the JAX encoder;
   65,536 seeded passages through `EmbeddingsService.calculate_embeddings`
   (`SemanticBase`, calls of 100 as the write side batches), 1,024 of them
   held against the plain path in f64; B=1024 encode throughput of each
@@ -1862,37 +1863,35 @@ def phase_facets_hybrid(ctx, device, card):
 
 def sdpa_ms(qkv, mask, H, reps):
     """The library yardstick: one F.scaled_dot_product_attention call on
-    the same inputs (Q, K, V as (B, H, L, hd) views of qkv, an additive
-    f32 mask of 0 / -1e9), CUDA-graph replays; and its output as the
-    kernel's (B, L, D), for its error."""
-    import torch
-    import torch.nn.functional as F
-
+    the same inputs (`attention_bench.sdpa`: Q, K, V as (B, H, L, hd)
+    views of qkv, an additive f32 mask of 0 / -1e9), CUDA-graph replays;
+    and its output as the kernel's (B, L, D), for its error."""
     from oramacore_tpu_torch.benches import time_graph
+    from oramacore_tpu_torch.benches.attention_bench import sdpa
 
     B, L, D3 = qkv.shape
-    D = D3 // 3
-    q, k, v = (t.view(B, L, H, D // H).transpose(1, 2)
-               for t in qkv.split(D, dim=-1))
-    bias = torch.where(mask > 0, 0.0, -1e9).float()[:, None, None, :]
-
-    def call():
-        return F.scaled_dot_product_attention(q, k, v, attn_mask=bias)
-
-    ms = time_graph(call, reps)
-    return ms, call().transpose(1, 2).reshape(B, L, D)
+    ms = time_graph(lambda: sdpa(qkv, mask, H), reps)
+    return ms, sdpa(qkv, mask, H).transpose(1, 2).reshape(B, L, D3 // 3)
 
 
 def attention_checks(device, card):
     """encoder_attention against its plain version in f64 at every case of
     benches/encoder_bench.py (the shapes phase 14's encoder gives it,
-    BGEBase's geometry, padded batch rows, L=1), each timed as CUDA-graph
-    replays, warm and L2-cold, beside its bound, the plain version and
-    scaled_dot_product_attention on the same inputs. The kernels line
-    takes the first case, SemanticBase at B=1024, L=64."""
+    BGEBase's and BGESmall's geometry, padded batch rows, L=1), each timed
+    as CUDA-graph replays, warm and L2-cold, beside its bound (bytes
+    against FLOPs at the 3xTF32 tensor-core rate; the FFMA-rate bound in
+    brackets), the plain version and scaled_dot_product_attention on the
+    same inputs (its time and max abs error). The kernels line takes the
+    first case, SemanticBase at B=1024, L=64."""
     import torch
 
-    from oramacore_tpu_torch.benches import bound_ms, time_cuda, time_graph
+    from oramacore_tpu_torch.benches import (
+        H100_F32_OPS_PER_S,
+        H100_TF32X3_OPS_PER_S,
+        bound_ms,
+        time_cuda,
+        time_graph,
+    )
     from oramacore_tpu_torch.benches.encoder_bench import (
         ATTENTION_CASES,
         attention_inputs,
@@ -1911,13 +1910,15 @@ def attention_checks(device, card):
         sync(device)
         err = float((got.double() - ref).abs().max())
         errs.append(err)
+        tiles = at.tiles_for(B, H, L, hd)
         check(bool(torch.isfinite(got).all()) and torch.allclose(
             got.double(), ref, rtol=ATTN_TOL, atol=ATTN_TOL),
-            f"encoder_attention [{label}, S={at.split_for(B, H, L)}]: within "
-            f"rtol/atol {ATTN_TOL} of its plain version in f64 (max abs err "
-            f"{err:.3g})")
+            f"encoder_attention [{label}, {tiles.warps} warps a (b, h), key "
+            f"tile {tiles.key_tile}, {tiles.grid} blocks]: within rtol/atol "
+            f"{ATTN_TOL} of its plain version in f64 (max abs err {err:.3g})")
         n_bytes, n_ops = at.attention_work(B, L, H, hd)
-        bound, by = bound_ms(n_bytes, n_ops)
+        bound, by = bound_ms(n_bytes, n_ops, H100_TF32X3_OPS_PER_S)
+        ffma, ffma_by = bound_ms(n_bytes, n_ops, H100_F32_OPS_PER_S)
         warm = time_graph(lambda: at.encoder_attention(qkv, mask, H), 20)
         cold = time_cold(lambda: at.encoder_attention(qkv, mask, H), flush,
                          10)
@@ -1930,7 +1931,8 @@ def attention_checks(device, card):
               f"scaled_dot_product_attention (additive f32 mask) "
               f"{lib_ms:.4f} ms (max abs err {lib_err:.3g}); bound "
               f"{bound:.4f} ms ({by}: {n_bytes / 1e6:.1f} MB, "
-              f"{n_ops / 1e9:.2f} GFLOP) [{card}]", flush=True)
+              f"{n_ops / 1e9:.2f} GFLOP at the 3xTF32 rate) [FFMA rate: "
+              f"{ffma:.4f} ms, {ffma_by}] [{card}]", flush=True)
         share(f"encoder_attention [{label}], L2-cold", cold, bound, by, card)
         if i == 0:
             out["encoder_attention"] = dict(

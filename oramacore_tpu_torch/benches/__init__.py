@@ -8,10 +8,12 @@ import subprocess
 import torch
 
 # Published peaks of one NVIDIA H100 SXM at its 700 W limit (NVIDIA's data
-# sheet): device-memory bandwidth, and f32 operations outside the tensor
-# cores.
+# sheet): device-memory bandwidth, f32 operations outside the tensor
+# cores, and f32 products on the tensor cores as 3xTF32 (three tf32
+# products for each f32 one, at the dense TF32 rate of 495 TFLOP/s).
 H100_BYTES_PER_S = 3.35e12
 H100_F32_OPS_PER_S = 67e12
+H100_TF32X3_OPS_PER_S = 495e12 / 3
 
 
 def bound_ms(n_bytes: float, n_ops: float,

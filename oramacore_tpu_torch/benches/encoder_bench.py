@@ -5,8 +5,10 @@ cases and the ingest corpus of `chip_smoke.py` phase 14.
   with the bundled checkpoints (SemanticBase: H=8, hd=32; SemanticMini:
   H=4, hd=32; at B=1024, the largest `encode` batch phase 14 runs, and at
   the query buckets), BGEBase's geometry (H=12, hd=64, L up to 512, whose
-  checkpoint is not in the repository) and the edge cases: batch rows
-  whose mask is all zero (a power-of-two batch's padding) and L=1.
+  checkpoint is not in the repository), BGESmall's (H=12, hd=32 at
+  L=512, the registry's head width 32 at full length) and the edge
+  cases: batch rows whose mask is all zero (a power-of-two batch's
+  padding) and L=1.
 - `attention_inputs`: seeded f32 qkv and an int32 key mask for a case;
   every row attends a prefix of its keys, of a length drawn in [1, L],
   and the case's last `padded` rows attend nothing.
@@ -32,6 +34,7 @@ ATTENTION_CASES = {
     "SemanticBase B=2 L=1, 1 padded row": dict(B=2, L=1, H=8, hd=32,
                                                padded=1),
     "BGEBase B=4 L=77, 1 padded row": dict(B=4, L=77, H=12, hd=64, padded=1),
+    "BGESmall B=8 L=512": dict(B=8, L=512, H=12, hd=32, padded=0),
 }
 
 

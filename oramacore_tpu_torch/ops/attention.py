@@ -24,6 +24,11 @@ the dtype it is given (the card's check runs it in f64).
   to one value while they stay within ±32. A boolean mask in
   `scaled_dot_product_attention` gives NaN there instead.
 
+The kernel runs both products on the tensor cores in 3xTF32 (each f32
+operand split into two tf32 parts, three products summed in f32), which
+keeps f32 accuracy; a single tf32 pass is never used. `tiles_for` is its
+tiling, chosen here so the CPU tests reach it.
+
 A CPU tensor runs the plain version. A CUDA tensor launches the kernel or
 raises; it never falls back.
 """
@@ -31,6 +36,7 @@ raises; it never falls back.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -46,13 +52,64 @@ MASKED = -1e9
 # the plain version). Reset with reset_launch_counts.
 LAUNCHES = {"encoder_attention": 0}
 
-# rows a block of the kernel's 128 threads covers is 128 / S; S lanes
-# share a query row and split its keys
-_THREADS = 128
-_SPLITS = (1, 2, 4, 8)
-# threads worth launching before rows are split further: 1,024 a
-# streaming multiprocessor on the H100's 132
-_TARGET_THREADS = 132 * 1024
+# the kernel's tiling (csrc/encoder_attention.cu): a block of 4 warps, 16
+# query rows a warp; per (b, h) a ring of at most 2 raw stages of K, V and
+# the mask as cp.async lands them, and one split stage (K rows of 2 hd + 16
+# floats, V key-pair rows of 4 hd + 8, a bias a key)
+_WARPS = 4
+_THREADS = 32 * _WARPS
+_SMEM_PER_SM = 227 * 1024           # shared memory a block may use on the H100
+_REGS_PER_SM = 65_536
+# blocks an SM the launch bound asks ptxas to fit (168 registers a thread)
+_MIN_BLOCKS = 3
+# key tile of 64 query rows a block (W = 4), by head width: at hd 64 the
+# split stage of 64 keys would leave room for one block an SM
+_LONG_KEY_TILE = {32: 64, 64: 32}
+
+
+class Tiles(NamedTuple):
+    """How the kernel tiles one call (see `tiles_for`)."""
+    warps: int       # warps sharing one (b, h), 16 query rows each
+    key_tile: int    # keys a shared-memory stage holds
+    pairs: int       # (b, h) pairs a block serves: 4 // warps
+    q_tiles: int     # blocks along the query rows of one (b, h)
+    stages: int      # cp.async ring depth: 2, or 1 where one tile covers L
+    grid: int        # blocks launched
+    smem: int        # dynamic shared-memory bytes a block
+    max_regs: int    # registers a thread may hold (the launch bound)
+    blocks_per_sm: int   # resident blocks an SM, by registers and smem
+
+    @property
+    def rows(self) -> int:
+        """Query rows of one (b, h) a block covers."""
+        return 16 * self.warps
+
+
+def tiles_for(B: int, n_heads: int, L: int, hd: int) -> Tiles:
+    """The kernel's tiling of a call: W warps a (b, h) and key tiles of KT
+    = 16 W keys up to L = 32 (so a short sequence neither computes nor
+    stages rows and keys it lacks, and a block serves 4 / W pairs), then
+    W = 4 (64 query rows) with KT = 64 at hd 32 and 32 at hd 64, and a
+    two-stage ring, so tile t + 1 is copied while tile t is computed."""
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"head width {hd} is not one of {HEAD_DIMS}")
+    if not 1 <= L <= MAX_LEN:
+        raise ValueError(f"sequence length {L} is outside [1, {MAX_LEN}]")
+    W = 1 if L <= 16 else 2 if L <= 32 else 4
+    KT = _LONG_KEY_TILE[hd] if W == 4 else 16 * W
+    pairs = _WARPS // W
+    q_tiles = -(-L // (16 * W))
+    stages = min(2, -(-L // KT))
+    grid = -(-(B * n_heads) // pairs) * q_tiles
+    raw = 2 * KT * hd + KT
+    split = KT * (2 * hd + 16) + KT // 2 * (4 * hd + 8) + KT
+    smem = pairs * (stages * raw + split) * 4
+    # ptxas gives whole 8-register steps a thread
+    max_regs = min(255, _REGS_PER_SM // (_THREADS * _MIN_BLOCKS) // 8 * 8)
+    per_sm = min(_REGS_PER_SM // (_THREADS * max_regs),
+                 _SMEM_PER_SM // smem, 2048 // _THREADS)
+    return Tiles(W, KT, pairs, q_tiles, stages, grid, smem, max_regs, per_sm)
+
 
 _lib = None
 
@@ -69,7 +126,8 @@ def load_kernels() -> ctypes.CDLL:
         lib = _build.load("encoder_attention")
         ptr, i64 = ctypes.c_void_p, ctypes.c_int64
         lib.encoder_attention_launch.argtypes = [
-            ptr, ptr, ptr, i64, i64, i64, i64, i64, ctypes.c_float, ptr]
+            ptr, ptr, ptr, i64, i64, i64, i64, i64, i64, i64, ctypes.c_float,
+            i64, ptr]
         lib.encoder_attention_launch.restype = ctypes.c_int
         _lib = lib
     return _lib
@@ -92,18 +150,6 @@ def check_shapes(qkv: torch.Tensor, mask: torch.Tensor,
     if tuple(mask.shape) != (B, L):
         raise ValueError(f"mask must be ({B}, {L}), got {tuple(mask.shape)}")
     return B, L, D, hd
-
-
-def split_for(B: int, n_heads: int, L: int) -> int:
-    """Lanes S that share a query row in the kernel: enough to keep a
-    block's 128 / S rows within L rounded up to 16, and to launch
-    `_TARGET_THREADS` threads where the batch allows; at most 8."""
-    span = max(16, -(-L // 16) * 16)
-    fits = [S for S in _SPLITS if _THREADS // S <= span]   # 8 always fits
-    for S in fits:
-        if B * n_heads * L * S >= _TARGET_THREADS:
-            return S
-    return fits[-1]
 
 
 def attention_work(B: int, L: int, n_heads: int, hd: int) -> tuple:
@@ -136,6 +182,19 @@ def encoder_attention(qkv: torch.Tensor, mask: torch.Tensor,
     dev = _device_of((qkv, mask))
     if dev.type == "cpu":
         return encoder_attention_plain(qkv, mask, n_heads)
+    return launch(qkv, mask, n_heads)
+
+
+def launch(qkv: torch.Tensor, mask: torch.Tensor, n_heads: int,
+           mode: int = 0) -> torch.Tensor:
+    """One launch of the kernel on CUDA tensors. mode 0 is the attention;
+    1 (the bytes only: Q, K, V in, ctx out, no math), 2 (the math only:
+    nothing read from device memory) and 3 (the mma.sync sequence only)
+    are the bench's limit cases, whose output is no attention."""
+    B, L, D, hd = check_shapes(qkv, mask, n_heads)
+    dev = _device_of((qkv, mask))
+    if dev.type != "cuda":
+        raise ValueError(f"the kernel runs on a CUDA device, not {dev}")
     if qkv.dtype != torch.float32:
         raise TypeError(f"qkv: expected torch.float32, got {qkv.dtype}")
     if mask.dtype != torch.int32:
@@ -145,13 +204,14 @@ def encoder_attention(qkv: torch.Tensor, mask: torch.Tensor,
     if qkv.data_ptr() % 16:
         raise ValueError("qkv must start on a 16-byte boundary")
     lib = load_kernels()
+    tiles = tiles_for(B, n_heads, L, hd)
     ctx = torch.empty((B, L, D), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.encoder_attention_launch(
             qkv.data_ptr(), mask.data_ptr(), ctx.data_ptr(), B, L, n_heads,
-            hd, split_for(B, n_heads, L), float(np.float32(np.sqrt(hd))),
-            stream)
+            hd, tiles.warps, tiles.key_tile, tiles.stages,
+            float(np.float32(np.sqrt(hd))), mode, stream)
     _raise_on(err, "encoder_attention")
     LAUNCHES["encoder_attention"] += 1
     return ctx

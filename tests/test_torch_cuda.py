@@ -1085,7 +1085,8 @@ def _attention_case(cuda, label, seed):
     "SemanticBase B=1024 L=64", "SemanticBase B=1024 L=16",
     "SemanticMini B=1024 L=64", "BGEBase B=8 L=128", "BGEBase B=8 L=512",
     "SemanticBase B=128 L=32, 28 padded rows", "SemanticBase B=1 L=16",
-    "SemanticBase B=2 L=1, 1 padded row", "BGEBase B=4 L=77, 1 padded row"])
+    "SemanticBase B=2 L=1, 1 padded row", "BGEBase B=4 L=77, 1 padded row",
+    "BGESmall B=8 L=512"])
 def test_encoder_attention_kernel(cuda, label):
     """The kernel (f32) against its plain version in f64 on the same
     inputs (`attention_reference`: rows whose keys are all masked take the

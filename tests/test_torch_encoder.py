@@ -32,6 +32,7 @@ from oramacore_tpu.embeddings.flax_encoder import (
 )
 from oramacore_tpu.ops.bm25 import round_up_pow2 as jax_round_up_pow2
 from oramacore_tpu_torch.embeddings import encoder as tenc
+from oramacore_tpu_torch.benches import H100_TF32X3_OPS_PER_S, bound_ms
 from oramacore_tpu_torch.ops import attention as at
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -133,18 +134,59 @@ def test_attention_refuses_unsupported_shapes(shape, mask_shape, H):
         at.encoder_attention_plain(qkv, mask, H)
 
 
-@pytest.mark.parametrize("B,H,L,S", [
-    (1024, 8, 64, 2), (1024, 8, 16, 8), (1024, 4, 64, 2), (8, 12, 512, 4),
-    (8, 12, 128, 8), (1, 8, 16, 8), (2, 8, 1, 8), (2048, 12, 512, 1)])
-def test_attention_split_policy(B, H, L, S):
-    assert at.split_for(B, H, L) == S
-    assert 128 // S <= max(16, -(-L // 16) * 16)
+def test_attention_launch_refuses_cpu_tensors():
+    """The kernel's launcher never runs the plain version: CPU tensors
+    raise (the wrapper takes the plain version before it)."""
+    qkv = torch.zeros((2, 16, 3 * 256))
+    mask = torch.ones((2, 16), dtype=torch.int32)
+    with pytest.raises(ValueError):
+        at.launch(qkv, mask, 8)
+
+
+@pytest.mark.parametrize("B,H,L,hd,W,KT,stages,grid,smem", [
+    # the points of the kernel's cases: bundled checkpoints at B=1024,
+    # BGEBase at L=512 and 128, the B=1 query, L=1, a long batch, BGESmall,
+    # a ragged L=77 and a 32-token batch
+    (1024, 8, 64, 32, 4, 64, 1, 8192, 54784),
+    (1024, 8, 16, 32, 1, 16, 1, 2048, 54784),
+    (1024, 4, 64, 32, 4, 64, 1, 4096, 54784),
+    (8, 12, 512, 64, 4, 32, 2, 768, 68480),
+    (8, 12, 128, 64, 4, 32, 2, 192, 68480),
+    (1, 8, 16, 32, 1, 16, 1, 2, 54784),
+    (2, 8, 1, 32, 1, 16, 1, 4, 54784),
+    (2048, 12, 512, 64, 4, 32, 2, 196608, 68480),
+    (8, 12, 512, 32, 4, 64, 2, 768, 71424),
+    (4, 12, 77, 64, 4, 32, 2, 96, 68480),
+    (128, 8, 32, 32, 2, 32, 1, 512, 54784)])
+def test_attention_tile_policy(B, H, L, hd, W, KT, stages, grid, smem):
+    """tiles_for: warps a (b, h), key tile, ring depth, grid and dynamic
+    shared memory, and the budgets the kernel's launch bound assumes (168
+    registers a thread, 3 blocks of 128 threads an SM)."""
+    t = at.tiles_for(B, H, L, hd)
+    assert (t.warps, t.key_tile, t.stages, t.grid, t.smem) == (
+        W, KT, stages, grid, smem)
+    assert t.pairs * t.warps == 4 and t.rows == 16 * W
+    assert t.q_tiles * t.rows >= L > (t.q_tiles - 1) * t.rows
+    assert t.stages == 1 or L > KT            # a second stage only to fill
+    assert t.max_regs == 168 and t.blocks_per_sm == 3
+    assert 3 * t.smem <= 227 * 1024
 
 
 def test_attention_work():
     # the bound's terms at SemanticBase B=1024, L=64 and BGEBase B=8, L=512
     assert at.attention_work(1024, 64, 8, 32) == (268_697_600, 4_294_967_296)
     assert at.attention_work(8, 512, 12, 64)[1] == 6_442_450_944
+    # the bound at the 3xTF32 tensor-core rate (495 / 3 TFLOP/s): BGEBase
+    # L=512 falls from 0.0962 ms (FFMA rate) to 0.039 ms; SemanticBase
+    # stays bound by its bytes
+    assert H100_TF32X3_OPS_PER_S == 165e12
+    ms, by = bound_ms(*at.attention_work(8, 512, 12, 64),
+                      H100_TF32X3_OPS_PER_S)
+    assert by == "operations" and abs(ms - 0.039045) < 1e-5
+    assert abs(bound_ms(*at.attention_work(8, 512, 12, 64))[0] - 0.09616) < 1e-4
+    ms, by = bound_ms(*at.attention_work(1024, 64, 8, 32),
+                      H100_TF32X3_OPS_PER_S)
+    assert by == "bytes" and abs(ms - 0.080208) < 1e-5
 
 
 # ---------------------------------------------------------------------------
