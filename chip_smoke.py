@@ -68,7 +68,22 @@ launch counts set to 0 just before it and read just after:
   held against the plain path in f64; B=1024 encode throughput of each
   model; B=1 query latency; then flat, IVF and hybrid search
   (`HybridSearchTopK.search_topk_hybrid` over a `StringIndex` of the same
-  passages) with embedded query texts.
+  passages, indexed through the text parser's packed tokens) with
+  embedded query texts;
+- the ingest text pipeline on 262,144 seeded JSON documents of the
+  reference's games-bench shape (`oramacore_tpu_torch/benches/
+  ingest_bench.py`): the native tokenizer, live accumulator and hash
+  encoder against their Python routes on 16,384 of them (timed, held
+  equal), then every document through `flatten_document`, `build_doc_op`
+  and `StringIndex.index_text_packed`, and through the `EmbeddingQueue`
+  into a `VectorIndex`; the shared BM25 batch (B=256) of query strings
+  planned by `query_tokens`, its `score_ranges_accumulate` launches
+  against the plain version, flat and IVF search (B=64) and the fused
+  hybrid (B=8).
+
+Each `torch.profiler` reading is held to the wrappers' launch counts of
+the same call (`profile_once`): a profile that misses a launch gives no
+device time.
 
 Search results are held against numpy references: the BM25 reference
 scorer, bf16-rounded vector products summed in f32, a numpy copy of the
@@ -165,6 +180,19 @@ ENC_PHRASE_Q = ["buy car", "fast boat trip", "doctor visit",
                 "cold storm night"]
 ENC_PHRASE_T = ["automobile purchase", "rapid vessel voyage",
                 "physician appointment", "icy tempest evening"]
+
+# phase 15: the ingest text pipeline, from JSON documents to search
+# (oramacore_tpu_torch/benches/ingest_bench.py)
+INGEST_DOCS = 262_144     # documents of the games bench's shape
+INGEST_SEED = 15
+INGEST_VOCAB = 50_000     # English-like words, stems x suffixes
+INGEST_COMPARE = 16_384   # documents timed on the native and Python routes
+INGEST_PARITY = 4_096     # ASCII documents / texts held route against route
+INGEST_INSERT = 1_024     # documents an insert batch
+INGEST_QUERIES = 256      # query strings of 1-4 words (the BM25 batch)
+INGEST_VEC_B = 64         # embedded queries a flat / IVF batch
+INGEST_HYBRID_SIM = 0.2   # the hybrid's vector similarity threshold
+N_INGEST_CHECKED = 16     # BM25 queries held against the reference scorer
 
 # Every ported kernel entry point: its wrapper module, the CUDA source, the
 # TPU kernel (or, with jitted=True, the jitted JAX function) it replaces,
@@ -756,25 +784,94 @@ def vector_corpus(n, dim, n_batches, batch, seed=0):
     return vecs, batches
 
 
-def profile_once(label, fn, card):
-    """One call under torch.profiler: wall time, device kernel time, idle
-    share and the largest kernels."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+# the device function each counted entry point launches once a call
+# (rescore_worklist: its tail kernel, which runs even when no tile does)
+KERNEL_FUNCTIONS = {
+    "score_windows": "score_windows_kernel",
+    "score_ranges_accumulate": "score_ranges_accumulate_kernel",
+    "gather_windows": "gather_windows_kernel",
+    "rescore_bsearch": "rescore_bsearch_kernel",
+    "rescore_worklist": "worklist_tail_kernel",
+    "facet_hist": "facet_hist_kernel",
+    "facet_hist_multi": "facet_hist_multi_kernel",
+    "encoder_attention": "encoder_attention_kernel",
+}
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+
+def profiled_counts(key_counts):
+    """{entry point: launches of its device function} from a profile's
+    (kernel name, count) pairs; a name may come demangled or mangled
+    (`<length><name>`, e.g. `_ZN12_GLOBAL__N_130score_ranges_accumulate_
+    kernelILb1ELb0EE...`, as the profiler gives some kernels of a
+    ctypes-loaded library)."""
+    import re
+
+    pairs = list(key_counts)
+    pats = {name: re.compile(rf"(?<![A-Za-z0-9_]){func}(?![A-Za-z0-9_])"
+                             rf"|{len(func)}{func}")
+            for name, func in KERNEL_FUNCTIONS.items()}
+    return {name: sum(c for key, c in pairs if pat.search(key))
+            for name, pat in pats.items()}
+
+
+def launch_counts():
+    return {name: n for mod in wrapper_modules()
+            for name, n in mod.LAUNCHES.items()}
+
+
+def profile_once(label, fn, card):
+    """One call under torch.profiler, after a traced warm-up call that
+    the profiler discards: device kernel time, idle share (against the
+    shorter wall time of two unprofiled calls just before, since the
+    profiler's own host work lengthens the profiled one) and the largest
+    kernels.
+    The profile's count of each kernel must equal the wrappers' LAUNCHES
+    for the same call, or the phase fails: a profile that misses
+    launches is a reading, not a result. (A profile without the warm-up
+    step dropped kernels late in a long run.)"""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    walls = []
+    for _ in range(2):
+        torch.cuda.synchronize()
         t = time.perf_counter()
         fn()
         torch.cuda.synchronize()
-        wall = (time.perf_counter() - t) * 1e3
+        walls.append((time.perf_counter() - t) * 1e3)
+    wall = min(walls)
+    got = {}
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1),
+                 on_trace_ready=lambda p: got.update(
+                     events=p.key_averages())) as prof:
+        fn()
+        torch.cuda.synchronize()
+        prof.step()
+        before = launch_counts()
+        fn()
+        torch.cuda.synchronize()
+        launched = {k: n - before[k] for k, n in launch_counts().items()}
+        prof.step()
     kernels = [
         (getattr(e, "self_device_time_total", 0) / 1e3, e.count, e.key)
-        for e in prof.key_averages() if str(e.device_type).endswith("CUDA")
+        for e in got["events"] if str(e.device_type).endswith("CUDA")
+        and not e.key.startswith("ProfilerStep")
     ]
+    profiled = profiled_counts((key, c) for _, c, key in kernels)
+    off = {name: (launched[name], profiled[name]) for name in profiled
+           if launched[name] != profiled[name]}
+    ran = ", ".join(f"{k} {n}" for k, n in launched.items() if n) or "none"
+    what = (f"profile, {label}: each kernel's count equals the wrappers' "
+            f"LAUNCHES ({ran})")
+    if off:
+        what += (f"; it missed launches, (launched, profiled) {off}, "
+                 f"{sum(c for _, c, _ in kernels)} device events")
+    check(not off, what)
     dev = sum(ms for ms, _, _ in kernels)
-    print(f"  profile, {label}: wall {wall:.2f} ms, device kernels {dev:.2f} ms, "
-          f"idle {max(0.0, 1 - dev / wall) * 100:.0f}% [{card}]", flush=True)
+    print(f"  profile, {label}: wall {wall:.2f} ms (unprofiled, best of 2), "
+          f"device kernels {dev:.2f} ms, idle "
+          f"{max(0.0, 1 - dev / wall) * 100:.0f}% [{card}]", flush=True)
     for ms, count, key in sorted(kernels, reverse=True)[:6]:
         print(f"    {ms:9.3f} ms x{count:<5} {key[:100]}", flush=True)
     return dev
@@ -2041,7 +2138,7 @@ def phase_encoder(device, card):
     )
     from oramacore_tpu_torch.embeddings import EmbeddingsService, Intent
     from oramacore_tpu_torch.embeddings import encoder as em
-    from oramacore_tpu_torch.index.plan import plan_query
+    from oramacore_tpu_torch.index.plan import plan_query, query_tokens
     from oramacore_tpu_torch.index.search_exec import (
         HybridSearchTopK,
         host_bm25_reference,
@@ -2052,6 +2149,8 @@ def phase_encoder(device, card):
         VectorIndexConfig,
     )
     from oramacore_tpu_torch.ops import attention as at
+    from oramacore_tpu_torch.types import Locale
+    from oramacore_tpu_torch.utils.tokenizer import TextParser
 
     timings = attention_checks(device, card)
 
@@ -2189,16 +2288,18 @@ def phase_encoder(device, card):
                          for q in one])
 
     t0 = time.perf_counter()
+    parser = TextParser(Locale.EN)
     idx = StringIndex()
     for d, p in enumerate(corpus):
-        idx.index_text(d, "body", [(w, [w]) for w in p.split()])
+        idx.index_text_packed(d, "body", *parser.tokenize_and_stem_packed(p))
     idx.commit()
     n = len(corpus)
-    print(f"  StringIndex of the same passages: {time.perf_counter() - t0:.1f} "
-          f"s of host time", flush=True)
+    print(f"  StringIndex of the same passages (TextParser's packed tokens, "
+          f"native live accumulator): {time.perf_counter() - t0:.1f} s of "
+          f"host time", flush=True)
     htexts = qtexts[:HYBRID_BATCH]
     qv, hembed_ms = embed(svc, htexts, Intent.QUERY)
-    toks = [t.split() for t in htexts]
+    toks = [query_tokens(parser, t, False) for t in htexts]
     plans = [plan_query(idx, t, ["body"], {}) for t in toks]
     ex = HybridSearchTopK(device)
     nd = [float(n)] * HYBRID_BATCH
@@ -2234,6 +2335,308 @@ def phase_encoder(device, card):
           f"    B=1 query (medians): embed {np.median(wall):.3f}, search flat "
           f"{flat_one:.3f}, IVF {ivf_one:.3f}", flush=True)
     return timings, launches
+
+
+def ingest_routes(docs, parser, card):
+    """The tokenizer, the live accumulator and the hash encoder, native
+    route against Python route on the same documents: timed, and held
+    equal (payloads and op bodies exactly, slabs exactly, vectors within
+    1e-6). Returns the field types the documents gave."""
+    import oramacore_tpu_torch.index.string_index as si
+    from oramacore_tpu_torch.embeddings import (
+        MODELS,
+        DEFAULT_MODEL,
+        _hash_backend,
+        hash_encode,
+    )
+    from oramacore_tpu_torch.benches import ingest_bench as ib
+    from oramacore_tpu_torch.types import Locale
+    from oramacore_tpu_torch.utils.flatten import flatten_document
+    from oramacore_tpu_torch.utils.tokenizer import TextParser, pack_parsed
+    from oramacore_tpu_torch.write.doc_op import build_doc_op, embedding_text
+
+    python = TextParser(Locale.EN, use_native=False)
+    flats = [flatten_document(d) for d in docs]
+    ft = {}
+    for flat in flats:
+        ib.discover_fields(ft, flat)
+    n = len(docs)
+
+    # tokenize: the op bodies of the documents, each parser
+    bodies, secs = {}, {}
+    for route, p in (("python", python), ("native", parser)):
+        (bodies[route], secs[route]) = timed_ms(lambda p=p: [
+            build_doc_op(ft, p, d, doc["id"], flat, doc)
+            for d, (doc, flat) in enumerate(zip(docs, flats))])
+    tokens = sum(v[0] for b in bodies["native"]
+                 for v in b["strings_packed"].values())
+    ascii_texts = [s for doc in docs for s in (doc["title"], doc["description"])
+                   if s.isascii()][:2 * INGEST_PARITY]
+    bad = [s for s in ascii_texts if parser.tokenize_and_stem_packed(s)
+           != pack_parsed(python.tokenize_and_stem(s))]
+    check(not bad and len(ascii_texts) == 2 * INGEST_PARITY,
+          f"native packed payloads equal pack_parsed of the Python parser on "
+          f"the title and description of {INGEST_PARITY:,} ASCII documents")
+    check(bodies["native"] == bodies["python"],
+          f"the {n:,} op bodies of both tokenizer routes are equal")
+    for route in ("native", "python"):
+        print(f"  tokenize + op bodies, {route} route: {n:,} documents, "
+              f"{tokens:,} tokens in {secs[route] / 1e3:.2f} s: "
+              f"{n / secs[route] * 1e3:,.0f} documents/s, "
+              f"{tokens / secs[route] * 1e3:,.0f} tokens/s [{card}, host]",
+              flush=True)
+
+    # index: the same bodies through each live accumulator, then commit
+    idxs = {}
+    saved = os.environ.get("ORAMACORE_NATIVE_LIVE")
+    try:
+        for route in ("python", "native"):
+            os.environ["ORAMACORE_NATIVE_LIVE"] = "1" if route == "native" else "0"
+            idx = si.StringIndex()
+            t0 = time.perf_counter()
+            for b in bodies[route]:
+                for path in ("title", "description"):
+                    idx.index_text_packed(b["doc_id"], path,
+                                          *b["strings_packed"][path])
+            t1 = time.perf_counter()
+            idx.commit()
+            idx.slab_split()
+            t2 = time.perf_counter()
+            idxs[route] = idx
+            itok = sum(b["strings_packed"][p][0] for b in bodies[route]
+                       for p in ("title", "description"))
+            print(f"  index_text_packed, {route} live accumulator: {n:,} "
+                  f"documents, {itok:,} tokens in {t1 - t0:.2f} s: "
+                  f"{n / (t1 - t0):,.0f} documents/s, {itok / (t1 - t0):,.0f} "
+                  f"tokens/s; commit + slab {t2 - t1:.2f} s [{card}, host]",
+                  flush=True)
+    finally:
+        if saved is None:
+            os.environ.pop("ORAMACORE_NATIVE_LIVE", None)
+        else:
+            os.environ["ORAMACORE_NATIVE_LIVE"] = saved
+    check(idxs["native"]._native_live is not None
+          and idxs["python"]._native_live is None
+          and all(np.array_equal(x, y) for x, y in zip(
+              idxs["native"].slab(), idxs["python"].slab(), strict=True))
+          and idxs["native"]._slab_ranges == idxs["python"]._slab_ranges,
+          f"the {n:,}-document index built through the native live "
+          f"accumulator has the slab arrays and ranges of the Python one")
+    del idxs
+
+    # hash embedding: the documents' embedding texts, each route
+    info = MODELS[DEFAULT_MODEL]
+    texts = [embedding_text(f) for f in flats]
+    py, py_ms = timed_ms(lambda: [hash_encode(s, info.dim) for s in texts])
+    nat, nat_ms = timed_ms(lambda: _hash_backend(texts, info))
+    asc = [i for i, s in enumerate(texts) if s.isascii()][:INGEST_PARITY]
+    err = float(np.abs(np.stack([nat[i] for i in asc])
+                       - np.stack([py[i] for i in asc])).max())
+    check(len(asc) == INGEST_PARITY and err <= 1e-6,
+          f"native hash vectors within 1e-6 of Python hash_encode on "
+          f"{INGEST_PARITY:,} ASCII texts (max |d| {err:.3g})")
+    for route, ms in (("python hash_encode", py_ms),
+                      ("native (_hash_backend)", nat_ms)):
+        print(f"  hash embedding {info.name}, {route}: {n:,} passages in "
+              f"{ms / 1e3:.2f} s, {n / ms * 1e3:,.0f} passages/s "
+              f"[{card}, host]", flush=True)
+
+
+def phase_ingest(device, card):
+    """Phase 15: JSON documents through flatten_document, build_doc_op
+    (the native tokenizer's packed tokens) and index_text_packed (the
+    native live accumulator), their embedding text through the
+    EmbeddingQueue (the native hash encoder) into a VectorIndex; then the
+    shared BM25 batch, flat and IVF vector search and the fused hybrid on
+    query strings planned by query_tokens, held against the reference
+    scorer and numpy; score_ranges_accumulate on this slab against its
+    plain version."""
+    import torch
+
+    from oramacore_tpu_torch import native
+    from oramacore_tpu_torch.benches import ingest_bench as ib
+    from oramacore_tpu_torch.benches import ranges_bench as rb
+    from oramacore_tpu_torch.embeddings import (
+        DEFAULT_MODEL,
+        EmbeddingsService,
+        Intent,
+    )
+    from oramacore_tpu_torch.index.plan import plan_query, query_tokens
+    from oramacore_tpu_torch.index.search_exec import (
+        HybridSearchTopK,
+        SharedBatchExecutor,
+        host_bm25_reference,
+    )
+    from oramacore_tpu_torch.index.string_index import StringIndex
+    from oramacore_tpu_torch.index.vector_index import (
+        VectorIndex,
+        VectorIndexConfig,
+    )
+    from oramacore_tpu_torch.types import Locale
+    from oramacore_tpu_torch.utils.tokenizer import TextParser
+    from oramacore_tpu_torch.write.embedding_queue import EmbeddingQueue
+
+    props = list(ib.TEXT_FIELDS)
+    t0 = time.perf_counter()
+    words, stems = ib.vocabulary(INGEST_VOCAB, seed=INGEST_SEED)
+    docs = ib.documents(INGEST_DOCS, seed=INGEST_SEED, words=words)
+    qtexts = ib.queries(stems, INGEST_QUERIES, seed=INGEST_SEED + 1)
+    odd = sum(not (d["title"] + d["description"]).isascii() for d in docs)
+    n = len(docs)
+    print(f"  corpus: {n:,} documents (title 2-8, description 8-64 words, "
+          f"zipf over {len(words):,} words of {len(stems):,} stems; {odd:,} "
+          f"with a non-ASCII word), {len(qtexts)} queries of 1-4 words: "
+          f"{time.perf_counter() - t0:.1f} s of host time", flush=True)
+    kinds = {}
+    for loc in Locale:
+        kinds.setdefault(TextParser(loc, use_native=False).stemmer,
+                         []).append(loc.value)
+    print("  stemmer by locale: " + "; ".join(
+        f"{k}: {', '.join(v)}" for k, v in sorted(kinds.items())), flush=True)
+    parser = TextParser(Locale.EN)
+
+    ingest_routes(docs[:INGEST_COMPARE], parser, card)
+
+    # the whole corpus: ingest loop -> index, queue -> vector index
+    native.reset_routes()
+    torch.cuda.reset_peak_memory_stats()
+    sidx = StringIndex()
+    vidx = VectorIndex(VectorIndexConfig(dim=384), device)
+
+    def sink(collection, body):
+        vidx.insert(body["doc_id"], [np.asarray(v, np.float32)
+                                     for v in body["vectors"]])
+
+    queue = EmbeddingQueue(EmbeddingsService(), sink, batch_limit=ENC_CALL)
+    ft = {}
+    t0 = time.perf_counter()
+    try:
+        stats = ib.ingest(docs, parser, sidx, queue, ft,
+                          insert_batch=INGEST_INSERT, model=DEFAULT_MODEL)
+        t_in = time.perf_counter() - t0
+        drained = queue.flush_and_wait(timeout=900)
+        t_last = time.perf_counter() - t0
+    finally:
+        queue.stop()
+    check(drained and queue.failed_batches == 0,
+          f"the embedding queue drained: {queue.batches:,} batches of "
+          f"<= {ENC_CALL}, {queue.failed_batches} failed")
+    print(f"  ingest of {n:,} documents ({int(stats['tokens']):,} tokens in "
+          f"title and description): op bodies {stats['ops_s']:.2f} s, "
+          f"index_text_packed {stats['index_s']:.2f} s, submit "
+          f"{stats['submit_s']:.2f} s; {n / t_in:,.0f} documents/s to the "
+          f"last op; the queue's last vector at {t_last:.2f} s "
+          f"({queue.seconds:.2f} s busy in its worker) [{card}, host]",
+          flush=True)
+    t0 = time.perf_counter()
+    sidx.commit()
+    sidx.slab_split()
+    t1 = time.perf_counter()
+    vidx.commit()
+    t2 = time.perf_counter()
+    print(f"  commit: StringIndex {t1 - t0:.2f} s (+ slab), VectorIndex "
+          f"{t2 - t1:.2f} s [{card}, host]", flush=True)
+    routes = {k: dict(v) for k, v in native.ROUTES.items()}
+    print(f"  routes (native / Python): {routes}", flush=True)
+    check(routes["hash_encode"] == {"native": n - odd, "python": odd}
+          and routes["tokenizer"]["python"] == odd
+          and routes["live_accum"] == {"native": 2 * n, "python": 0},
+          "every ASCII text took the native tokenizer and hash encoder, every "
+          "other text the Python route, every field the native accumulator")
+    vdocs = vidx._committed_docs
+    check(len(vdocs) == n and np.array_equal(vdocs, np.arange(n)),
+          f"all {n:,} documents, each with text, hold their vector")
+    vecs = vidx._committed_matrix
+
+    # BM25 shared batch: query_tokens -> plan -> search_topk_shared
+    toks = [query_tokens(parser, q, False) for q in qtexts]
+    ex = SharedBatchExecutor(device)
+
+    def bm25():
+        return ex.search_topk_shared(sidx, toks, props, {}, float(n), n, K)
+
+    (res, first_ms), launches = counted("ingest BM25", lambda: timed_ms(bm25))
+    check(launches["score_ranges_accumulate"] > 0,
+          "the ingest BM25 batch launched score_ranges_accumulate")
+    steady = [timed_ms(bm25)[1] for _ in range(3)]
+    print(f"  search_topk_shared B={len(toks)} k={K} over {props}: first "
+          f"{first_ms:.1f} ms (slab to the device included); steady "
+          f"{', '.join(f'{s:.1f}' for s in steady)} ms, "
+          f"{len(toks) / np.mean(steady) * 1e3:,.1f} QPS [{card}]", flush=True)
+    vals, ids, counts = res
+    refs = [host_bm25_reference(sidx, toks[b], props, {}, float(n))
+            for b in range(N_INGEST_CHECKED)]
+    check_against_reference(refs, vals, ids, counts, "ingest BM25")
+    terms = set()
+    for p in props:
+        terms.update(sidx._slab_terms_by_field.get(p, ()))
+    stem_only = [b for b, q in enumerate(qtexts)
+                 if all(w not in terms for w in q.split()) and counts[b] > 0]
+    check(bool(stem_only),
+          f"{len(stem_only)} queries whose every word no document holds found "
+          f"hits through the stem (e.g. {qtexts[stem_only[0]]!r} -> "
+          f"{toks[stem_only[0]]}, {int(counts[stem_only[0]])} hits)"
+          if stem_only else "a query of stem-only words found hits")
+    profile_once(f"ingest BM25 B={len(toks)}", bm25, card)
+
+    # score_ranges_accumulate on this slab against its plain version
+    launches_rec = rb.capture_batch(sidx, toks[:64], toks, device, n,
+                                    properties=props)
+    try:
+        r = rb.check_case("ingest B=256", launches_rec, reps=3)
+    except AssertionError as e:
+        raise SmokeFailure(f"score_ranges_accumulate: {e}") from e
+    check(True, f"score_ranges_accumulate [ingest B={len(toks)}]: "
+                f"{len(launches_rec)} launch(es), the hit set equals the plain "
+                f"version's and acc is within rtol 1e-5 / atol 1e-6 (max abs "
+                f"err {r['max_abs_err']:.3g})")
+    r["ms"] = rb.time_launches(launches_rec, rb.kernel_fn, 5)
+    rb.report(f"ingest B={len(toks)}", r, card)
+    share(f"score_ranges_accumulate [ingest B={len(toks)}]", r["ms"],
+          r["bound_ms"], r["bound_by"], card)
+    del launches_rec
+
+    # vector search of the hash-embedded queries, flat then IVF
+    svc = EmbeddingsService()
+    nb = len(qtexts) // INGEST_VEC_B
+    qb = [embed(svc, qtexts[j * INGEST_VEC_B:(j + 1) * INGEST_VEC_B],
+                Intent.QUERY, DEFAULT_MODEL)[0] for j in range(nb)]
+    vb16 = bf16_round(vecs)
+    flat_ref = phase_flat(vidx, vb16, qb, device, card)
+    flat_rows = vidx.flat_device_rows()
+    phase_ivf(vidx, vecs, qb, flat_ref, device, card,
+              recall_note="hash-embedded documents")
+
+    # the fused hybrid, B=8
+    qv = qb[0][:HYBRID_BATCH]
+    htoks = toks[:HYBRID_BATCH]
+    plans = [plan_query(sidx, tk, props, {}) for tk in htoks]
+    hx = HybridSearchTopK(device)
+    nd = [float(n)] * HYBRID_BATCH
+    hsims = [INGEST_HYBRID_SIM] * HYBRID_BATCH
+    runs, hl = counted("ingest hybrid", lambda: [timed_ms(
+        lambda: hx.search_topk_hybrid(sidx, plans, nd, n, K, flat_rows, qv,
+                                      hsims)) for _ in range(3)])
+    check(hl["score_ranges_accumulate"] > 0,
+          "the ingest hybrid launched score_ranges_accumulate")
+    sims_ref = vb16 @ bf16_round(qv).T
+    hrefs = []
+    for b, tk in enumerate(htoks):
+        bm = dense_scores(host_bm25_reference(sidx, tk, props, {}, float(n)), n)
+        s = sims_ref[:, b]
+        vec = np.where(s >= INGEST_HYBRID_SIM, s, 0.0)
+        maybe = set(np.nonzero(np.abs(s - INGEST_HYBRID_SIM) <= VEC_TIE)[0]
+                    .tolist())
+        hrefs.append(fused_reference(bm, vec, maybe))
+    report_check(hybrid_errors(runs[0][0], hrefs, "ingest hybrid"),
+                 f"hybrid top-{K} and match counts of {HYBRID_BATCH} queries "
+                 f"equal the numpy fusion of the reference scorer and bf16 "
+                 f"products ({int((sims_ref >= INGEST_HYBRID_SIM).sum())} "
+                 f"vector hits at similarity {INGEST_HYBRID_SIM})")
+    print(f"  search_topk_hybrid B={HYBRID_BATCH}: first {runs[0][1]:.1f} ms, "
+          f"steady {runs[1][1]:.1f}, {runs[2][1]:.1f} ms [{card}]", flush=True)
+    print(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f}"
+          f" GiB [{card}]", flush=True)
 
 
 def sync(device):
@@ -2281,6 +2684,18 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"  ptxas: {line.strip()}", flush=True)
     print(f"  all kernels ready in {time.perf_counter() - t0:.1f} s", flush=True)
+    from oramacore_tpu_torch import native
+    from oramacore_tpu_torch.native import _build as native_build
+
+    t0 = time.perf_counter()
+    for load in (native.load_tokenizer, native.load_hash_encoder,
+                 native.load_live_accum):
+        load()
+    print(f"  native host libraries (g++ {' '.join(native_build.CXX_FLAGS)}) "
+          f"ready in {time.perf_counter() - t0:.1f} s: "
+          + ", ".join(f"{k} {'built in %.1f s' % s if s else 'cached'}"
+                      for k, s in sorted(native_build.BUILD_LOG.items())),
+          flush=True)
 
     print(f"[3] the {N_DOCS:,}-doc index (bench_bm25_1m)", flush=True)
     t0 = time.perf_counter()
@@ -2386,6 +2801,15 @@ def main() -> int:
     enc_timings, path_launches["encoder"] = phase_encoder(device, card)
     timings.update(enc_timings)
     print(f"  phase 14: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    print(f"[15] ingest: {INGEST_DOCS:,} JSON documents through the text "
+          f"parser, the native live accumulator and the embedding queue to "
+          f"full-text, vector and hybrid search", flush=True)
+    t_phase = time.perf_counter()
+    phase_ingest(device, card)
+    print(f"  phase 15: {time.perf_counter() - t_phase:.1f} s", flush=True)
 
     kernels = {"kernels": [{
         "name": k["name"],

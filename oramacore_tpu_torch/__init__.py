@@ -2,7 +2,10 @@
 
 This package runs the full-text (BM25F), vector and hybrid search paths,
 and the text encoder that embeds passages and queries for them
-(`embeddings/`), on an NVIDIA Hopper card. It mirrors the layout of `oramacore_tpu` (so
+(`embeddings/`), on an NVIDIA Hopper card, and the ingest text pipeline
+that feeds them on the host: the text parser (`utils/tokenizer.py`), the
+write side's op bodies and embedding queue (`write/`) and three native
+C++ libraries (`native/`: tokenizer, hash encoder, live accumulator). It mirrors the layout of `oramacore_tpu` (so
 `oramacore_tpu_torch/ops/bm25.py` is the counterpart of
 `oramacore_tpu/ops/bm25.py`) and is held against that package in the
 tests: the same numpy inputs go through the JAX function and its port.

@@ -130,17 +130,19 @@ class Launch(NamedTuple):
     max_len: int
 
 
-def capture_batch(idx, warm_up, queries, device, n_docs) -> List[Launch]:
+def capture_batch(idx, warm_up, queries, device, n_docs,
+                  properties=("body",)) -> List[Launch]:
     """The kernel's launches in one steady `search_topk_shared` batch
-    (after one batch of warm-up), with copies of their descriptors."""
+    over `properties` (after one batch of warm-up), with copies of their
+    descriptors."""
     from ..index.search_exec import SharedBatchExecutor
     from ..ops import bm25
 
     ex = SharedBatchExecutor(device)
 
     def run(qs):
-        return ex.search_topk_shared(idx, qs, ["body"], {}, float(n_docs),
-                                     n_docs, 10)
+        return ex.search_topk_shared(idx, qs, list(properties), {},
+                                     float(n_docs), n_docs, 10)
 
     run(warm_up)
     launches: List[Launch] = []

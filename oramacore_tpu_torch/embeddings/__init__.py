@@ -12,8 +12,10 @@ behaviour it keeps).
   `"<backend>:<name>"` wins, then the shared key, then `hash`.
 
 Backends:
-- `hash`: the deterministic feature-hashing encoder (numpy, no weights),
-  bit-equal to the JAX package's Python `hash_encode`.
+- `hash`: the deterministic feature-hashing encoder (no weights): ASCII
+  texts through the native C++ encoder (`native/hash_encode.cpp`),
+  others through the Python `hash_encode`, bit-equal to the JAX
+  package's.
 - `flax:<name>` / `flax`: the BERT encoder of `encoder.py` on an explicit
   device (`register_torch_backend`, `register_torch_backend_lazy`,
   `register_bundled_checkpoints` for `SemanticBase` and `SemanticMini`).
@@ -237,10 +239,29 @@ def register_backend(name: str, fn: Backend) -> None:
 
 
 def _hash_backend(texts: Sequence[str], info: ModelInfo) -> List[np.ndarray]:
-    """The Python `hash_encode` per text. (The JAX package sends ASCII
-    texts to a native C++ batch encoder with the same output; that
-    encoder is host work not yet ported.)"""
-    return [hash_encode(t, info.dim) for t in texts]
+    """ASCII texts through the native C++ batch encoder in one call (the
+    interpreter lock released), every other text through the Python
+    `hash_encode`: the JAX package's split. The two agree within 1e-6;
+    a native library that does not build or load raises."""
+    from ..native import ROUTES, load_hash_encoder, native_hash_encode_batch
+
+    lib = load_hash_encoder()
+    out: List[Optional[np.ndarray]] = [None] * len(texts)
+    ascii_idx = []
+    ascii_texts = []
+    for i, t in enumerate(texts):
+        if t.isascii():
+            ascii_idx.append(i)
+            ascii_texts.append(t)
+        else:
+            out[i] = hash_encode(t, info.dim)
+    ROUTES["hash_encode"]["native"] += len(ascii_texts)
+    ROUTES["hash_encode"]["python"] += len(texts) - len(ascii_texts)
+    if ascii_texts:
+        mat = native_hash_encode_batch(lib, ascii_texts, info.dim)
+        for k, i in enumerate(ascii_idx):
+            out[i] = mat[k]
+    return out  # type: ignore[return-value]
 
 
 register_backend("hash", _hash_backend)

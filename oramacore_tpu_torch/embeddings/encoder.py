@@ -5,7 +5,9 @@ oramacore_tpu/embeddings/flax_encoder.py).
 (`flax_encoder.py:69-119`): token + position + `type_emb[0]`
 embeddings, LayerNorm (biased variance, eps 1e-12), then per layer the
 fused Q/K/V projection, the attention (`ops/attention.py`'s hand-written
-kernel on the card, its plain version on the CPU), the output projection
+kernel on the card, its plain version on the CPU, where it takes any
+head width; on the card a head width outside {32, 64} raises, as the
+kernel's wrapper does), the output projection
 and LayerNorm, a tanh-approximated GELU feed-forward (JAX's default,
 where HF BERT uses the exact erf) and LayerNorm; then the mean over the
 attended tokens (denominator clamped at 1e-9) and the L2 norm (clamped at
@@ -42,7 +44,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .. import resolve_device
-from ..ops.attention import encoder_attention
+from ..ops.attention import HEAD_DIMS, encoder_attention, encoder_attention_plain
 from ..ops.bm25 import round_up_pow2
 from . import safetensors_io
 from .wordpiece import WordPieceTokenizer
@@ -54,6 +56,10 @@ MAX_SEQ = 512
 # the checkpoints bundled in the repository, bound by registry name
 BUNDLED = (("SemanticBase", "semantic-base"), ("SemanticMini", "semantic-mini"))
 MODELS_DIR = Path(__file__).resolve().parents[2] / "models"
+# forward layers on CPU tensors whose head width the attention kernel
+# does not take (outside HEAD_DIMS), sent to encoder_attention_plain; on
+# the card such a width goes to the kernel's wrapper, which raises
+PLAIN_WIDTH_CALLS = {"encoder_attention_plain": 0}
 
 # a layer's tensors in the JAX parameter dict, after the fused q/k/v
 _LAYER = ("o_w", "o_b", "attn_ln_g", "attn_ln_b", "ffn_w1", "ffn_b1",
@@ -183,9 +189,14 @@ class BertEncoder(nn.Module):
              + self.type_emb[0][None, None, :])
         x = self._ln(x, self.emb_ln_g, self.emb_ln_b)
         mask32 = attention_mask.to(torch.int32).contiguous()
+        plain_width = (x.device.type == "cpu"
+                       and x.shape[-1] // self.n_heads not in HEAD_DIMS)
+        attend = encoder_attention_plain if plain_width else self.attention
         for layer in self.layers:
             qkv = torch.matmul(x, layer.qkv_w) + layer.qkv_b
-            ctx = self.attention(qkv, mask32, self.n_heads)
+            if plain_width:
+                PLAIN_WIDTH_CALLS["encoder_attention_plain"] += 1
+            ctx = attend(qkv, mask32, self.n_heads)
             x = self._ln(x + torch.matmul(ctx, layer.o_w) + layer.o_b,
                          layer.attn_ln_g, layer.attn_ln_b)
             ffn = F.gelu(torch.matmul(x, layer.ffn_w1) + layer.ffn_b1,

@@ -9,6 +9,10 @@ clipped at PREFIX_LEN), each main range's field ordinal and span ordinal,
 and each token's spans. With-prefix plans are not coalesced: a merged
 cross-field range would break the per-range doc-sorted order the rescores
 rely on.
+
+`query_tokens` is the read side's token loop in front of the planner
+(`_plan_fulltext` and the batched planner of oramacore_tpu/read): a query
+term's parsed tokens become the planner's token list.
 """
 
 from __future__ import annotations
@@ -43,6 +47,18 @@ def _fill(ranges_per_token: List[List[Range]]):
             avg_flen[ti, ri] = avg
             max_len = max(max_len, l)
     return starts, lens, weights, field_b, avg_flen, max_len
+
+
+def query_tokens(parser, term: str, exact: bool) -> List[str]:
+    """The tokens a full-text query plans on: each surface token of
+    `parser.tokenize_and_stem(term)`, followed by its stem variants
+    unless `exact`; `[""]` when the term has no token."""
+    tokens: List[str] = []
+    for t, variants in parser.tokenize_and_stem(term):
+        tokens.append(t)
+        if not exact:
+            tokens.extend(variants)
+    return tokens or [""]
 
 
 def plan_query(

@@ -18,8 +18,11 @@ the JAX index to the TPU:
 - Deletes of committed docs are tombstones applied as a score mask;
   commit makes them physical.
 
-Left out of the copy: the native (C++) live accumulator (the Python path
-is the JAX module's semantic oracle for it), `index_text_packed` and the
+The live layer's bump loop runs in the native (C++) live accumulator
+(`native/live_accum.cpp`, `native.NativeLiveAccum`) by default, as in the
+JAX module; `ORAMACORE_NATIVE_LIVE=0` keeps it in Python, the semantic
+oracle the native one is tested against. `index_text_packed` takes the
+writer's packed wire payload straight to it. Left out of the copy: the
 msgpack snapshots. `plan_query`'s body, with its `with_prefix` (pruned
 tier) branch, is `index/plan.py::plan_query`.
 """
@@ -28,13 +31,16 @@ from __future__ import annotations
 
 import itertools
 import logging
+import os
 import threading
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from ..native import ROUTES
 from ..ops.bm25 import MAX_RANGE_LEN
+from ..utils.tokenizer import pack_parsed
 
 DEFAULT_B = 0.75  # reference BM25FFieldParams::default (bm25.rs:56-63)
 MAX_RANGES = 64   # cap on posting ranges per (query token)
@@ -58,6 +64,11 @@ PREFIX_LEN = 65536
 RANGE_TRUNCATIONS = 0
 
 _log = logging.getLogger("oramacore_tpu_torch.string_index")
+
+
+def use_native_live() -> bool:
+    """Native live accumulator opt-out (ORAMACORE_NATIVE_LIVE=0)."""
+    return os.environ.get("ORAMACORE_NATIVE_LIVE", "1") != "0"
 
 
 @dataclass
@@ -210,6 +221,13 @@ class StringIndex:
         self._live_rows: Dict[str, Tuple[list, list, list, list]] = {}
         # local term table: path -> (term -> local id, [terms by id])
         self._live_terms: Dict[str, Tuple[Dict[str, int], List[str]]] = {}
+        # native (C++) live accumulator: the bump loop in C++; None -> the
+        # Python layer above. A library that does not build raises.
+        self._native_live = None
+        if use_native_live():
+            from ..native import NativeLiveAccum, load_live_accum
+
+            self._native_live = NativeLiveAccum(load_live_accum())
         # live field lengths: path -> doc_id -> token count
         self._live_flens: Dict[str, Dict[int, int]] = {}
         # live doc -> [(path, term)] for physical live deletes
@@ -266,6 +284,9 @@ class StringIndex:
             for segs in self._committed.values()
             for seg in segs
         )
+        if self._native_live is not None:
+            return n + sum(self._native_live.n_terms(p)
+                           for p in self._native_live.live_paths())
         return n + sum(len(t) for t in self._live.values())
 
     def pending_ops(self) -> int:
@@ -283,16 +304,45 @@ class StringIndex:
     ) -> None:
         """Index one field value: `parsed` is tokenize_and_stem output
         (surface, [variants]) per token."""
-        parsed = parsed or []
+        self.index_text_packed(doc_id, path, *pack_parsed(parsed or []))
+
+    def index_text_packed(
+        self, doc_id: int, path: str, n_tokens: int, payload: str
+    ) -> None:
+        """Index one field value from the packed wire payload (token :=
+        surface [\\x01 variant]*, payload := token (\\x02 token)*), which
+        the writer builds once at tokenize time and the native
+        accumulator consumes as it is."""
         flens = self._live_flens.setdefault(path, {})
         stats = self.field_stats(path)
-        n_tokens = len(parsed)
         prev = flens.get(doc_id, 0)
         flens[doc_id] = prev + n_tokens  # multiple values (arrays) accumulate
         if prev == 0:
             stats.doc_count += 1
         stats.sum_len += n_tokens
+        if self._native_live is not None:
+            ROUTES["live_accum"]["native"] += 1
+            if payload:
+                self._native_live.index_packed(
+                    path, doc_id, payload, self.index_bigrams)
+            self._dirty = True
+            return
+        parsed: List[Tuple[str, List[str]]] = []
+        if payload:
+            for part in payload.split("\x02"):
+                ps = part.split("\x01")
+                parsed.append((ps[0], ps[1:]))
+        self._index_parsed_python(doc_id, path, parsed)
 
+    def _index_parsed_python(
+        self,
+        doc_id: int,
+        path: str,
+        parsed: Sequence[Tuple[str, List[str]]],
+    ) -> None:
+        """The Python live-layer accumulate: the semantic oracle of the
+        native accumulator (ORAMACORE_NATIVE_LIVE=0)."""
+        ROUTES["live_accum"]["python"] += 1
         field_live = self._live.setdefault(path, {})
         doc_terms = self._live_doc_terms.setdefault(doc_id, [])
         rows = self._live_rows.get(path)
@@ -336,18 +386,22 @@ class StringIndex:
     def delete_doc_live(self, doc_id: int) -> None:
         """Physically remove a doc's live contributions (committed docs are
         masked by the caller's tombstone set until the next commit)."""
-        terms = self._live_doc_terms.pop(doc_id, None)
-        if terms:
-            for path, term in terms:
-                postings = self._live.get(path, {}).get(term)
-                if postings is not None:
-                    idx = postings.pop(doc_id, None)
-                    if idx is not None:
-                        # tombstone the flat row (dropped at commit/slab)
-                        self._live_rows[path][0][idx] = -1
-                    if not postings:
-                        self._live[path].pop(term, None)
-            self._dirty = True
+        if self._native_live is not None:
+            if self._native_live.delete_doc(doc_id):
+                self._dirty = True
+        else:
+            terms = self._live_doc_terms.pop(doc_id, None)
+            if terms:
+                for path, term in terms:
+                    postings = self._live.get(path, {}).get(term)
+                    if postings is not None:
+                        idx = postings.pop(doc_id, None)
+                        if idx is not None:
+                            # tombstone the flat row (dropped at commit/slab)
+                            self._live_rows[path][0][idx] = -1
+                        if not postings:
+                            self._live[path].pop(term, None)
+                self._dirty = True
         for path, flens in self._live_flens.items():
             n = flens.pop(doc_id, None)
             if n is not None:
@@ -373,6 +427,8 @@ class StringIndex:
         paths = (
             set(self._stats) | set(self._committed) | set(self._live_rows)
         )
+        if self._native_live is not None:
+            paths.update(self._native_live.live_paths())
         for path in paths:
             segs = self._committed.get(path, [])
             if deleted or force_merge or len(segs) + 1 > MAX_SEGMENTS:
@@ -386,13 +442,18 @@ class StringIndex:
         self._live_terms.clear()
         self._live_flens.clear()
         self._live_doc_terms.clear()
+        if self._native_live is not None:
+            self._native_live.clear()
         self._dirty = True
 
     def _live_rows_arrays(self, path):
-        """The live layer's flat rows for one path:
+        """The live layer's flat rows for one path, from the native
+        accumulator or the Python layer:
         (doc i64[n], local_tid i64[n], tf f64[n], etf f64[n], names)
         where names maps local term id -> term string. None when the path
         has no live rows (tombstoned-only counts as having rows)."""
+        if self._native_live is not None:
+            return self._native_live.rows(path)
         rows = self._live_rows.get(path)
         if rows is None or not rows[0]:
             return None
@@ -406,6 +467,8 @@ class StringIndex:
         )
 
     def _live_paths(self) -> List[str]:
+        if self._native_live is not None:
+            return self._native_live.live_paths()
         return [p for p, r in self._live_rows.items() if r[0]]
 
     @staticmethod

@@ -17,7 +17,10 @@ the dtype it is given (the card's check runs it in f64).
 
 - Supported: 1 <= L <= 512 and head width hd in {32, 64}, which cover
   every model of the registry; anything else raises ValueError, on every
-  device. Nothing gives way to the plain version on the card.
+  device. Nothing gives way to the plain version on the card. The plain
+  version takes any head width: `embeddings/encoder.BertEncoder` calls it
+  for the others on CPU tensors, as JAX's `bert_forward` serves any
+  width; on the card those widths raise until the kernel takes them.
 - A batch row whose mask is all zero (the padding rows of a power-of-two
   batch) gets the mean of V in every query row, as in JAX: -1e9 is added
   to every score, and at 1e9 the f32 ulp is 64, so all its scores round
@@ -135,7 +138,17 @@ def load_kernels() -> ctypes.CDLL:
 
 def check_shapes(qkv: torch.Tensor, mask: torch.Tensor,
                  n_heads: int) -> tuple:
-    """(B, L, D, hd) of a supported call; ValueError otherwise."""
+    """(B, L, D, hd) of a call the kernel supports; ValueError otherwise."""
+    B, L, D, hd = plain_shapes(qkv, mask, n_heads)
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"head width {hd} is not one of {HEAD_DIMS}")
+    return B, L, D, hd
+
+
+def plain_shapes(qkv: torch.Tensor, mask: torch.Tensor,
+                 n_heads: int) -> tuple:
+    """(B, L, D, hd) of a call the plain version takes, any head width;
+    ValueError otherwise."""
     if qkv.dim() != 3 or qkv.shape[2] % 3:
         raise ValueError(f"qkv must be (B, L, 3D), got {tuple(qkv.shape)}")
     B, L, D3 = qkv.shape
@@ -143,8 +156,6 @@ def check_shapes(qkv: torch.Tensor, mask: torch.Tensor,
     if n_heads <= 0 or D % n_heads:
         raise ValueError(f"width {D} is not a multiple of {n_heads} heads")
     hd = D // n_heads
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"head width {hd} is not one of {HEAD_DIMS}")
     if not 1 <= L <= MAX_LEN:
         raise ValueError(f"sequence length {L} is outside [1, {MAX_LEN}]")
     if tuple(mask.shape) != (B, L):
@@ -162,8 +173,10 @@ def attention_work(B: int, L: int, n_heads: int, hd: int) -> tuple:
 
 def encoder_attention_plain(qkv: torch.Tensor, mask: torch.Tensor,
                             n_heads: int) -> torch.Tensor:
-    """Plain PyTorch version: the JAX code step by step, in qkv's dtype."""
-    B, L, D, hd = check_shapes(qkv, mask, n_heads)
+    """Plain PyTorch version: the JAX code step by step, in qkv's dtype,
+    at any head width (`BertEncoder` sends it, on CPU tensors, the widths
+    the kernel refuses)."""
+    B, L, D, hd = plain_shapes(qkv, mask, n_heads)
     q, k, v = (t.reshape(B, L, n_heads, hd) for t in qkv.split(D, dim=-1))
     # a 0-d tensor divisor divides (a Python scalar would multiply by the
     # reciprocal on the card); f32(sqrt(hd)) as JAX rounds np.sqrt(hd)

@@ -1108,6 +1108,43 @@ def test_encoder_attention_kernel(cuda, label):
     torch.testing.assert_close(got, plain, rtol=1e-5, atol=1e-5)
 
 
+def test_encoder_refuses_other_head_widths_on_the_card(cuda):
+    """A BertEncoder of head width 16 runs on the CPU through the plain
+    attention (counted); on the card the kernel's wrapper refuses it, with
+    no launch and no plain call."""
+    from oramacore_tpu_torch.embeddings import encoder as enc
+    from oramacore_tpu_torch.ops import attention as at
+
+    rng = np.random.default_rng(16)
+    D, H, n_layers, V = 64, 4, 2, 50
+    state = {k: torch.from_numpy((rng.normal(size=s) * 0.2).astype(np.float32))
+             for k, s in dict(tok_emb=(V, D), pos_emb=(64, D),
+                              type_emb=(2, D), emb_ln_g=(D,),
+                              emb_ln_b=(D,)).items()}
+    shapes = dict(qkv_w=(D, 3 * D), qkv_b=(3 * D,), o_w=(D, D), o_b=(D,),
+                  attn_ln_g=(D,), attn_ln_b=(D,), ffn_w1=(D, 2 * D),
+                  ffn_b1=(2 * D,), ffn_w2=(2 * D, D), ffn_b2=(D,),
+                  ffn_ln_g=(D,), ffn_ln_b=(D,))
+    for i in range(n_layers):
+        for k, s in shapes.items():
+            state[f"layers.{i}.{k}"] = torch.from_numpy(
+                (rng.normal(size=s) * 0.2).astype(np.float32))
+    ids = torch.from_numpy(rng.integers(0, V, (4, 16)))
+    mask = (torch.arange(16)[None, :] < torch.tensor([[16], [9], [1], [0]])
+            ).to(torch.int32)
+    plain = enc.PLAIN_WIDTH_CALLS["encoder_attention_plain"]
+    with torch.inference_mode():
+        want = enc.BertEncoder.from_state(state, H)(ids, mask)
+    assert torch.isfinite(want).all()
+    assert enc.PLAIN_WIDTH_CALLS["encoder_attention_plain"] == plain + n_layers
+    model = enc.BertEncoder.from_state(state, H).to(cuda)
+    launches = at.LAUNCHES["encoder_attention"]
+    with torch.inference_mode(), pytest.raises(ValueError, match="head width"):
+        model(ids.to(cuda), mask.to(cuda))
+    assert at.LAUNCHES["encoder_attention"] == launches
+    assert enc.PLAIN_WIDTH_CALLS["encoder_attention_plain"] == plain + n_layers
+
+
 def test_encoder_attention_refuses_what_it_cannot_run(cuda):
     from oramacore_tpu_torch.ops import attention as at
 

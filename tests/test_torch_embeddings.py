@@ -146,9 +146,14 @@ def test_hash_backend_vectors_match():
         assert [len(v) for v in got] == [len(v) for v in want]
         for text, gv, wv in zip(texts, got, want):
             for g, w in zip(gv, wv):
-                np.testing.assert_array_equal(g, jemb.hash_encode(text, len(g)))
-                # the JAX package may take its native encoder: the same
-                # output within f32 rounding
+                # ASCII texts take the native encoder, as in the JAX
+                # package: Python's output within f32 rounding; the others
+                # take Python's hash_encode itself
+                py = jemb.hash_encode(text, len(g))
+                if text.isascii():
+                    np.testing.assert_allclose(g, py, rtol=0, atol=1e-6)
+                else:
+                    np.testing.assert_array_equal(g, py)
                 np.testing.assert_allclose(g, w, rtol=0, atol=1e-6)
 
 

@@ -126,12 +126,22 @@ def test_attention_plain_matches_jax(hd, L):
     ((16, 3 * 256), (16,), 8),           # not batched
 ])
 def test_attention_refuses_unsupported_shapes(shape, mask_shape, H):
+    """The kernel's wrapper refuses every case on every device; its plain
+    version takes head widths outside HEAD_DIMS (BertEncoder sends them
+    there) and refuses the rest."""
     qkv = torch.zeros(shape)
     mask = torch.ones(mask_shape, dtype=torch.int32)
     with pytest.raises(ValueError):
         at.encoder_attention(qkv, mask, H)
-    with pytest.raises(ValueError):
-        at.encoder_attention_plain(qkv, mask, H)
+    D = shape[-1] // 3
+    if len(shape) == 3 and shape[-1] % 3 == 0 and D % H == 0 \
+            and D // H not in at.HEAD_DIMS and 1 <= shape[1] <= at.MAX_LEN \
+            and mask_shape == shape[:2]:
+        assert at.encoder_attention_plain(qkv, mask, H).shape == (
+            *shape[:2], D)
+    else:
+        with pytest.raises(ValueError):
+            at.encoder_attention_plain(qkv, mask, H)
 
 
 def test_attention_launch_refuses_cpu_tensors():
@@ -212,10 +222,12 @@ def _seeded_params(rng, vocab, D, F_, n_layers, max_pos=64):
 
 
 @pytest.mark.parametrize("D,H,n_layers", [(128, 4, 2), (128, 2, 1),
-                                          (64, 2, 2)])
+                                          (64, 2, 2), (64, 4, 2), (256, 2, 1)])
 def test_forward_matches_bert_forward(D, H, n_layers):
     """Seeded numpy weights through params_from_jax against bert_forward,
-    with padded tokens and a batch row with no token."""
+    with padded tokens and a batch row with no token. Head widths 16 and
+    128, which the kernel does not take, go to the plain attention, once
+    a layer, on CPU tensors."""
     rng = np.random.default_rng(D + H + n_layers)
     params = _seeded_params(rng, 50, D, 2 * D, n_layers)
     B, L = 4, 16
@@ -225,9 +237,13 @@ def test_forward_matches_bert_forward(D, H, n_layers):
     want = np.asarray(jax.jit(bert_forward, static_argnames="n_heads")(
         jax.tree_util.tree_map(jnp.asarray, params), ids, mask, n_heads=H))
     model = tenc.BertEncoder.from_state(tenc.params_from_jax(params), H)
+    before = tenc.PLAIN_WIDTH_CALLS["encoder_attention_plain"]
     with torch.inference_mode():
         got = model(torch.from_numpy(ids).long(),
                     torch.from_numpy(mask)).numpy()
+    plain = D // H not in at.HEAD_DIMS
+    assert tenc.PLAIN_WIDTH_CALLS["encoder_attention_plain"] - before == \
+        (n_layers if plain else 0)
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
     assert np.all(np.abs(np.linalg.norm(got[:3], axis=1) - 1) < 1e-5)
 

@@ -104,7 +104,40 @@ _NO_JAX_SCRIPT = textwrap.dedent("""
         ["buy car", "automobile purchase"], Intent.PASSAGE, "SemanticMini")
     assert abs(float(np.linalg.norm(ev[0][0])) - 1) < 1e-5
     assert float(ev[0][0] @ ev[1][0]) > 0.5
+    # the ingest path: JSON documents through the native tokenizer, live
+    # accumulator and hash encoder, the op bodies and the embedding queue
+    from oramacore_tpu_torch.benches import ingest_bench as ib
+    from oramacore_tpu_torch.index.plan import query_tokens
+    from oramacore_tpu_torch.native import ROUTES
+    from oramacore_tpu_torch.types import Locale
+    from oramacore_tpu_torch.utils.tokenizer import TextParser
+    from oramacore_tpu_torch.write.embedding_queue import EmbeddingQueue
+    words, stems = ib.vocabulary(500, seed=1)
+    sidx = StringIndex()
+    vidx2 = VectorIndex(VectorIndexConfig(dim=384), "cpu")
+    eq = EmbeddingQueue(EmbeddingsService(), lambda c, b: vidx2.insert(
+        b["doc_id"], [np.asarray(v, np.float32) for v in b["vectors"]]))
+    parser = TextParser(Locale.EN)
+    ib.ingest(ib.documents(300, seed=2, words=words), parser, sidx, eq, {})
+    assert eq.flush_and_wait(timeout=60) and eq.failed_batches == 0
+    eq.stop()
+    sidx.commit()
+    vidx2.commit()
+    assert len(vidx2._committed_docs) == 300
+    toks = [query_tokens(parser, q, False) for q in ib.queries(stems, 4)]
+    tv, _, _ = ex.search_topk_shared(sidx, toks, ["title", "description"], {},
+                                     300.0, 300, 5)
+    assert tv.max() > 0 and sidx._native_live is not None
+    assert all(ROUTES[k]["native"] > 0 for k in ROUTES), ROUTES
     for name in ("oramacore_tpu_torch.embeddings",
+                 "oramacore_tpu_torch.native",
+                 "oramacore_tpu_torch.native._build",
+                 "oramacore_tpu_torch.types",
+                 "oramacore_tpu_torch.utils.tokenizer",
+                 "oramacore_tpu_torch.utils.flatten",
+                 "oramacore_tpu_torch.write.doc_op",
+                 "oramacore_tpu_torch.write.embedding_queue",
+                 "oramacore_tpu_torch.benches.ingest_bench",
                  "oramacore_tpu_torch.embeddings.encoder",
                  "oramacore_tpu_torch.embeddings.safetensors_io",
                  "oramacore_tpu_torch.embeddings.wordpiece",
@@ -318,3 +351,41 @@ def test_kernel_table_covers_every_wrapper_and_perf_row():
             if fn.endswith(".py") and "pl.pallas_call(" in open(full).read():
                 pallas_files.add(os.path.relpath(full, REPO))
     assert pallas_files and pallas_files <= replaced, pallas_files - replaced
+
+
+def test_profile_counts_name_each_kernel():
+    """chip_smoke.profile_once holds a profile's kernel counts to the
+    wrappers' LAUNCHES: each KERNELS entry maps to a __global__ function
+    of its source, and a profiler key counts for its own entry alone."""
+    import chip_smoke
+
+    assert set(chip_smoke.KERNEL_FUNCTIONS) == {k["name"]
+                                                for k in chip_smoke.KERNELS}
+    for k in chip_smoke.KERNELS:
+        with open(os.path.join(REPO, k["source"])) as f:
+            src = f.read()
+        func = chip_smoke.KERNEL_FUNCTIONS[k["name"]]
+        assert re.search(rf"__global__[^;{{]*?\b{func}\s*\(", src), k["name"]
+    got = chip_smoke.profiled_counts([
+        ("void score_ranges_accumulate_kernel<true, false>(int const*, "
+         "float const*, float const*, long)", 35),
+        ("void work_list_kernel(int const*, int const*, long, long long*)", 9),
+        ("void facet_hist_multi_kernel(int const*, int const*)", 2),
+        ("void facet_hist_kernel(int const*, int const*)", 3),
+        ("void rescore_worklist_kernel<true>(int const*)", 6),
+        ("worklist_tail_kernel(float const*, int const*)", 5),
+        ("void encoder_attention_kernel<32, 4, 64>(float const*)", 4),
+        ("void encoder_attention_kernel<64, 1, 32>(float const*)", 4),
+        ("ampere_sgemm_128x64_nn", 16),
+        # mangled names, as the profiler gives a ctypes library's kernels
+        ("_Z21gather_windows_kernelPKiS0_lPil", 7),
+        ("_Z22rescore_bsearch_kernelILb1EEvPKiPKfS3_l", 1),
+        ("_Z17facet_hist_kernelPKiS0_", 1),
+        ("_Z23facet_hist_multi_kernelPKiS0_", 1),
+        ("_ZN12_GLOBAL__N_130score_ranges_accumulate_kernelILb1ELb0EEEvPKiPKf"
+         "S4_lS2_S2_S4_S4_S4_llPKxPfl", 1),
+        ("_ZN12_GLOBAL__N_124encoder_attention_kernelILi32ELi4ELi64EEEvPKf", 2),
+    ])
+    assert got == dict(score_windows=0, score_ranges_accumulate=36,
+                       gather_windows=7, rescore_bsearch=1, rescore_worklist=5,
+                       facet_hist=4, facet_hist_multi=3, encoder_attention=10)

@@ -44,9 +44,8 @@ class Indexes(NamedTuple):
 
 def build_indexes(build) -> Indexes:
     """`build(module)` fills a fresh index of string_index module `module`
-    from a seeded generator. The JAX index takes its Python live layer
-    (ORAMACORE_NATIVE_LIVE=0), the port's only one, so both slabs come
-    out in one order."""
+    from a seeded generator. Both take their Python live layer
+    (ORAMACORE_NATIVE_LIVE=0), so both slabs come out in one order."""
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv("ORAMACORE_NATIVE_LIVE", "0")
         return Indexes(build(jsi), build(tsi))

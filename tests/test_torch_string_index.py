@@ -63,11 +63,12 @@ def build(module, stage, monkeypatch):
 
 class Pair:
     """The JAX index `j`, the port's `t`, and whether their live slabs
-    must agree posting for posting (`exact_live`). The JAX package's
-    native live accumulator numbers a path's live terms in its own order,
-    so with it the live part of the slab holds the same postings per term
-    in another order; the Python live layer, the port's only one, gives
-    the same order."""
+    must agree posting for posting (`exact_live`). Both packages index
+    through their native live accumulator by default and through their
+    Python live layer with ORAMACORE_NATIVE_LIVE=0. The native one
+    numbers a path's live terms in its own order, so where one side
+    takes it and the other does not, the live part of the slab holds the
+    same postings per term in another order."""
 
     def __init__(self, j, t, exact_live):
         self.j, self.t, self.exact_live = j, t, exact_live
@@ -85,8 +86,8 @@ class Pair:
 
 @pytest.fixture(params=["native-default", "python-live"])
 def live_layer(request, monkeypatch):
-    """The JAX index takes its native live accumulator where it loads
-    (the default), and its Python live layer."""
+    """Both indexes take their native live accumulator (the default; the
+    JAX one where it loads), or their Python live layer."""
     if request.param == "python-live":
         monkeypatch.setenv("ORAMACORE_NATIVE_LIVE", "0")
     return request.param
@@ -96,7 +97,7 @@ def live_layer(request, monkeypatch):
 def pair(request, live_layer, monkeypatch):
     stage = STAGES[request.param]
     j, t = build(jsi, stage, monkeypatch), build(tsi, stage, monkeypatch)
-    return Pair(j, t, live_layer == "python-live" or j._native_live is None
+    return Pair(j, t, (j._native_live is None) == (t._native_live is None)
                 or stage < STAGES["live"])
 
 
