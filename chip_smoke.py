@@ -79,7 +79,18 @@ launch counts set to 0 just before it and read just after:
   into a `VectorIndex`; the shared BM25 batch (B=256) of query strings
   planned by `query_tokens`, its `score_ranges_accumulate` launches
   against the plain version, flat and IVF search (B=64) and the fused
-  hybrid (B=8).
+  hybrid (B=8);
+- training: the attention's backward kernels
+  (`encoder_attention_backward_dq`, `_dkv`) against their plain version
+  in f64 at the cases of `oramacore_tpu_torch/benches/train_bench.py`
+  (timed beside the backward of `scaled_dot_product_attention`), then
+  SemanticBase (4 layers, width 256, 8 heads of 32) trained through
+  `oramacore_tpu_torch/train/semantic_encoder.py` at the defaults of
+  `scripts/train_semantic_encoder_v2.py` (1,500 steps of 64 pairs of 16
+  tokens, seed 0), the run's first steps held card against CPU, and the
+  trained checkpoint saved under `build/trained/`, loaded through
+  `load_torch_encoder`, checked (probes, synonyms, phrases) and searched
+  with.
 
 Each `torch.profiler` reading is held to the wrappers' launch counts of
 the same call (`profile_once`): a profile that misses a launch gives no
@@ -194,6 +205,14 @@ INGEST_VEC_B = 64         # embedded queries a flat / IVF batch
 INGEST_HYBRID_SIM = 0.2   # the hybrid's vector similarity threshold
 N_INGEST_CHECKED = 16     # BM25 queries held against the reference scorer
 
+# phase 16: training the text encoder (train/semantic_encoder.py)
+TRAIN_SEED = 16
+BWD_TOL = 5e-5            # the backward kernels against their f64 reference
+TRAIN_COMPARE = 10        # first steps of the run held card against CPU
+TRAIN_LOSS_TOL = 1e-4     # |loss| card against CPU at each of those steps
+TRAIN_PARAM_TOL = 1e-5    # |parameter| card against CPU after them
+TRAIN_PASSAGES = 512      # passages embedded with the trained model
+
 # Every ported kernel entry point: its wrapper module, the CUDA source, the
 # TPU kernel (or, with jitted=True, the jitted JAX function) it replaces,
 # and the path whose run gives its launch count.
@@ -236,6 +255,18 @@ KERNELS = (
          source="oramacore_tpu_torch/ops/csrc/encoder_attention.cu",
          replaces="oramacore_tpu/embeddings/flax_encoder.py:69", jitted=True,
          path="encoder"),
+    # the attention's gradient, which JAX's autodiff derives inside the
+    # jitted training step
+    dict(name="encoder_attention_backward_dq",
+         module="oramacore_tpu_torch.ops.attention", route="cuda",
+         source="oramacore_tpu_torch/ops/csrc/encoder_attention_backward.cu",
+         replaces="scripts/train_semantic_encoder_v2.py:304", jitted=True,
+         path="train"),
+    dict(name="encoder_attention_backward_dkv",
+         module="oramacore_tpu_torch.ops.attention", route="cuda",
+         source="oramacore_tpu_torch/ops/csrc/encoder_attention_backward.cu",
+         replaces="scripts/train_semantic_encoder_v2.py:304", jitted=True,
+         path="train"),
 )
 
 
@@ -795,6 +826,8 @@ KERNEL_FUNCTIONS = {
     "facet_hist": "facet_hist_kernel",
     "facet_hist_multi": "facet_hist_multi_kernel",
     "encoder_attention": "encoder_attention_kernel",
+    "encoder_attention_backward_dq": "attention_dq_kernel",
+    "encoder_attention_backward_dkv": "attention_dkv_kernel",
 }
 
 
@@ -2053,9 +2086,10 @@ def device_ms(fn):
     return res, start.elapsed_time(end)
 
 
-def synonym_checks(encs):
+def synonym_checks(encs, base="SemanticBase", mini="SemanticMini"):
     """tests/test_semantic_encoder.py's synonym (:46-56) and phrase
-    (:59-88) checks on the card's vectors."""
+    (:59-88) checks on the card's vectors: `encs` maps a name to an
+    encoder; the phrase margin of `base` must beat `mini`'s."""
     for name, enc in encs.items():
         v = dict(zip(ENC_SYNONYMS, enc.encode(ENC_SYNONYMS)))
         cos = {pair: float(v[pair[0]] @ v[pair[1]]) for pair in (
@@ -2076,10 +2110,9 @@ def synonym_checks(encs):
               f"{name}: each phrase query ranks its paraphrase first")
         margins[name] = float(np.mean(np.diag(S) - np.max(
             S - np.eye(n) * 9.0, axis=1)))
-    check(margins["SemanticBase"] > margins["SemanticMini"] + 0.02
-          and margins["SemanticBase"] > 0.4,
-          f"phrase margins: SemanticBase {margins['SemanticBase']:.4f}, "
-          f"SemanticMini {margins['SemanticMini']:.4f}")
+    check(margins[base] > margins[mini] + 0.02 and margins[base] > 0.4,
+          f"phrase margins: {base} {margins[base]:.4f}, {mini} "
+          f"{margins[mini]:.4f}")
 
 
 def embed(svc, texts, intent, model="SemanticBase"):
@@ -2639,6 +2672,242 @@ def phase_ingest(device, card):
           f" GiB [{card}]", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# training the text encoder (phase 16)
+# ---------------------------------------------------------------------------
+
+def backward_checks(device, card):
+    """Both backward kernels against their f64 reference at every case of
+    benches/train_bench.py (the training call first), each timed as
+    CUDA-graph replays, the pair and each part alone, warm and L2-cold,
+    beside its bound (bytes against FLOPs at the f32 FFMA rate: the
+    kernels are SIMT f32), the plain version and the backward of
+    scaled_dot_product_attention on the same inputs, also CUDA-graph
+    replays, warm and L2-cold. The kernels line takes the training call,
+    L2-cold."""
+    import torch
+
+    from oramacore_tpu_torch.benches import (
+        H100_F32_OPS_PER_S,
+        bound_ms,
+        time_cuda,
+        time_graph,
+    )
+    from oramacore_tpu_torch.benches.pruned_bench import time_cold
+    from oramacore_tpu_torch.benches.train_bench import (
+        BACKWARD_CASES,
+        backward_inputs,
+        backward_reference,
+        backward_work,
+        SdpaBackward,
+    )
+    from oramacore_tpu_torch.ops import attention as at
+
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=device)
+    out, errs = {}, {"dq": [], "dkv": []}
+    for i, (label, case) in enumerate(BACKWARD_CASES.items()):
+        B, L, H, hd = case["B"], case["L"], case["H"], case["hd"]
+        D = H * hd
+        qkv, mask, dctx = backward_inputs(case, 160 + i, device)
+        got = at.encoder_attention_backward(qkv, mask, dctx, H)
+        ref = backward_reference(qkv, mask, dctx, H)
+        sync(device)
+        diff = (got.double() - ref).abs()
+        err = {"dq": float(diff[..., :D].max()),
+               "dkv": float(diff[..., D:].max())}
+        for k, v in err.items():
+            errs[k].append(v)
+        check(bool(torch.isfinite(got).all()) and torch.allclose(
+            got.double(), ref, rtol=BWD_TOL, atol=BWD_TOL),
+            f"encoder_attention_backward [{label}]: dQ, dK, dV within "
+            f"rtol/atol {BWD_TOL} of the f64 reference (max abs err dQ "
+            f"{err['dq']:.3g}, dK/dV {err['dkv']:.3g}; largest |grad| "
+            f"{float(ref.abs().max()):.3g})")
+        work = backward_work(B, L, H, hd)
+        bounds = {k: bound_ms(*w, H100_F32_OPS_PER_S)
+                  for k, w in work.items()}
+        dqkv, stats = at.launch_backward(qkv, mask, dctx, H)
+        parts = {
+            "total": lambda: at.encoder_attention_backward(qkv, mask, dctx,
+                                                           H),
+            "dq": lambda: at.launch_backward(qkv, mask, dctx, H, ("dq",),
+                                             dqkv, stats),
+            "dkv": lambda: at.launch_backward(qkv, mask, dctx, H, ("dkv",),
+                                              dqkv, stats),
+        }
+        warm = {k: time_graph(fn, 10) for k, fn in parts.items()}
+        cold = {k: time_cold(fn, flush, 5) for k, fn in parts.items()}
+        plain_ms = time_cuda(lambda: at.encoder_attention_backward_plain(
+            qkv, mask, dctx, H), 3)
+        lib = SdpaBackward(qkv, mask, dctx, H, flush)
+        lib_warm = time_cuda(lib.graph.replay, 10)
+        lib_cold = time_cuda(lib.cold_graph.replay, 5) - time_graph(
+            flush.zero_, 5)
+        lib_err = float((lib.dqkv.double() - ref).abs().max())
+        del lib
+        print(f"  encoder_attention_backward [{label}]: both kernels "
+              f"{warm['total']:.4f} ms warm, {cold['total']:.4f} ms L2-cold "
+              f"(dq {warm['dq']:.4f} / {cold['dq']:.4f}, dkv "
+              f"{warm['dkv']:.4f} / {cold['dkv']:.4f}); plain "
+              f"{plain_ms:.4f} ms; library: autograd.grad of "
+              f"scaled_dot_product_attention (additive f32 mask), backward "
+              f"alone {lib_warm:.4f} ms warm, {lib_cold:.4f} ms L2-cold "
+              f"(max abs err {lib_err:.3g}); bound "
+              f"{bounds['total'][0]:.4f} ms ({bounds['total'][1]}: "
+              f"{work['total'][0] / 1e6:.1f} MB, "
+              f"{work['total'][1] / 1e9:.2f} GFLOP at the FFMA rate; dq "
+              f"{bounds['dq'][0]:.4f}, dkv {bounds['dkv'][0]:.4f}) [{card}]",
+              flush=True)
+        share(f"encoder_attention_backward [{label}], L2-cold",
+              cold["total"], *bounds["total"], card)
+        if i == 0:
+            for k in ("dq", "dkv"):
+                out[f"encoder_attention_backward_{k}"] = dict(
+                    ms=cold[k], plain_ms=plain_ms, bound_ms=bounds[k][0],
+                    bound_by=bounds[k][1], library_ms=lib_cold)
+    del flush
+    for k in ("dq", "dkv"):
+        out[f"encoder_attention_backward_{k}"]["max_abs_err"] = max(errs[k])
+    return out
+
+
+def phase_train(device, card):
+    """Phase 16: the backward kernels against their plain version and
+    timed; SemanticBase trained at the script's defaults through
+    train.semantic_encoder (1,500 steps, seed 0), launch counts checked,
+    steady step time, one profiled step, the validation probes; the first
+    steps held card against CPU; the checkpoint saved under build/,
+    loaded through load_torch_encoder, checked (probes, synonyms,
+    phrases) and searched with. Returns (timings, the run's launch
+    counts)."""
+    import torch
+
+    from oramacore_tpu_torch.benches.encoder_bench import (
+        passages,
+        vocab_words,
+    )
+    from oramacore_tpu_torch.benches.train_bench import StepTimer
+    from oramacore_tpu_torch.embeddings import encoder as em
+    from oramacore_tpu_torch.index.vector_index import (
+        VectorIndex,
+        VectorIndexConfig,
+    )
+    from oramacore_tpu_torch.train import semantic_encoder as se
+
+    timings = backward_checks(device, card)
+
+    cfg = se.TrainConfig()
+    print(f"  training: {cfg} (the script's defaults)", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer = se.SemanticTrainer(cfg, device)
+    timer = StepTimer()
+
+    def run():
+        timer.mark()
+        return trainer.run(log=lambda line: print(f"  {line}", flush=True),
+                           on_step=timer.mark)
+
+    logged, launches = counted("training", run)
+    secs = time.perf_counter() - t0
+    calls = cfg.steps * 2 * cfg.layers
+    check(all(launches[k] == calls for k in (
+        "encoder_attention", "encoder_attention_backward_dq",
+        "encoder_attention_backward_dkv")),
+        f"{cfg.steps} steps launched encoder_attention and both backward "
+        f"kernels {calls} times each (2 encoder calls x {cfg.layers} "
+        f"layers a step)")
+    step_ms = timer.step_ms()
+    steady = float(np.median(step_ms[10:]))
+    print(f"  {cfg.steps} steps in {secs:.2f} s ({cfg.steps / secs:.1f} "
+          f"steps/s over the whole window, the host's batches included); "
+          f"step (device timeline between steps, after step 10) median "
+          f"{steady:.3f} ms, p90 "
+          f"{float(np.percentile(step_ms[10:], 90)):.3f} ms; peak device "
+          f"memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB "
+          f"[{card}]", flush=True)
+    losses = [row[1] for row in logged]
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"the loss fell from {losses[0]:.4f} to {losses[-1]:.4f} (pair "
+          f"accuracy {logged[0][2]:.3f} -> {logged[-1][2]:.3f})")
+    cos = trainer.validate()
+    check(True, "validation probes: " + ", ".join(
+        f"cos({k.replace('~', ', ')}) {c:.3f}" for k, c in cos.items())
+          + " (car~automobile beats car~doctor by more than 0.2)")
+    batch = trainer.next_batch()
+    # past the schedule's end the rate is 0: these steps move Adam's
+    # moments only, not the parameters
+    before = {k: p.detach().clone() for k, p in
+              trainer.model.named_parameters()}
+    profile_once("one training step", lambda: trainer.step(batch), card)
+    check(all(torch.equal(p, before[k]) for k, p in
+              trainer.model.named_parameters()),
+          "the profiled steps (rate 0 past the schedule) left the trained "
+          "parameters as they were")
+
+    # the first steps of the same run, card against CPU
+    state0 = se.init_state(cfg, len(se.vocab_tokens()),
+                           torch.Generator().manual_seed(se.SEED))
+    on_card = se.SemanticTrainer(cfg, device, state=state0)
+    on_cpu = se.SemanticTrainer(cfg, "cpu", state=state0)
+    worst = 0.0
+    for i in range(TRAIN_COMPARE):
+        b_card, b_cpu = on_card.next_batch(), on_cpu.next_batch()
+        l_card = float(on_card.step(b_card)[0])
+        l_cpu = float(on_cpu.step(b_cpu)[0])
+        worst = max(worst, abs(l_card - l_cpu))
+    got = {k: p.detach().cpu() for k, p in on_card.model.named_parameters()}
+    want = dict(on_cpu.model.named_parameters())
+    pdiff = max(float((got[k] - w.detach()).abs().max())
+                for k, w in want.items())
+    moved = max(float((w.detach() - state0[k]).abs().max())
+                for k, w in want.items())
+    check(worst <= TRAIN_LOSS_TOL and pdiff <= TRAIN_PARAM_TOL,
+          f"{TRAIN_COMPARE} steps on the card (kernels) and on the CPU (plain "
+          f"versions) from one set of parameters and the same batches: losses "
+          f"within {TRAIN_LOSS_TOL} (max |d| {worst:.3g}), parameters within "
+          f"{TRAIN_PARAM_TOL} (max |d| {pdiff:.3g}; the steps moved them up "
+          f"to {moved:.3g})")
+    del on_card, on_cpu
+
+    # serve the trained checkpoint
+    out = os.path.join(ROOT, "build", "trained", "semantic-base-smoke")
+    trainer.save(out)
+    enc = em.load_torch_encoder(out, device)
+    check(enc is not None and enc.dim == cfg.hidden
+          and enc.n_heads == cfg.heads,
+          f"the trained checkpoint saved to build/trained/ and loaded "
+          f"through load_torch_encoder ({cfg.layers} layers, width "
+          f"{enc.dim}, {enc.n_heads} heads)")
+    served = np.stack(enc.encode(se.PROBES))
+    own = trainer.embed(se.PROBES)
+    err = float(np.abs(served - own).max())
+    check(err <= ENC_ATOL and float(served[0] @ served[1])
+          > float(served[0] @ served[2]) + 0.2,
+          f"served probes within {ENC_ATOL} of the trainer's (max |d| "
+          f"{err:.3g}); cos(car, automobile) {float(served[0] @ served[1]):.3f}"
+          f" > cos(car, doctor) {float(served[0] @ served[2]):.3f} + 0.2")
+    mini = em.load_torch_encoder(os.path.join(ROOT, "models", "semantic-mini"),
+                                 device)
+    synonym_checks({"trained SemanticBase": enc, "SemanticMini": mini},
+                   base="trained SemanticBase")
+    words = vocab_words(os.path.join(out, "vocab.txt"))
+    corpus = passages(words, TRAIN_PASSAGES, seed=TRAIN_SEED)
+    qtexts = passages(words, ENC_SEARCH_B * (1 + VEC_STEADY),
+                      seed=TRAIN_SEED + 1, n_words=(2, 4))
+    vecs = np.stack(enc.encode(corpus))
+    vidx = VectorIndex(VectorIndexConfig(dim=enc.dim), device)
+    for d, v in enumerate(vecs):
+        vidx.insert(d, [v])
+    vidx.commit()
+    qb = [np.stack(enc.encode(qtexts[j * ENC_SEARCH_B:(j + 1) * ENC_SEARCH_B]))
+          for j in range(1 + VEC_STEADY)]
+    print(f"  {len(corpus)} passages and {len(qtexts)} queries embedded with "
+          f"the trained model", flush=True)
+    phase_flat(vidx, bf16_round(vecs), qb, device, card)
+    return timings, launches
+
+
 def sync(device):
     import torch
 
@@ -2660,7 +2929,7 @@ def main() -> int:
         build_index,
         make_batches,
     )
-    from oramacore_tpu_torch.ops import _build
+    from oramacore_tpu_torch.ops import _build, attention
 
     print("[1] device", flush=True)
     require_cuda()
@@ -2676,6 +2945,7 @@ def main() -> int:
     _build.load_all()
     for mod in wrapper_modules():
         mod.load_kernels()
+    attention.load_backward_kernels()
     for name, (seconds, log) in sorted(_build.BUILD_LOG.items()):
         built = f"built by nvcc in {seconds:.1f} s" if log else \
             "loaded from build/kernels/ (built earlier from the same sources)"
@@ -2810,6 +3080,16 @@ def main() -> int:
     t_phase = time.perf_counter()
     phase_ingest(device, card)
     print(f"  phase 15: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    print("[16] training: SemanticBase at the script's defaults (1,500 steps "
+          "of B=64 pairs, L=16) through the attention kernels forward and "
+          "backward, then the trained checkpoint served", flush=True)
+    t_phase = time.perf_counter()
+    train_timings, path_launches["train"] = phase_train(device, card)
+    timings.update(train_timings)
+    print(f"  phase 16: {time.perf_counter() - t_phase:.1f} s", flush=True)
 
     kernels = {"kernels": [{
         "name": k["name"],

@@ -6,9 +6,9 @@ cases and the ingest corpus of `chip_smoke.py` phase 14.
   H=4, hd=32; at B=1024, the largest `encode` batch phase 14 runs, and at
   the query buckets), BGEBase's geometry (H=12, hd=64, L up to 512, whose
   checkpoint is not in the repository), BGESmall's (H=12, hd=32 at
-  L=512, the registry's head width 32 at full length) and the edge
-  cases: batch rows whose mask is all zero (a power-of-two batch's
-  padding) and L=1.
+  L=512, the registry's head width 32 at full length), head widths 16
+  and 128 (which no registry model has), and the edge cases: batch rows
+  whose mask is all zero (a power-of-two batch's padding) and L=1.
 - `attention_inputs`: seeded f32 qkv and an int32 key mask for a case;
   every row attends a prefix of its keys, of a length drawn in [1, L],
   and the case's last `padded` rows attend nothing.
@@ -35,6 +35,15 @@ ATTENTION_CASES = {
                                                padded=1),
     "BGEBase B=4 L=77, 1 padded row": dict(B=4, L=77, H=12, hd=64, padded=1),
     "BGESmall B=8 L=512": dict(B=8, L=512, H=12, hd=32, padded=0),
+    # head widths 16 and 128, which no registry model has (the kernel takes
+    # them as JAX's bert_forward serves any width): D=256 at B=1024, L=64,
+    # and D=1024 at B=8, L=512; then hd 128's two short tilings
+    "hd 16 B=1024 L=64 H=16": dict(B=1024, L=64, H=16, hd=16, padded=0),
+    "hd 128 B=8 L=512 H=8": dict(B=8, L=512, H=8, hd=128, padded=0),
+    "hd 128 B=64 L=16 H=8, 3 padded rows": dict(B=64, L=16, H=8, hd=128,
+                                                padded=3),
+    "hd 128 B=64 L=32 H=8, 2 padded rows": dict(B=64, L=32, H=8, hd=128,
+                                                padded=2),
 }
 
 

@@ -4,10 +4,11 @@ oramacore_tpu/embeddings/flax_encoder.py).
 `BertEncoder` carries the math of the JAX package's `bert_forward`
 (`flax_encoder.py:69-119`): token + position + `type_emb[0]`
 embeddings, LayerNorm (biased variance, eps 1e-12), then per layer the
-fused Q/K/V projection, the attention (`ops/attention.py`'s hand-written
-kernel on the card, its plain version on the CPU, where it takes any
-head width; on the card a head width outside {32, 64} raises, as the
-kernel's wrapper does), the output projection
+fused Q/K/V projection, the attention (`ops/attention.py`'s
+`EncoderAttention`: the hand-written kernels, forward and backward, on
+the card, their plain versions on the CPU, where any head width runs; on
+the card a head width outside {16, 32, 64, 128} raises, as the kernels'
+wrappers do), the output projection
 and LayerNorm, a tanh-approximated GELU feed-forward (JAX's default,
 where HF BERT uses the exact erf) and LayerNorm; then the mean over the
 attended tokens (denominator clamped at 1e-9) and the L2 norm (clamped at
@@ -17,7 +18,9 @@ attended tokens (denominator clamped at 1e-9) and the L2 norm (clamped at
 Weights come from the JAX package's parameter dict (`params_from_jax`,
 the layout of `_convert_bert_weights`, numpy arrays) or from a
 checkpoint's `model.safetensors` by its HF key names
-(`state_from_safetensors`). `TorchTextEncoder(model_path, device)` reads
+(`state_from_safetensors`; `state_to_hf` is its inverse, for the
+trainer's save). Parameters are frozen; `set_trainable` lets a trainer
+take their gradients. `TorchTextEncoder(model_path, device)` reads
 a checkpoint directory (`config.json`, `vocab.txt`,
 `tokenizer_config.json`, `model.safetensors`) and pads each batch to the
 JAX encoder's buckets: L to `min(round_up_pow2(L, 16), max_len)`, B to a
@@ -44,7 +47,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from .. import resolve_device
-from ..ops.attention import HEAD_DIMS, encoder_attention, encoder_attention_plain
+from ..ops.attention import (
+    HEAD_DIMS,
+    EncoderAttention,
+    encoder_attention_plain,
+)
 from ..ops.bm25 import round_up_pow2
 from . import safetensors_io
 from .wordpiece import WordPieceTokenizer
@@ -137,6 +144,29 @@ def state_from_safetensors(path: str) -> Dict[str, torch.Tensor]:
     return params_from_jax(params)
 
 
+def state_to_hf(state: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """The inverse of `state_from_safetensors`: the port's state as f32
+    numpy arrays under a `BertModel`'s HF key names (torch `Linear`
+    layout, (out, in)), the fused q/k/v split back into query, key and
+    value. No `pooler.*` key: the port has no pooler."""
+    def a(t):
+        return np.ascontiguousarray(t.detach().cpu().numpy(), np.float32)
+
+    out = {k: a(state[name]) for k, name in _HF_EMB.items()}
+    n_layers = len({k.split(".")[1] for k in state if k.startswith("layers.")})
+    for i in range(n_layers):
+        p = f"layers.{i}."
+        layer = {k: state[p + k] for k in _LAYER}
+        D = state[p + "qkv_w"].shape[0]
+        for j, n in enumerate("qkv"):
+            layer[f"{n}_w"] = state[p + "qkv_w"][:, j * D:(j + 1) * D]
+            layer[f"{n}_b"] = state[p + "qkv_b"][j * D:(j + 1) * D]
+        for k, (name, transposed) in _HF_LAYER.items():
+            t = layer[name]
+            out[f"encoder.layer.{i}.{k}"] = a(t.T if transposed else t)
+    return out
+
+
 class BertLayer(nn.Module):
     def __init__(self, D: int, F_: int):
         super().__init__()
@@ -157,9 +187,10 @@ class BertEncoder(nn.Module):
                  F_: int, n_layers: int, n_heads: int):
         super().__init__()
         self.n_heads = n_heads
-        # the kernel's wrapper; a check of the card's f32 forward against
-        # an f64 copy sets the copy's to encoder_attention_plain
-        self.attention = encoder_attention
+        # the kernels with their gradient; a check of the card's f32
+        # forward against an f64 copy sets the copy's to
+        # encoder_attention_plain
+        self.attention = EncoderAttention.apply
         for name, shape in dict(tok_emb=(vocab, D), pos_emb=(max_pos, D),
                                 type_emb=(n_types, D), emb_ln_g=(D,),
                                 emb_ln_b=(D,)).items():
@@ -178,6 +209,12 @@ class BertEncoder(nn.Module):
                     state["type_emb"].shape[0], D, F_, n_layers, n_heads)
         model.load_state_dict(state, strict=True)
         return model.eval()
+
+    def set_trainable(self, on: bool = True) -> "BertEncoder":
+        """Every parameter takes (or stops taking) a gradient."""
+        for p in self.parameters():
+            p.requires_grad_(on)
+        return self
 
     def _ln(self, x, g, b):
         return F.layer_norm(x, (x.shape[-1],), g, b, eps=LN_EPS)

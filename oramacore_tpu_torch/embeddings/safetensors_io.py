@@ -1,5 +1,5 @@
-"""A reader of the safetensors format, by hand (the card's machine has no
-`safetensors` package).
+"""A reader and a writer of the safetensors format, by hand (the card's
+machine has no `safetensors` package).
 
 A file is an 8-byte little-endian header length N, N bytes of a JSON
 header, then the raw little-endian tensor data. The header maps each
@@ -13,6 +13,11 @@ exactly: its 16 bits are the f32's high half) and from `load_torch` as
 torch.bfloat16, both through the raw uint16 bits. A truncated file, a
 bad header, offsets that overlap, run past the end or disagree with the
 shape and dtype raise ValueError.
+
+`save_numpy` writes F32, I64 and I32 arrays with `{"format": "pt"}` as
+the metadata (the loaders of `transformers` refuse a file without it),
+the header padded with spaces to a multiple of 8 bytes, as the format's
+own writer pads it.
 """
 
 from __future__ import annotations
@@ -121,3 +126,32 @@ def load_torch(path: str) -> Dict[str, torch.Tensor]:
         else:
             out[name] = torch.from_numpy(arr)
     return out
+
+
+# numpy dtype -> tag, for the writer
+_TAGS = {np.dtype("float32"): "F32", np.dtype("int64"): "I64",
+         np.dtype("int32"): "I32"}
+
+
+def save_numpy(path: str, tensors: Dict[str, np.ndarray]) -> None:
+    """Write the arrays (float32, int64 or int32; any byte order) as one
+    safetensors file, in name order, little-endian."""
+    header: Dict[str, dict] = {"__metadata__": {"format": "pt"}}
+    blobs, offset = [], 0
+    for name in sorted(tensors):
+        arr = np.asarray(tensors[name])
+        tag = _TAGS.get(arr.dtype.newbyteorder("="))
+        if tag is None:
+            raise ValueError(f"safetensors: {name}: cannot write {arr.dtype}")
+        data = np.ascontiguousarray(arr, dtype=_DTYPES[tag]).tobytes()
+        header[name] = {"dtype": tag, "shape": list(arr.shape),
+                        "data_offsets": [offset, offset + len(data)]}
+        blobs.append(data)
+        offset += len(data)
+    head = json.dumps(header, separators=(",", ":")).encode("utf-8")
+    head += b" " * (-len(head) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(head)))
+        f.write(head)
+        for data in blobs:
+            f.write(data)

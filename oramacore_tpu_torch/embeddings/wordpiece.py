@@ -20,9 +20,15 @@ settings of the checkpoint's `tokenizer_config.json`, step by step:
    than 100 characters, or one that cannot be covered, is `[UNK]`.
 
 `__call__` adds `[CLS] ... [SEP]`, truncates to `max_len` with the two
-specials, pads with `[PAD]` to the longest in the batch and returns int64
-`input_ids` and `attention_mask`, as `tokenizer(texts, padding=True,
+specials, pads with `[PAD]` to the longest in the batch (or, with
+`padding="max_length"`, to `max_len`) and returns int64 `input_ids` and
+`attention_mask`, as `tokenizer(texts, padding=True (or "max_length"),
 truncation=True, max_length=max_len)` does.
+
+`save_pretrained(out_dir, tokens)` writes a checkpoint's tokenizer files
+(`vocab.txt`, `tokenizer_config.json`, `special_tokens_map.json`) as
+`BertTokenizer(vocab, do_lower_case=True).save_pretrained` writes them,
+so both this module and `transformers` load them.
 """
 
 from __future__ import annotations
@@ -247,19 +253,70 @@ class WordPieceTokenizer:
         """The ids of `tokenize(text)`, without the specials around them."""
         return [self.vocab.get(t, self.unk_id) for t in self.tokenize(text)]
 
-    def __call__(self, texts: Sequence[str],
-                 max_len: int) -> Tuple[np.ndarray, np.ndarray]:
+    def __call__(self, texts: Sequence[str], max_len: int,
+                 padding: str = "longest") -> Tuple[np.ndarray, np.ndarray]:
         """(input_ids, attention_mask), int64[B, L] with L the longest
-        `[CLS] ids [SEP]` of the batch after truncation to `max_len`."""
+        `[CLS] ids [SEP]` of the batch after truncation to `max_len`
+        (padding "longest"), or L = max_len (padding "max_length")."""
         if max_len < 3:
             raise ValueError("max_len must leave room for [CLS], [SEP] and "
                              "a token")
+        if padding not in ("longest", "max_length"):
+            raise ValueError(f"padding {padding!r} is not 'longest' or "
+                             f"'max_length'")
         rows = [[self.cls_id] + self.ids(t)[:max_len - 2] + [self.sep_id]
                 for t in texts]
-        L = max((len(r) for r in rows), default=0)
+        L = max_len if padding == "max_length" else max(
+            (len(r) for r in rows), default=0)
         ids = np.full((len(rows), L), self.pad_id, np.int64)
         mask = np.zeros((len(rows), L), np.int64)
         for i, r in enumerate(rows):
             ids[i, :len(r)] = r
             mask[i, :len(r)] = 1
         return ids, mask
+
+
+SPECIAL_TOKENS = ("[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]")
+
+
+def save_pretrained(out_dir: str, tokens: Sequence[str]) -> None:
+    """A checkpoint's tokenizer files for the vocabulary `tokens` (one a
+    line, in id order, which must open with SPECIAL_TOKENS): what
+    `BertTokenizer(vocab.txt, do_lower_case=True).save_pretrained` writes,
+    less the version stamps."""
+    tokens = list(tokens)
+    if tuple(tokens[:len(SPECIAL_TOKENS)]) != SPECIAL_TOKENS:
+        raise ValueError(f"the vocabulary must open with {SPECIAL_TOKENS}")
+    if len(set(tokens)) != len(tokens):
+        raise ValueError("a token is listed twice")
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "vocab.txt"), "w",
+              encoding="utf-8") as f:
+        f.write("".join(t + "\n" for t in tokens))
+    names = dict(cls_token="[CLS]", mask_token="[MASK]", pad_token="[PAD]",
+                 sep_token="[SEP]", unk_token="[UNK]")
+    config = {
+        "added_tokens_decoder": {
+            str(i): {"content": t, "lstrip": False, "normalized": False,
+                     "rstrip": False, "single_word": False, "special": True}
+            for i, t in enumerate(SPECIAL_TOKENS)},
+        "clean_up_tokenization_spaces": True,
+        "cls_token": "[CLS]",
+        "do_basic_tokenize": True,
+        "do_lower_case": True,
+        "extra_special_tokens": {},
+        "mask_token": "[MASK]",
+        "model_max_length": 1000000000000000019884624838656,
+        "never_split": None,
+        "pad_token": "[PAD]",
+        "sep_token": "[SEP]",
+        "strip_accents": None,
+        "tokenize_chinese_chars": True,
+        "tokenizer_class": "BertTokenizer",
+        "unk_token": "[UNK]",
+    }
+    for name, obj in (("tokenizer_config.json", config),
+                      ("special_tokens_map.json", names)):
+        with open(os.path.join(out_dir, name), "w", encoding="utf-8") as f:
+            json.dump(obj, f, indent=2, ensure_ascii=False)
+            f.write("\n")

@@ -28,6 +28,13 @@ a pruned plan (`facet_counts_pruned`, with the exact match count of the
 same reps in `facet_match_count`; multi-valued columns come as
 `pair_table`s), and `HybridSearchTopK.search_topk_hybrid_int8_pruned` is
 the pruned hybrid over the int8 IVF layout.
+
+The vectors these executors search come from the port's text encoder
+(`embeddings/encoder.py`), which the port also trains
+(`train/semantic_encoder.py`: the contrastive loop of
+`scripts/train_semantic_encoder_v2.py`, with the attention's forward and
+backward kernels on the card); a trained checkpoint loads through
+`load_torch_encoder` like a bundled one.
 """
 
 from __future__ import annotations

@@ -15,12 +15,12 @@ each) and the key mask int32[B, L], and returns ctx f32[B, L, D].
 `encoder_attention_plain` is the same math step by step in PyTorch, in
 the dtype it is given (the card's check runs it in f64).
 
-- Supported: 1 <= L <= 512 and head width hd in {32, 64}, which cover
-  every model of the registry; anything else raises ValueError, on every
-  device. Nothing gives way to the plain version on the card. The plain
-  version takes any head width: `embeddings/encoder.BertEncoder` calls it
-  for the others on CPU tensors, as JAX's `bert_forward` serves any
-  width; on the card those widths raise until the kernel takes them.
+- Supported: 1 <= L <= 512 and head width hd in {16, 32, 64, 128} (the
+  registry's models have 32 and 64); anything else raises ValueError, on
+  every device. Nothing gives way to the plain version on the card. The
+  plain version takes any head width: `embeddings/encoder.BertEncoder`
+  calls it for the others (such as 8 or 96) on CPU tensors, as JAX's
+  `bert_forward` serves any width; on the card those widths raise.
 - A batch row whose mask is all zero (the padding rows of a power-of-two
   batch) gets the mean of V in every query row, as in JAX: -1e9 is added
   to every score, and at 1e9 the f32 ulp is 64, so all its scores round
@@ -31,6 +31,16 @@ The kernel runs both products on the tensor cores in 3xTF32 (each f32
 operand split into two tf32 parts, three products summed in f32), which
 keeps f32 accuracy; a single tf32 pass is never used. `tiles_for` is its
 tiling, chosen here so the CPU tests reach it.
+
+The gradient (`csrc/encoder_attention_backward.cu`, what JAX's autodiff
+derives from those lines in `scripts/train_semantic_encoder_v2.py`'s
+jitted `train_step`): `encoder_attention_backward(qkv, mask, dctx,
+n_heads)` returns dqkv f32[B, L, 3D] in the fused layout, by two kernels
+in stream order (`encoder_attention_backward_dq`: dQ and each query row's
+max, sum and delta = rowsum(P * dP); `encoder_attention_backward_dkv`: dK
+and dV from those). `encoder_attention_backward_plain` is the vjp step by
+step. `EncoderAttention` is the autograd Function around both directions,
+which `BertEncoder` calls: under `inference_mode` only its forward runs.
 
 A CPU tensor runs the plain version. A CUDA tensor launches the kernel or
 raises; it never falls back.
@@ -48,12 +58,13 @@ from . import _build
 from .score_windows import _device_of, _raise_on
 
 MAX_LEN = 512
-HEAD_DIMS = (32, 64)
+HEAD_DIMS = (16, 32, 64, 128)
 MASKED = -1e9
 
 # Kernel launches, counted only where the kernel is enqueued (never for
 # the plain version). Reset with reset_launch_counts.
-LAUNCHES = {"encoder_attention": 0}
+LAUNCHES = {"encoder_attention": 0, "encoder_attention_backward_dq": 0,
+            "encoder_attention_backward_dkv": 0}
 
 # the kernel's tiling (csrc/encoder_attention.cu): a block of 4 warps, 16
 # query rows a warp; per (b, h) a ring of at most 2 raw stages of K, V and
@@ -63,11 +74,14 @@ _WARPS = 4
 _THREADS = 32 * _WARPS
 _SMEM_PER_SM = 227 * 1024           # shared memory a block may use on the H100
 _REGS_PER_SM = 65_536
-# blocks an SM the launch bound asks ptxas to fit (168 registers a thread)
-_MIN_BLOCKS = 3
-# key tile of 64 query rows a block (W = 4), by head width: at hd 64 the
-# split stage of 64 keys would leave room for one block an SM
-_LONG_KEY_TILE = {32: 64, 64: 32}
+# blocks an SM the launch bound asks ptxas to fit, by head width: 3 (168
+# registers a thread); 2 at hd 128 (255), whose O accumulator alone takes
+# 64 registers a thread
+_MIN_BLOCKS = {16: 3, 32: 3, 64: 3, 128: 2}
+# key tile of 64 query rows a block (W = 4), by head width: at hd 64 a
+# split stage of 64 keys, and at hd 128 one of 32, would leave room for
+# one block an SM
+_LONG_KEY_TILE = {16: 64, 32: 64, 64: 32, 128: 16}
 
 
 class Tiles(NamedTuple):
@@ -92,8 +106,9 @@ def tiles_for(B: int, n_heads: int, L: int, hd: int) -> Tiles:
     """The kernel's tiling of a call: W warps a (b, h) and key tiles of KT
     = 16 W keys up to L = 32 (so a short sequence neither computes nor
     stages rows and keys it lacks, and a block serves 4 / W pairs), then
-    W = 4 (64 query rows) with KT = 64 at hd 32 and 32 at hd 64, and a
-    two-stage ring, so tile t + 1 is copied while tile t is computed."""
+    W = 4 (64 query rows) with KT = 64 at hd 16 and 32, 32 at hd 64 and
+    16 at hd 128 (`_LONG_KEY_TILE`), and a two-stage ring, so tile t + 1
+    is copied while tile t is computed."""
     if hd not in HEAD_DIMS:
         raise ValueError(f"head width {hd} is not one of {HEAD_DIMS}")
     if not 1 <= L <= MAX_LEN:
@@ -108,13 +123,14 @@ def tiles_for(B: int, n_heads: int, L: int, hd: int) -> Tiles:
     split = KT * (2 * hd + 16) + KT // 2 * (4 * hd + 8) + KT
     smem = pairs * (stages * raw + split) * 4
     # ptxas gives whole 8-register steps a thread
-    max_regs = min(255, _REGS_PER_SM // (_THREADS * _MIN_BLOCKS) // 8 * 8)
+    max_regs = min(255, _REGS_PER_SM // (_THREADS * _MIN_BLOCKS[hd]) // 8 * 8)
     per_sm = min(_REGS_PER_SM // (_THREADS * max_regs),
                  _SMEM_PER_SM // smem, 2048 // _THREADS)
     return Tiles(W, KT, pairs, q_tiles, stages, grid, smem, max_regs, per_sm)
 
 
 _lib = None
+_bwd_lib = None
 
 
 def reset_launch_counts() -> None:
@@ -123,7 +139,7 @@ def reset_launch_counts() -> None:
 
 
 def load_kernels() -> ctypes.CDLL:
-    """Build (first call) and bind the CUDA library."""
+    """Build (first call) and bind the forward's CUDA library."""
     global _lib
     if _lib is None:
         lib = _build.load("encoder_attention")
@@ -134,6 +150,22 @@ def load_kernels() -> ctypes.CDLL:
         lib.encoder_attention_launch.restype = ctypes.c_int
         _lib = lib
     return _lib
+
+
+def load_backward_kernels() -> ctypes.CDLL:
+    """Build (first call) and bind the backward's CUDA library, which only
+    training launches."""
+    global _bwd_lib
+    if _bwd_lib is None:
+        lib = _build.load("encoder_attention_backward")
+        ptr, i64 = ctypes.c_void_p, ctypes.c_int64
+        for fn in (lib.encoder_attention_backward_dq_launch,
+                   lib.encoder_attention_backward_dkv_launch):
+            fn.argtypes = [ptr, ptr, ptr, ptr, ptr, i64, i64, i64, i64,
+                           ctypes.c_float, ptr]
+            fn.restype = ctypes.c_int
+        _bwd_lib = lib
+    return _bwd_lib
 
 
 def check_shapes(qkv: torch.Tensor, mask: torch.Tensor,
@@ -176,15 +208,8 @@ def encoder_attention_plain(qkv: torch.Tensor, mask: torch.Tensor,
     """Plain PyTorch version: the JAX code step by step, in qkv's dtype,
     at any head width (`BertEncoder` sends it, on CPU tensors, the widths
     the kernel refuses)."""
-    B, L, D, hd = plain_shapes(qkv, mask, n_heads)
-    q, k, v = (t.reshape(B, L, n_heads, hd) for t in qkv.split(D, dim=-1))
-    # a 0-d tensor divisor divides (a Python scalar would multiply by the
-    # reciprocal on the card); f32(sqrt(hd)) as JAX rounds np.sqrt(hd)
-    div = torch.tensor(np.sqrt(hd), dtype=qkv.dtype, device=qkv.device)
-    att = torch.einsum("bqhd,bkhd->bhqk", q, k) / div
-    zero = torch.zeros((), dtype=qkv.dtype, device=qkv.device)
-    neg = torch.where(mask[:, None, None, :] > 0, zero, zero + MASKED)
-    att = torch.softmax(att + neg, dim=-1)
+    B, L, D, _ = plain_shapes(qkv, mask, n_heads)
+    _, _, v, att, _ = attention_probs(qkv, mask, n_heads)
     return torch.einsum("bhqk,bkhd->bqhd", att, v).reshape(B, L, D)
 
 
@@ -228,3 +253,147 @@ def launch(qkv: torch.Tensor, mask: torch.Tensor, n_heads: int,
     _raise_on(err, "encoder_attention")
     LAUNCHES["encoder_attention"] += 1
     return ctx
+
+
+# ---------------------------------------------------------------------------
+# the gradient
+# ---------------------------------------------------------------------------
+
+def attention_probs(qkv: torch.Tensor, mask: torch.Tensor,
+                    n_heads: int) -> tuple:
+    """(q, k, v as (B, L, H, hd) views, P f[B, H, L, L], the 0-d divisor)
+    of the plain version, in qkv's dtype: P = softmax(QK^T / div + neg)."""
+    B, L, D, hd = plain_shapes(qkv, mask, n_heads)
+    q, k, v = (t.reshape(B, L, n_heads, hd) for t in qkv.split(D, dim=-1))
+    # a 0-d tensor divisor divides (a Python scalar would multiply by the
+    # reciprocal on the card); f32(sqrt(hd)) as JAX rounds np.sqrt(hd)
+    div = torch.tensor(np.sqrt(hd), dtype=qkv.dtype, device=qkv.device)
+    att = torch.einsum("bqhd,bkhd->bhqk", q, k) / div
+    zero = torch.zeros((), dtype=qkv.dtype, device=qkv.device)
+    neg = torch.where(mask[:, None, None, :] > 0, zero, zero + MASKED)
+    return q, k, v, torch.softmax(att + neg, dim=-1), div
+
+
+def attention_backward_from_probs(q: torch.Tensor, k: torch.Tensor,
+                                  v: torch.Tensor, P: torch.Tensor,
+                                  dctx: torch.Tensor,
+                                  div: torch.Tensor) -> torch.Tensor:
+    """dqkv (B, L, 3D) from the probabilities P, step by step: dV = P^T dO,
+    dP = dO V^T, dS = P (dP - rowsum(P dP)), dQ = (dS / div) K,
+    dK = (dS / div)^T Q."""
+    B, L, H, hd = q.shape
+    dout = dctx.reshape(B, L, H, hd)
+    dv = torch.einsum("bhqk,bqhd->bkhd", P, dout)
+    dp = torch.einsum("bqhd,bkhd->bhqk", dout, v)
+    ds = P * (dp - (P * dp).sum(dim=-1, keepdim=True))
+    ds = ds / div
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k)
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q)
+    return torch.cat([t.reshape(B, L, H * hd) for t in (dq, dk, dv)],
+                     dim=-1)
+
+
+def encoder_attention_backward_plain(qkv: torch.Tensor, mask: torch.Tensor,
+                                     dctx: torch.Tensor,
+                                     n_heads: int) -> torch.Tensor:
+    """Plain PyTorch version of the gradient: the vjp of the JAX attention
+    lines, step by step in qkv's dtype (f64 for the card's check), at any
+    head width: P recomputed, then `attention_backward_from_probs`."""
+    B, L, D, _ = plain_shapes(qkv, mask, n_heads)
+    if tuple(dctx.shape) != (B, L, D):
+        raise ValueError(f"dctx must be ({B}, {L}, {D}), got "
+                         f"{tuple(dctx.shape)}")
+    q, k, v, P, div = attention_probs(qkv, mask, n_heads)
+    return attention_backward_from_probs(q, k, v, P, dctx.to(qkv.dtype), div)
+
+
+def encoder_attention_backward(qkv: torch.Tensor, mask: torch.Tensor,
+                               dctx: torch.Tensor,
+                               n_heads: int) -> torch.Tensor:
+    """dqkv f32[B, L, 3D] of the attention given dctx f32[B, L, D]; see
+    the module doc."""
+    B, L, D, hd = check_shapes(qkv, mask, n_heads)
+    if tuple(dctx.shape) != (B, L, D):
+        raise ValueError(f"dctx must be ({B}, {L}, {D}), got "
+                         f"{tuple(dctx.shape)}")
+    dev = _device_of((qkv, mask, dctx))
+    if dev.type == "cpu":
+        return encoder_attention_backward_plain(qkv, mask, dctx, n_heads)
+    return launch_backward(qkv, mask, dctx, n_heads)[0]
+
+
+def launch_backward(qkv: torch.Tensor, mask: torch.Tensor,
+                    dctx: torch.Tensor, n_heads: int,
+                    parts=("dq", "dkv"), dqkv=None, stats=None) -> tuple:
+    """The backward kernels, in stream order, on CUDA tensors: (dqkv,
+    stats). The main path launches both parts; a bench times one: ("dq",)
+    fills dQ and the stats, ("dkv",) takes the `dqkv` and `stats` of an
+    earlier dq launch and fills dK and dV."""
+    B, L, D, hd = check_shapes(qkv, mask, n_heads)
+    dev = _device_of((qkv, mask, dctx))
+    if dev.type != "cuda":
+        raise ValueError(f"the kernel runs on a CUDA device, not {dev}")
+    for name, t, dtype in (("qkv", qkv, torch.float32),
+                           ("dctx", dctx, torch.float32),
+                           ("mask", mask, torch.int32)):
+        if t.dtype != dtype:
+            raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if qkv.data_ptr() % 16 or dctx.data_ptr() % 16:
+        raise ValueError("qkv and dctx must start on a 16-byte boundary")
+    if set(parts) - {"dq", "dkv"} or not parts:
+        raise ValueError(f"parts {parts} are not of ('dq', 'dkv')")
+    if "dq" not in parts and (dqkv is None or stats is None):
+        raise ValueError("a dkv launch alone needs the dqkv and stats of a "
+                         "dq launch")
+    lib = load_backward_kernels()
+    if dqkv is None:
+        dqkv = torch.empty((B, L, 3 * D), dtype=torch.float32, device=dev)
+    if stats is None:
+        stats = torch.empty((B * n_heads * L, 4), dtype=torch.float32,
+                            device=dev)
+    if dqkv.shape != (B, L, 3 * D) or stats.shape != (B * n_heads * L, 4):
+        raise ValueError("dqkv or stats of another call")
+    div = float(np.float32(np.sqrt(hd)))
+    with torch.cuda.device(dev):
+        # read here: autograd runs a backward on its own thread, with the
+        # forward's stream set as current
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if "dq" in parts:
+            err = lib.encoder_attention_backward_dq_launch(
+                qkv.data_ptr(), mask.data_ptr(), dctx.data_ptr(),
+                dqkv.data_ptr(), stats.data_ptr(), B, L, n_heads, hd, div,
+                stream)
+            _raise_on(err, "encoder_attention_backward_dq")
+            LAUNCHES["encoder_attention_backward_dq"] += 1
+        if "dkv" in parts:
+            err = lib.encoder_attention_backward_dkv_launch(
+                qkv.data_ptr(), mask.data_ptr(), dctx.data_ptr(),
+                stats.data_ptr(), dqkv.data_ptr(), B, L, n_heads, hd, div,
+                stream)
+            _raise_on(err, "encoder_attention_backward_dkv")
+            LAUNCHES["encoder_attention_backward_dkv"] += 1
+    return dqkv, stats
+
+
+class EncoderAttention(torch.autograd.Function):
+    """The attention with its gradient: `apply(qkv, mask, n_heads)` -> ctx.
+    The forward is `encoder_attention`, the backward
+    `encoder_attention_backward` (the kernels on CUDA tensors, the plain
+    versions on CPU tensors); dqkv comes back in the fused layout, with
+    None for the mask and n_heads."""
+
+    @staticmethod
+    def forward(ctx, qkv, mask, n_heads):
+        out = encoder_attention(qkv, mask, n_heads)
+        ctx.save_for_backward(qkv, mask)
+        ctx.n_heads = n_heads
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dctx):
+        qkv, mask = ctx.saved_tensors
+        return (encoder_attention_backward(qkv, mask, dctx.contiguous(),
+                                           ctx.n_heads), None, None)

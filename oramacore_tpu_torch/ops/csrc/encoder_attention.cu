@@ -12,8 +12,9 @@
 //
 // Per (b, h, query row i):
 //   s_j = (q_i . k_j) / div + bias_j,  div = f32(sqrt(hd)), the correctly
-//         rounded quotient as JAX divides (see div_rn; at hd 64, div = 8 is
-//         a power of two and the product by 0.125 is that quotient);
+//         rounded quotient as JAX divides (see div_rn; at hd 16 and 64,
+//         div = 4 and 8 are powers of two and the product by 0.25 or
+//         0.125 is that quotient);
 //         bias_j = 0 where mask[b, j] > 0, else -1e9 added (never
 //         skipped, never -inf)
 //   ctx_i = sum_j softmax(s)_j v_j
@@ -43,12 +44,14 @@
 // instructions to each mma.sync.
 //
 // Design (FlashAttention-2's shape). A block has 4 warps; each warp owns
-// 16 query rows of one (b, h) and keeps their Q fragments, split once, in
-// registers, its O accumulator (16 x hd) and its rows' running max and sum.
+// 16 query rows of one (b, h) and keeps their Q fragments in registers
+// (split once up to hd 64; at hd 128 raw, split at each use), its O
+// accumulator (16 x hd) and its rows' running max and sum.
 // W warps share one (b, h) (W = 4 for L > 32: 64 query rows a block;
 // W = 2 and 1 below, so a block serves 2 or 4 (b, h) pairs and short
 // sequences waste no tile). The warps of a (b, h) walk its keys in tiles
-// of KT (64 at hd 32, 32 at hd 64), brought by 16-byte cp.async (4-byte
+// of KT (64 at hd 16 and 32, 32 at hd 64, 16 at hd 128, so a block's
+// stages fit beside another block's), brought by 16-byte cp.async (4-byte
 // for the mask) into a ring of two raw stages, zero-filled past L, so
 // tile t + 1 is in flight while tile t is computed. Each landed tile is
 // split once for the block into a split stage (hi and lo side by side,
@@ -181,10 +184,17 @@ struct Tile {
   }
 };
 
-// 3 blocks an SM: up to 168 registers a thread (ptxas: 160 at hd 32 with
-// no spill; 168 at hd 64 with a few words spilled)
+// blocks an SM the launch bound asks for: 3 (up to 168 registers a thread;
+// ptxas: 160 at hd 32 with no spill, 168 at hd 64 with a few words
+// spilled), and 2 at hd 128 (up to 255), whose O accumulator alone is 64
+// registers a thread
+template <int HD>
+constexpr int min_blocks() {
+  return HD == 128 ? 2 : 3;
+}
+
 template <int HD, int W, int KT>
-__global__ void __launch_bounds__(kThreads, 3)
+__global__ void __launch_bounds__(kThreads, min_blocks<HD>())
 encoder_attention_kernel(const float* __restrict__ qkv,     // [B, L, 3D]
                          const int32_t* __restrict__ mask,  // [B, L]
                          float* __restrict__ ctx,           // [B, L, D]
@@ -219,8 +229,15 @@ encoder_attention_kernel(const float* __restrict__ qkv,     // [B, L, 3D]
   float* sv = sk + T::kSplitV;
   float* sbias = sk + T::kBias;
   const int n_tiles = (L + KT - 1) / KT;
-  // hd 64: div = 8, whose reciprocal is exact; else RN(1 / div)
-  const float rdiv = HD == 64 ? 0.125f : __frcp_rn(div);
+  // hd 16 and 64: div = 4 or 8, whose reciprocal is exact, so the
+  // product by it is the quotient; else RN(1 / div) for div_rn
+  constexpr bool kExactDiv = HD == 16 || HD == 64;
+  const float rdiv = HD == 16 ? 0.25f : HD == 64 ? 0.125f : __frcp_rn(div);
+  // hd <= 64 keeps Q split (hi and lo) in registers for the whole call; at
+  // hd 128 that would take 128 registers a thread beside O's 64, so Q stays
+  // raw there (in qh) and is split again at each use
+  constexpr bool kQSplit = HD <= 64;
+  constexpr int NQL = kQSplit ? ND : 1;
 
   auto load_tile = [&](int tile, int stage) {
     float* ks = raw + stage * T::kRaw;
@@ -252,7 +269,7 @@ encoder_attention_kernel(const float* __restrict__ qkv,     // [B, L, 3D]
 
   // this warp's Q rows q0 + g and q0 + g + 8 (clamped to L - 1), split
   const int r0 = min(q0 + g, L - 1), r1 = min(q0 + g + 8, L - 1);
-  uint32_t qh[ND][4], ql[ND][4];
+  uint32_t qh[ND][4], ql[NQL][4];
   float o[ND][4];
   {
     const float* p0 = base + (int64_t)r0 * row_stride + 2 * t;
@@ -267,10 +284,14 @@ encoder_attention_kernel(const float* __restrict__ qkv,     // [B, L, 3D]
       const float xs[4] = {x0.x, x1.x, x0.y, x1.y};
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        float hi, lo;
-        split(xs[e], hi, lo);
-        qh[s][e] = __float_as_uint(hi);
-        ql[s][e] = __float_as_uint(lo);
+        if constexpr (kQSplit) {
+          float hi, lo;
+          split(xs[e], hi, lo);
+          qh[s][e] = __float_as_uint(hi);
+          ql[s][e] = __float_as_uint(lo);
+        } else {
+          qh[s][e] = __float_as_uint(xs[e]);
+        }
       }
       if (mode == 1) {   // bytes only: carry Q to the output
         o[s][0] = x0.x; o[s][1] = x0.y; o[s][2] = x1.x; o[s][3] = x1.y;
@@ -279,6 +300,26 @@ encoder_attention_kernel(const float* __restrict__ qkv,     // [B, L, 3D]
       }
     }
   }
+  // k-step s's A fragments of Q, hi and lo
+  auto q_frag = [&](int s, uint32_t (&ah)[4], uint32_t (&al)[4]) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      if constexpr (kQSplit) {
+        ah[e] = qh[s][e];
+        al[e] = ql[s][e];
+      } else {
+        // an empty asm makes the raw value opaque, so the compiler cannot
+        // hoist the split out of the key loop (which would bring back the
+        // 128 registers of a split Q)
+        uint32_t x = qh[s][e];
+        asm volatile("" : "+r"(x));
+        float hi, lo;
+        split(__uint_as_float(x), hi, lo);
+        ah[e] = __float_as_uint(hi);
+        al[e] = __float_as_uint(lo);
+      }
+    }
+  };
   float m0 = -INFINITY, m1 = -INFINITY;   // running max of rows g, g + 8
   float l0 = 0.f, l1 = 0.f;               // this lane's share of their sums
 
@@ -314,8 +355,10 @@ encoder_attention_kernel(const float* __restrict__ qkv,     // [B, L, 3D]
       for (int j = 0; j < NK; ++j) sc[j][0] = sc[j][1] = sc[j][2] = sc[j][3] = 0.f;
 #pragma unroll
       for (int s = 0; s < ND; ++s) {
+        uint32_t ah[4], al[4];
+        q_frag(s, ah, al);
 #pragma unroll
-        for (int j = 0; j < NK; ++j) mma3(sc[j], qh[s], ql[s], kv);
+        for (int j = 0; j < NK; ++j) mma3(sc[j], ah, al, kv);
       }
 #pragma unroll
       for (int j = 0; j < NK; ++j) {
@@ -368,11 +411,13 @@ encoder_attention_kernel(const float* __restrict__ qkv,     // [B, L, 3D]
     for (int j = 0; j < NK; ++j) sc[j][0] = sc[j][1] = sc[j][2] = sc[j][3] = 0.f;
 #pragma unroll
     for (int s = 0; s < ND; ++s) {
+      uint32_t ah[4], al[4];
+      q_frag(s, ah, al);
 #pragma unroll
       for (int j = 0; j < NK; ++j) {
         const float4 kk = *reinterpret_cast<const float4*>(
             sk + (8 * j + g) * T::kStrideK + 16 * s + 4 * t);
-        mma3(sc[j], qh[s], ql[s], kk);
+        mma3(sc[j], ah, al, kk);
       }
     }
     // scale, bias, and the tile's row max
@@ -382,7 +427,7 @@ encoder_attention_kernel(const float* __restrict__ qkv,     // [B, L, 3D]
       const float2 bj = *reinterpret_cast<const float2*>(sbias + 8 * j + 2 * t);
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const float q = HD == 64 ? sc[j][e] * rdiv
+        const float q = kExactDiv ? sc[j][e] * rdiv
                                   : div_rn(sc[j][e], div, rdiv);
         sc[j][e] = q + ((e & 1) ? bj.y : bj.x);
       }
@@ -474,10 +519,11 @@ int launch(const float* qkv, const int32_t* mask, float* ctx, int B, int L,
       (size_t)G * Tile<HD, KT>::floats(stages) * sizeof(float);
   static bool attr_set = false;   // one attribute call per instantiation
   if (!attr_set) {
+    // W < 4 tiles cover L with one key tile, so they run one stage
     const cudaError_t err = cudaFuncSetAttribute(
         encoder_attention_kernel<HD, W, KT>,
         cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)(G * Tile<HD, KT>::floats(2) * sizeof(float)));
+        (int)(G * Tile<HD, KT>::floats(W == 4 ? 2 : 1) * sizeof(float)));
     if (err != cudaSuccess) return (int)err;
     attr_set = true;
   }
@@ -506,10 +552,11 @@ int launch_hd(int W, int KT, const float* qkv, const int32_t* mask,
 // Enqueues on `stream` and returns cudaGetLastError() (0 on success); a
 // refused launch never runs, so the caller must check it. The caller
 // guarantees contiguous f32 qkv [B, L, 3 * H * hd] and ctx [B, L, H * hd],
-// both 16-byte aligned, int32 mask [B, L], 1 <= L, hd in {32, 64} with
-// div = f32(sqrt(hd)), the tiling (warps a (b, h) W, key tile KT) in
-// {(1, 16), (2, 32), (4, 64 at hd 32 or 32 at hd 64)} with 16 W >= L
-// unless W = 4, and stages in {1, 2} (1 only when one key tile covers L).
+// both 16-byte aligned, int32 mask [B, L], 1 <= L, hd in {16, 32, 64, 128}
+// with div = f32(sqrt(hd)), the tiling (warps a (b, h) W, key tile KT) in
+// {(1, 16), (2, 32), (4, 64 at hd 16 and 32, 32 at hd 64, 16 at hd 128)}
+// with 16 W >= L unless W = 4, and stages in {1, 2} (1 only when one key
+// tile covers L, so always 1 when W < 4).
 // mode is 0 on the main path (1: bytes only, 2: math only, 3: mma only,
 // for the bench's limit cases).
 extern "C" int encoder_attention_launch(const void* qkv, const void* mask,
@@ -520,18 +567,25 @@ extern "C" int encoder_attention_launch(const void* qkv, const void* mask,
                                         void* stream) {
   if (B <= 0 || L <= 0) return 0;
   if (L > 2147483647LL || B > 2147483647LL || stages < 1 || stages > 2 ||
-      mode < 0 || mode > 3 || (hd == 64 && div != 8.f)) {
+      mode < 0 || mode > 3 || (hd == 16 && div != 4.f) ||
+      (hd == 64 && div != 8.f) || (W < 4 && stages != 1)) {
     return (int)cudaErrorInvalidValue;
   }
   const float* q = (const float*)qkv;
   const int32_t* mk = (const int32_t*)mask;
   float* out = (float*)ctx;
   cudaStream_t st = (cudaStream_t)stream;
+  if (hd == 16)
+    return launch_hd<16, 64>((int)W, (int)KT, q, mk, out, (int)B, (int)L,
+                             (int)H, (int)stages, div, (int)mode, st);
   if (hd == 32)
     return launch_hd<32, 64>((int)W, (int)KT, q, mk, out, (int)B, (int)L,
                              (int)H, (int)stages, div, (int)mode, st);
   if (hd == 64)
     return launch_hd<64, 32>((int)W, (int)KT, q, mk, out, (int)B, (int)L,
                              (int)H, (int)stages, div, (int)mode, st);
+  if (hd == 128)
+    return launch_hd<128, 16>((int)W, (int)KT, q, mk, out, (int)B, (int)L,
+                              (int)H, (int)stages, div, (int)mode, st);
   return (int)cudaErrorInvalidValue;
 }

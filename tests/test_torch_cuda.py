@@ -1086,7 +1086,9 @@ def _attention_case(cuda, label, seed):
     "SemanticMini B=1024 L=64", "BGEBase B=8 L=128", "BGEBase B=8 L=512",
     "SemanticBase B=128 L=32, 28 padded rows", "SemanticBase B=1 L=16",
     "SemanticBase B=2 L=1, 1 padded row", "BGEBase B=4 L=77, 1 padded row",
-    "BGESmall B=8 L=512"])
+    "BGESmall B=8 L=512", "hd 16 B=1024 L=64 H=16", "hd 128 B=8 L=512 H=8",
+    "hd 128 B=64 L=16 H=8, 3 padded rows",
+    "hd 128 B=64 L=32 H=8, 2 padded rows"])
 def test_encoder_attention_kernel(cuda, label):
     """The kernel (f32) against its plain version in f64 on the same
     inputs (`attention_reference`: rows whose keys are all masked take the
@@ -1108,15 +1110,7 @@ def test_encoder_attention_kernel(cuda, label):
     torch.testing.assert_close(got, plain, rtol=1e-5, atol=1e-5)
 
 
-def test_encoder_refuses_other_head_widths_on_the_card(cuda):
-    """A BertEncoder of head width 16 runs on the CPU through the plain
-    attention (counted); on the card the kernel's wrapper refuses it, with
-    no launch and no plain call."""
-    from oramacore_tpu_torch.embeddings import encoder as enc
-    from oramacore_tpu_torch.ops import attention as at
-
-    rng = np.random.default_rng(16)
-    D, H, n_layers, V = 64, 4, 2, 50
+def _bert_state(rng, D, n_layers, V=50):
     state = {k: torch.from_numpy((rng.normal(size=s) * 0.2).astype(np.float32))
              for k, s in dict(tok_emb=(V, D), pos_emb=(64, D),
                               type_emb=(2, D), emb_ln_g=(D,),
@@ -1129,15 +1123,37 @@ def test_encoder_refuses_other_head_widths_on_the_card(cuda):
         for k, s in shapes.items():
             state[f"layers.{i}.{k}"] = torch.from_numpy(
                 (rng.normal(size=s) * 0.2).astype(np.float32))
-    ids = torch.from_numpy(rng.integers(0, V, (4, 16)))
+    return state
+
+
+def test_encoder_refuses_other_head_widths_on_the_card(cuda):
+    """A BertEncoder of head width 16 runs on the card through the
+    attention kernel (once a layer) and equals its CPU run; a head width
+    the kernel does not take (8) runs on the CPU through the plain
+    attention (counted) and on the card raises, with no launch."""
+    from oramacore_tpu_torch.embeddings import encoder as enc
+    from oramacore_tpu_torch.ops import attention as at
+
+    rng = np.random.default_rng(16)
+    D, n_layers = 64, 2
+    state = _bert_state(rng, D, n_layers)
+    ids = torch.from_numpy(rng.integers(0, 50, (4, 16)))
     mask = (torch.arange(16)[None, :] < torch.tensor([[16], [9], [1], [0]])
             ).to(torch.int32)
+    with torch.inference_mode():
+        want = enc.BertEncoder.from_state(state, 4)(ids, mask)
+        launches = at.LAUNCHES["encoder_attention"]
+        got = enc.BertEncoder.from_state(state, 4).to(cuda)(ids.to(cuda),
+                                                            mask.to(cuda))
+        torch.cuda.synchronize()
+    assert at.LAUNCHES["encoder_attention"] == launches + n_layers
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-5)
     plain = enc.PLAIN_WIDTH_CALLS["encoder_attention_plain"]
     with torch.inference_mode():
-        want = enc.BertEncoder.from_state(state, H)(ids, mask)
-    assert torch.isfinite(want).all()
+        want8 = enc.BertEncoder.from_state(state, 8)(ids, mask)
+    assert torch.isfinite(want8).all()
     assert enc.PLAIN_WIDTH_CALLS["encoder_attention_plain"] == plain + n_layers
-    model = enc.BertEncoder.from_state(state, H).to(cuda)
+    model = enc.BertEncoder.from_state(state, 8).to(cuda)
     launches = at.LAUNCHES["encoder_attention"]
     with torch.inference_mode(), pytest.raises(ValueError, match="head width"):
         model(ids.to(cuda), mask.to(cuda))
@@ -1155,10 +1171,113 @@ def test_encoder_attention_refuses_what_it_cannot_run(cuda):
     with pytest.raises(TypeError):
         at.encoder_attention(qkv, mask.long(), 8)
     with pytest.raises(ValueError):
-        at.encoder_attention(qkv, mask, 16)          # hd 16
+        at.encoder_attention(qkv, mask, 32)          # hd 8
     with pytest.raises(ValueError):
         at.encoder_attention(qkv[:, :, 1:-2], mask, 8)
     with pytest.raises(ValueError):
         at.encoder_attention(torch.zeros((1, 513, 3 * 256), device=cuda),
                              torch.ones((1, 513), dtype=torch.int32,
                                         device=cuda), 8)
+
+
+@pytest.mark.parametrize("label", [
+    "training B=64 L=16", "SemanticBase B=1024 L=64", "BGEBase B=8 L=512",
+    "hd 16 B=1024 L=64 H=16", "hd 128 B=8 L=512 H=8",
+    "SemanticBase B=16 L=37", "SemanticBase B=128 L=32, 28 padded rows",
+    "SemanticBase B=2 L=1, 1 padded row"])
+def test_encoder_attention_backward_kernels(cuda, label):
+    """Both backward kernels (f32) against the f64 reference
+    (`train_bench.backward_reference`: P uniform in rows whose keys are all
+    masked, as the f32 math gives): within 5e-5 (f32 sums over up to 512
+    keys and 2 recomputed dot products against exact f64; the card's
+    largest error in its first run was 8.7e-6)."""
+    from oramacore_tpu_torch.benches import train_bench as tb
+    from oramacore_tpu_torch.ops import attention as at
+
+    case = tb.BACKWARD_CASES[label]
+    qkv, mask, dctx = tb.backward_inputs(case, 60, cuda)
+    before = dict(at.LAUNCHES)
+    got = at.encoder_attention_backward(qkv, mask, dctx, case["H"])
+    torch.cuda.synchronize()
+    for name in ("encoder_attention_backward_dq",
+                 "encoder_attention_backward_dkv"):
+        assert at.LAUNCHES[name] == before[name] + 1
+    assert at.LAUNCHES["encoder_attention"] == before["encoder_attention"]
+    assert got.shape == qkv.shape and torch.isfinite(got).all()
+    ref = tb.backward_reference(qkv, mask, dctx, case["H"])
+    torch.testing.assert_close(got.double(), ref, rtol=5e-5, atol=5e-5)
+    # one part at a time gives the same gradient
+    dqkv, stats = at.launch_backward(qkv, mask, dctx, case["H"],
+                                     parts=("dq",))
+    at.launch_backward(qkv, mask, dctx, case["H"], parts=("dkv",),
+                       dqkv=dqkv, stats=stats)
+    torch.cuda.synchronize()
+    assert torch.equal(dqkv, got)
+
+
+def test_encoder_attention_function_on_the_card(cuda):
+    """EncoderAttention's gradient on the card (the kernels) equals its
+    gradient on the CPU (the plain versions), and autograd's backward
+    thread launches the kernels on the forward's stream."""
+    from oramacore_tpu_torch.benches import train_bench as tb
+    from oramacore_tpu_torch.ops import attention as at
+
+    case = tb.BACKWARD_CASES["SemanticBase B=16 L=37"]
+    qkv, mask, dctx = tb.backward_inputs(case, 61, "cpu")
+    x = qkv.clone().requires_grad_(True)
+    at.EncoderAttention.apply(x, mask, case["H"]).backward(dctx)
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        xc = qkv.to(cuda).requires_grad_(True)
+        out = at.EncoderAttention.apply(xc, mask.to(cuda), case["H"])
+        out.backward(dctx.to(cuda))
+    torch.cuda.synchronize()
+    torch.testing.assert_close(xc.grad.cpu(), x.grad, rtol=5e-5, atol=5e-5)
+
+
+def test_encoder_attention_backward_refuses_what_it_cannot_run(cuda):
+    from oramacore_tpu_torch.ops import attention as at
+
+    qkv = torch.zeros((2, 16, 3 * 256), device=cuda)
+    mask = torch.ones((2, 16), dtype=torch.int32, device=cuda)
+    dctx = torch.zeros((2, 16, 256), device=cuda)
+    with pytest.raises(TypeError):
+        at.encoder_attention_backward(qkv, mask, dctx.double(), 8)
+    with pytest.raises(ValueError):
+        at.encoder_attention_backward(qkv, mask, dctx, 32)     # hd 8
+    with pytest.raises(ValueError):
+        at.encoder_attention_backward(qkv, mask, dctx.transpose(0, 1)
+                                      .contiguous().transpose(0, 1), 8)
+    with pytest.raises(ValueError):
+        at.encoder_attention_backward(qkv, mask, dctx.cpu(), 8)
+
+
+def test_training_step_on_the_card(cuda):
+    """One SemanticBase-width training step on the card: 2 encoder calls x
+    4 layers, so 8 launches of the forward and of each backward kernel;
+    its loss and gradients equal the CPU's from the same parameters and
+    batch."""
+    from oramacore_tpu_torch.ops import attention as at
+    from oramacore_tpu_torch.train import semantic_encoder as se
+
+    cfg = se.TrainConfig(steps=10)
+    state = se.init_state(cfg, len(se.vocab_tokens()),
+                          torch.Generator().manual_seed(3))
+    card = se.SemanticTrainer(cfg, cuda, state=state)
+    cpu = se.SemanticTrainer(cfg, "cpu", state=state)
+    batch = card.next_batch()
+    cpu_batch = cpu.next_batch()
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(batch, cpu_batch))
+    at.reset_launch_counts()
+    loss, acc = card.step(batch)
+    torch.cuda.synchronize()
+    assert at.LAUNCHES == {"encoder_attention": 8,
+                           "encoder_attention_backward_dq": 8,
+                           "encoder_attention_backward_dkv": 8}
+    closs, cacc = cpu.step(cpu_batch)
+    assert abs(float(loss) - float(closs)) <= 1e-4
+    for (k, p), (_, q) in zip(card.model.named_parameters(),
+                              cpu.model.named_parameters()):
+        g, h = p.grad.cpu(), q.grad
+        assert float((g - h).abs().max()) <= 1e-3 * max(
+            float(h.abs().max()), 1e-6), k

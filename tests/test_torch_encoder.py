@@ -116,8 +116,8 @@ def test_attention_plain_matches_jax(hd, L):
 
 
 @pytest.mark.parametrize("shape,mask_shape,H", [
-    ((2, 16, 3 * 64), (2, 16), 4),       # head width 16
-    ((2, 16, 3 * 256), (2, 16), 2),      # head width 128
+    ((2, 16, 3 * 32), (2, 16), 4),       # head width 8
+    ((2, 16, 3 * 192), (2, 16), 2),      # head width 96
     ((1, 513, 3 * 256), (1, 513), 8),    # longer than 512
     ((2, 16, 3 * 256 + 1), (2, 16), 8),  # not 3D wide
     ((2, 16, 3 * 256), (2, 15), 8),      # mask of another shape
@@ -167,19 +167,30 @@ def test_attention_launch_refuses_cpu_tensors():
     (2048, 12, 512, 64, 4, 32, 2, 196608, 68480),
     (8, 12, 512, 32, 4, 64, 2, 768, 71424),
     (4, 12, 77, 64, 4, 32, 2, 96, 68480),
-    (128, 8, 32, 32, 2, 32, 1, 512, 54784)])
+    (128, 8, 32, 32, 2, 32, 1, 512, 54784),
+    # head widths 16 and 128 (no registry model has them): the cases
+    # chip_smoke.py times, and both short tilings at hd 128
+    (1024, 16, 64, 16, 4, 64, 1, 16384, 30208),
+    (8, 8, 512, 128, 4, 16, 2, 512, 67008),
+    (64, 8, 16, 128, 1, 16, 1, 128, 202240),
+    (64, 8, 32, 128, 2, 32, 1, 256, 202240)])
 def test_attention_tile_policy(B, H, L, hd, W, KT, stages, grid, smem):
     """tiles_for: warps a (b, h), key tile, ring depth, grid and dynamic
     shared memory, and the budgets the kernel's launch bound assumes (168
-    registers a thread, 3 blocks of 128 threads an SM)."""
+    registers a thread, 3 blocks of 128 threads an SM; at hd 128, 255
+    registers and 2 blocks, or 1 where the shared memory of the short
+    tilings allows no more)."""
     t = at.tiles_for(B, H, L, hd)
     assert (t.warps, t.key_tile, t.stages, t.grid, t.smem) == (
         W, KT, stages, grid, smem)
     assert t.pairs * t.warps == 4 and t.rows == 16 * W
     assert t.q_tiles * t.rows >= L > (t.q_tiles - 1) * t.rows
     assert t.stages == 1 or L > KT            # a second stage only to fill
-    assert t.max_regs == 168 and t.blocks_per_sm == 3
-    assert 3 * t.smem <= 227 * 1024
+    if hd == 128:
+        assert t.max_regs == 255 and t.blocks_per_sm == (2 if W == 4 else 1)
+    else:
+        assert t.max_regs == 168 and t.blocks_per_sm == 3
+    assert t.blocks_per_sm * t.smem <= 227 * 1024
 
 
 def test_attention_work():
@@ -222,12 +233,14 @@ def _seeded_params(rng, vocab, D, F_, n_layers, max_pos=64):
 
 
 @pytest.mark.parametrize("D,H,n_layers", [(128, 4, 2), (128, 2, 1),
-                                          (64, 2, 2), (64, 4, 2), (256, 2, 1)])
+                                          (64, 2, 2), (64, 4, 2), (256, 2, 1),
+                                          (64, 8, 1), (192, 2, 1)])
 def test_forward_matches_bert_forward(D, H, n_layers):
     """Seeded numpy weights through params_from_jax against bert_forward,
-    with padded tokens and a batch row with no token. Head widths 16 and
-    128, which the kernel does not take, go to the plain attention, once
-    a layer, on CPU tensors."""
+    with padded tokens and a batch row with no token, at head widths 32,
+    64, 16 and 128 (the kernel's) and 8 and 96, which the kernel does not
+    take and which go to the plain attention, once a layer, on CPU
+    tensors."""
     rng = np.random.default_rng(D + H + n_layers)
     params = _seeded_params(rng, 50, D, 2 * D, n_layers)
     B, L = 4, 16

@@ -129,7 +129,20 @@ _NO_JAX_SCRIPT = textwrap.dedent("""
                                      300.0, 300, 5)
     assert tv.max() > 0 and sidx._native_live is not None
     assert all(ROUTES[k]["native"] > 0 for k in ROUTES), ROUTES
-    for name in ("oramacore_tpu_torch.embeddings",
+    # the trainer: two CPU updates at a small width, then its save
+    import tempfile
+    from oramacore_tpu_torch.train import semantic_encoder as se
+    tr = se.SemanticTrainer(se.TrainConfig(steps=2, batch=8, layers=1,
+                                           hidden=32, heads=2, ffn=64), "cpu")
+    tr.run(log=lambda s: None)
+    with tempfile.TemporaryDirectory() as d:
+        tr.save(d)
+        from oramacore_tpu_torch.embeddings.encoder import TorchTextEncoder
+        tv = TorchTextEncoder(d, "cpu").encode(["car"])
+        assert abs(float(np.linalg.norm(tv[0])) - 1) < 1e-5
+    for name in ("oramacore_tpu_torch.train.semantic_encoder",
+                 "oramacore_tpu_torch.benches.train_bench",
+                 "oramacore_tpu_torch.embeddings",
                  "oramacore_tpu_torch.native",
                  "oramacore_tpu_torch.native._build",
                  "oramacore_tpu_torch.types",
@@ -152,7 +165,8 @@ _NO_JAX_SCRIPT = textwrap.dedent("""
                  "oramacore_tpu_torch.index.vector_index"):
         assert name in sys.modules, name
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in (
-        "aiohttp", "msgpack", "transformers", "safetensors"))
+        "aiohttp", "msgpack", "transformers", "safetensors", "optax",
+        "scripts"))
     assert not leaked, leaked
     leaked = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
     assert not leaked, leaked
@@ -202,14 +216,16 @@ def test_no_source_of_the_port_imports_the_jax_package():
 
 
 _IMPORT_OF_ABSENT_PACKAGE = re.compile(
-    r"^\s*(from|import)\s+(jax|jaxlib|flax|transformers|safetensors|msgpack)"
-    r"(\.\S*)?(\s|,|$)", re.M)
+    r"^\s*(from|import)\s+(jax|jaxlib|flax|transformers|safetensors|msgpack"
+    r"|optax|scripts)(\.\S*)?(\s|,|$)", re.M)
 
 
 def test_no_source_of_the_port_imports_jax_transformers_or_safetensors():
     """The card's machine has none of them: no .py file of
     oramacore_tpu_torch/ and no line of chip_smoke.py imports jax,
-    transformers, safetensors or msgpack, even inside a function."""
+    transformers, safetensors, msgpack or optax, even inside a function;
+    nor the repo's scripts/ (the trainer keeps its own copy of what it
+    needs of scripts/train_semantic_encoder_v2.py)."""
     files = [os.path.join(REPO, "chip_smoke.py")]
     for root, _, names in os.walk(os.path.join(REPO, "oramacore_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
@@ -223,6 +239,10 @@ def test_no_source_of_the_port_imports_jax_transformers_or_safetensors():
                       ("from transformers import AutoTokenizer", True),
                       ("from safetensors.numpy import load_file", True),
                       ("from . import safetensors_io", False),
+                      ("    import optax", True),
+                      ("import scripts.train_semantic_encoder_v2 as s", True),
+                      ("from scripts import train_semantic_encoder_v2", True),
+                      ("import scriptsx", False),
                       ("import jaxtyping", False)):
         assert bool(_IMPORT_OF_ABSENT_PACKAGE.search(line)) == hit, line
 
@@ -333,7 +353,10 @@ def test_kernel_table_covers_every_wrapper_and_perf_row():
         path, line = k["replaces"].rsplit(":", 1)
         with open(os.path.join(REPO, path)) as f:
             text = f.read()
-        assert text.splitlines()[int(line) - 1].startswith("def "), k["replaces"]
+        # a function of the module, or (the training step) one that a
+        # function of the script defines and jits
+        assert text.splitlines()[int(line) - 1].lstrip().startswith("def "), \
+            k["replaces"]
         if k.get("jitted"):
             # jax.jit, or flax_encoder.py's `@partial(__import__("jax").jit, ...)`
             assert "jax.jit" in text or '__import__("jax").jit' in text, path
@@ -342,8 +365,11 @@ def test_kernel_table_covers_every_wrapper_and_perf_row():
             assert "pl.pallas_call" in text, path
             replaced.add(path)
     # rescore_bsearch, rescore_worklist (the pruned tier), facet_hist,
-    # facet_hist_multi (its facets), encoder_attention (the text encoder)
-    assert jitted == 5
+    # facet_hist_multi (its facets), encoder_attention (the text encoder),
+    # encoder_attention_backward_dq and _dkv (its training step)
+    assert jitted == 7
+    assert table["encoder_attention_backward_dq"]["replaces"] == \
+        "scripts/train_semantic_encoder_v2.py:304"
     pallas_files = set()
     for root, _, files in os.walk(os.path.join(REPO, "oramacore_tpu")):
         for fn in files:
@@ -385,7 +411,16 @@ def test_profile_counts_name_each_kernel():
         ("_ZN12_GLOBAL__N_130score_ranges_accumulate_kernelILb1ELb0EEEvPKiPKf"
          "S4_lS2_S2_S4_S4_S4_llPKxPfl", 1),
         ("_ZN12_GLOBAL__N_124encoder_attention_kernelILi32ELi4ELi64EEEvPKf", 2),
+        ("void (anonymous namespace)::attention_dq_kernel<32>(float const*)", 8),
+        ("void (anonymous namespace)::attention_dkv_kernel<32>(float const*)",
+         8),
+        ("_ZN62_GLOBAL__N__593f5441_29_encoder_attention_backward_cu_405d82f1"
+         "19attention_dq_kernelILi32EEEvPKfPKiS2_PfP6float4iiif", 1),
+        ("_ZN62_GLOBAL__N__593f5441_29_encoder_attention_backward_cu_405d82f1"
+         "20attention_dkv_kernelILi128EEEvPKfPKiS2_PK6float4Pfiiif", 2),
     ])
     assert got == dict(score_windows=0, score_ranges_accumulate=36,
                        gather_windows=7, rescore_bsearch=1, rescore_worklist=5,
-                       facet_hist=4, facet_hist_multi=3, encoder_attention=10)
+                       facet_hist=4, facet_hist_multi=3, encoder_attention=10,
+                       encoder_attention_backward_dq=9,
+                       encoder_attention_backward_dkv=10)
