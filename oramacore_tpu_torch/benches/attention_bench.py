@@ -169,11 +169,11 @@ def load_baseline(source: Path) -> Callable:
     return run
 
 
-def ptxas_lines() -> list:
-    """The `-Xptxas -v` lines that give each instantiation of the kernel
-    its registers, spills and static shared memory: the source compiled
-    once more with the port's flags (the library in use may have come
-    from the build cache, without its log)."""
+def ptxas_lines(name: str = "encoder_attention") -> list:
+    """The `-Xptxas -v` lines that give each instantiation of the kernels
+    of `csrc/<name>.cu` its registers, spills and static shared memory:
+    the source compiled once more with the port's flags (the library in
+    use may have come from the build cache, without its log)."""
     import subprocess
     import tempfile
 
@@ -182,7 +182,7 @@ def ptxas_lines() -> list:
     with tempfile.TemporaryDirectory() as tmp:
         proc = subprocess.run(
             [_build._nvcc(), *_build.NVCC_FLAGS, "-o", f"{tmp}/a.so",
-             str(_build.CSRC / "encoder_attention.cu")],
+             str(_build.CSRC / f"{name}.cu")],
             capture_output=True, text=True, check=True)
     return [ln.strip() for ln in (proc.stdout + proc.stderr).splitlines()
             if re.search(r"Compiling entry|registers|spill", ln)]

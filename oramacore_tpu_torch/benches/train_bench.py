@@ -1,5 +1,22 @@
 """Inputs and yardsticks of the training checks on the card
-(`chip_smoke.py` phase 16).
+(`chip_smoke.py` phase 16), and the bench of the attention's backward
+kernels:
+
+    python -m oramacore_tpu_torch.benches.train_bench [--baseline OLD.cu]
+
+For every `BACKWARD_CASES` entry (inputs from the seeds phase 16 uses)
+the bench holds both kernels (dq then dkv) to the f64 reference within
+`BWD_TOL` and times them as CUDA-graph replays, L2 warm and cold (a
+256 MiB write between replays, subtracted), beside their bound (bytes
+against FLOPs at the 3xTF32 rate of 165 TFLOP/s; the FFMA-rate bound in
+brackets) and the backward of `scaled_dot_product_attention` on the same
+inputs (`SdpaBackward`). It prints the kernels' `-Xptxas -v` lines.
+`--baseline OLD.cu` builds an earlier `encoder_attention_backward.cu`
+whose entry points take no tiling (the SIMT design, f32 FFMA lanes:
+`git show dda63df:oramacore_tpu_torch/ops/csrc/encoder_attention_backward.cu`
+into the gitignored `build/archive/`), holds it to the same reference
+and times it in turns with the current pair: baseline, current, current,
+baseline.
 
 - `BACKWARD_CASES`: the shapes at which the attention's backward kernels
   (`encoder_attention_backward_dq`, `encoder_attention_backward_dkv`) are
@@ -7,12 +24,18 @@
   SemanticBase's 8 heads of 32), SemanticBase's B=1024 L=64 `encode`
   shape, BGEBase's geometry (12 heads of 64, L=512), head widths 16 and
   128 (no registry model has them: the forward's cases of the same
-  shapes), an odd L=37, padded batch rows whose keys are all masked, and
-  L=1. `backward_inputs` makes them from a seed: `encoder_bench`'s qkv and
+  shapes), an odd L=37, padded batch rows whose keys are all masked, L=1,
+  and two lengths where the kernels' tiling changes: L=65 (a partial last
+  tile of 64) and L=33 with padded rows (4 warps a (b, h) from L=33).
+  `backward_inputs` makes them from a seed: `encoder_bench`'s qkv and
   mask, and dctx drawn normal.
 - `backward_reference`: the f64 reference, `encoder_attention_backward_
   plain` in f64 with P uniform in batch rows whose keys are all masked,
   as the f32 math of JAX and of the kernels gives it there.
+- `backward_tf32`: the kernels' arithmetic (tiles, 3xTF32 products as
+  chains of tensor-core steps that truncate what they add into their
+  accumulator, divisions, statistics) in PyTorch on the CPU, for the
+  tests.
 - `backward_work`: the bytes and FLOPs each entry point and the whole
   gradient must spend, for the bound.
 - `SdpaBackward`: the library yardstick, `torch.autograd.grad` of
@@ -25,10 +48,20 @@
 
 from __future__ import annotations
 
+import argparse
+import ctypes
+import sys
+from pathlib import Path
+from typing import Callable
+
 import numpy as np
 import torch
 
 from .encoder_bench import attention_inputs
+
+# rtol and atol of the backward kernels against the f64 reference, here, in
+# chip_smoke.py's phase 16 and in the card's tests
+BWD_TOL = 5e-5
 
 BACKWARD_CASES = {
     "training B=64 L=16": dict(B=64, L=16, H=8, hd=32, padded=0),
@@ -41,6 +74,9 @@ BACKWARD_CASES = {
                                                     padded=28),
     "SemanticBase B=2 L=1, 1 padded row": dict(B=2, L=1, H=8, hd=32,
                                                padded=1),
+    "SemanticBase B=32 L=65": dict(B=32, L=65, H=8, hd=32, padded=0),
+    "SemanticBase B=64 L=33, 8 padded rows": dict(B=64, L=33, H=8, hd=32,
+                                                  padded=8),
 }
 
 
@@ -69,6 +105,121 @@ def backward_reference(qkv: torch.Tensor, mask: torch.Tensor,
     if dead.any():
         P[dead] = 1.0 / qkv.shape[1]
     return attention_backward_from_probs(q, k, v, P, dctx.double(), div)
+
+
+def _trunc_f32(x: torch.Tensor) -> torch.Tensor:
+    """f64 -> f32, rounded toward zero."""
+    r = x.to(torch.float32)
+    return torch.where(r.double().abs() > x.abs(),
+                       torch.nextafter(r, torch.zeros_like(r)), r)
+
+
+def _mma(d: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+         passes: int) -> torch.Tensor:
+    """d + a @ b (a [..., M, K], b [..., K, N], d f32 [..., M, N]) as a
+    chain of mma.sync.m16n8k8 steps into the accumulator d: for each 8 of
+    K, each tf32 pass (a_lo b_hi, a_hi b_lo, a_hi b_hi; a_hi b_hi alone at
+    1 pass) sums its 8 products exactly and adds them to d, the result
+    rounded toward zero to f32. That is a model of the tensor core's
+    truncating accumulation, not its exact behaviour (see
+    `backward_tf32`)."""
+    from .attention_bench import split_tf32
+
+    if passes not in (1, 3):
+        raise ValueError(f"passes must be 1 or 3, got {passes}")
+    ah, al = (x.double() for x in split_tf32(a))
+    bh, bl = (x.double() for x in split_tf32(b))
+    steps = ((al, bh), (ah, bl), (ah, bh)) if passes == 3 else ((ah, bh),)
+    for k in range(0, a.shape[-1], 8):
+        for x, y in steps:
+            d = _trunc_f32(d.double() + x[..., k:k + 8] @ y[..., k:k + 8, :])
+    return d
+
+
+def backward_tf32(qkv: torch.Tensor, mask: torch.Tensor, dctx: torch.Tensor,
+                  n_heads: int, passes: int = 3,
+                  accumulate: str = "steps") -> torch.Tensor:
+    """The backward kernels' arithmetic on the CPU in f32, for the tests:
+    dq's statistics pass over its key tiles (`backward_tiles_for`: S and
+    dP, the online max m, sum l and delta sum, delta = that sum / l), its
+    second pass (P = exp(s - m) / l, dS = P (dP - delta) / div, dQ +=
+    dS K), then dkv over its query tiles (P^T from the stored m and l,
+    dV += P^T dO, dK += dS^T Q); every division an IEEE quotient, -1e9
+    added for masked keys. Every product is a chain of tensor-core steps
+    in `passes` tf32 passes (`_mma`: each step's sum taken into the
+    accumulator rounded toward zero). S and dP accumulate from 0; with
+    accumulate="steps", as the kernels do, dQ's products over one key tile
+    and dK's and dV's over one 8-query step accumulate from 0 and are then
+    added to dQ, dK and dV in f32 rounded to nearest; "running" takes them
+    into dQ, dK and dV step by step, as mma3 would (the kernels' first
+    design). The order of the row sums within a tile is not the kernels'.
+
+    The truncation model is not the card's: on the H100 the running
+    design was 5.14e-5 off at BGEBase L=512 and the per-step design
+    6.6e-6, where this model gives both within a few 1e-6 (running larger),
+    so it cannot show the failure the card showed; the card's test at
+    `BACKWARD_CASES` can. Nothing on the main path uses it."""
+    from ..ops.attention import MASKED, backward_tiles_for, check_shapes
+
+    if accumulate not in ("steps", "running"):
+        raise ValueError(f"accumulate must be 'steps' or 'running', got "
+                         f"{accumulate!r}")
+    running = accumulate == "running"
+    B, L, D, hd = check_shapes(qkv, mask, n_heads)
+    tiles = backward_tiles_for(B, n_heads, L, hd)
+    KT, QT = tiles["dq"].tile, tiles["dkv"].tile
+    q, k, v = (x.to(torch.float32).reshape(B, L, n_heads, hd).transpose(1, 2)
+               for x in qkv.split(D, dim=-1))
+    do = dctx.to(torch.float32).reshape(B, L, n_heads, hd).transpose(1, 2)
+    div = torch.tensor(np.sqrt(hd), dtype=torch.float32)
+    bias = torch.where(mask > 0, 0.0, MASKED).to(torch.float32)
+
+    def product(a, b):   # a @ b from an accumulator of 0
+        zero = torch.zeros(a.shape[:-1] + b.shape[-1:])
+        return _mma(zero, a, b, passes)
+
+    def tile_of(t0):   # scores and dP of the query rows against keys t0...
+        kt, vt = k[:, :, t0:t0 + KT], v[:, :, t0:t0 + KT]
+        s = product(q, kt.transpose(-1, -2)) / div
+        return (s + bias[:, None, None, t0:t0 + KT],
+                product(do, vt.transpose(-1, -2)), kt)
+
+    m = torch.full((B, n_heads, L, 1), -torch.inf)
+    l = torch.zeros((B, n_heads, L, 1))
+    e = torch.zeros((B, n_heads, L, 1))
+    for t0 in range(0, L, KT):
+        s, dp, _ = tile_of(t0)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new)
+        l = l * alpha + p.sum(dim=-1, keepdim=True)
+        e = e * alpha + (p * dp).sum(dim=-1, keepdim=True)
+        m = m_new
+    delta = e / l
+    dq = torch.zeros_like(q)
+    for t0 in range(0, L, KT):
+        s, dp, kt = tile_of(t0)
+        ds = torch.exp(s - m) / l * (dp - delta) / div
+        dq = _mma(dq, ds, kt, passes) if running else dq + product(ds, kt)
+
+    dk, dv = torch.zeros_like(k), torch.zeros_like(v)
+    m_t, l_t, d_t = (x.transpose(-1, -2) for x in (m, l, delta))
+    for i0 in range(0, L, QT):
+        rows = slice(i0, i0 + QT)
+        qt, ot = q[:, :, rows], do[:, :, rows]
+        s = product(k, qt.transpose(-1, -2)) / div
+        s = s + bias[:, None, :, None]
+        p = torch.exp(s - m_t[..., rows]) / l_t[..., rows]
+        dp = product(v, ot.transpose(-1, -2))
+        ds = p * (dp - d_t[..., rows]) / div
+        if running:
+            dv, dk = _mma(dv, p, ot, passes), _mma(dk, ds, qt, passes)
+            continue
+        for j in range(0, qt.shape[2], 8):
+            dv = dv + product(p[..., j:j + 8], ot[:, :, j:j + 8])
+            dk = dk + product(ds[..., j:j + 8], qt[:, :, j:j + 8])
+    return torch.cat([x.transpose(1, 2).reshape(B, L, D)
+                      for x in (dq, dk, dv)], dim=-1)
 
 
 def backward_work(B: int, L: int, n_heads: int, hd: int) -> dict:
@@ -159,3 +310,153 @@ class StepTimer:
         torch.cuda.synchronize()
         return [a.elapsed_time(b) for a, b in zip(self.events,
                                                    self.events[1:])]
+
+
+# ---------------------------------------------------------------------------
+# the bench
+# ---------------------------------------------------------------------------
+
+def load_baseline(source: Path) -> Callable:
+    """run(qkv, mask, dctx, H) -> dqkv over an earlier
+    encoder_attention_backward.cu whose entry points take no tiling (the
+    SIMT design), built with the port's nvcc flags: its dq, then its dkv,
+    on the current stream."""
+    from ..ops import _build
+
+    lib = _build.load_source(source, "baseline_attention_backward")
+    ptr, i64 = ctypes.c_void_p, ctypes.c_int64
+    for fn in (lib.encoder_attention_backward_dq_launch,
+               lib.encoder_attention_backward_dkv_launch):
+        fn.argtypes = [ptr, ptr, ptr, ptr, ptr, i64, i64, i64, i64,
+                       ctypes.c_float, ptr]
+        fn.restype = ctypes.c_int
+
+    def run(qkv, mask, dctx, H):
+        B, L, D3 = qkv.shape
+        hd = D3 // 3 // H
+        dqkv = torch.empty_like(qkv)
+        stats = torch.empty((B * H * L, 4), dtype=torch.float32,
+                            device=qkv.device)
+        div = float(np.float32(np.sqrt(hd)))
+        stream = torch.cuda.current_stream().cuda_stream
+        for err in (
+                lib.encoder_attention_backward_dq_launch(
+                    qkv.data_ptr(), mask.data_ptr(), dctx.data_ptr(),
+                    dqkv.data_ptr(), stats.data_ptr(), B, L, H, hd, div,
+                    stream),
+                lib.encoder_attention_backward_dkv_launch(
+                    qkv.data_ptr(), mask.data_ptr(), dctx.data_ptr(),
+                    stats.data_ptr(), dqkv.data_ptr(), B, L, H, hd, div,
+                    stream)):
+            if err:
+                raise RuntimeError(f"baseline launch failed: cudaError_t "
+                                   f"{err}")
+        return dqkv
+
+    return run
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--baseline", type=Path, default=None,
+                    help="an earlier encoder_attention_backward.cu to time "
+                         "beside this one")
+    ap.add_argument("--reps", type=int, default=20)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("train_bench: needs a CUDA card", file=sys.stderr)
+        return 1
+    from .. import require_cuda
+    from ..ops import attention as at
+    from . import (
+        H100_F32_OPS_PER_S,
+        H100_TF32X3_OPS_PER_S,
+        bound_ms,
+        card_line,
+        time_cuda,
+        time_graph,
+    )
+    from .attention_bench import ptxas_lines
+    from .pruned_bench import time_cold
+
+    require_cuda()
+    device = torch.device("cuda")
+    card = card_line()
+    print(f"card: {card}", flush=True)
+    at.load_backward_kernels()
+    for ln in ptxas_lines("encoder_attention_backward"):
+        print(f"  ptxas: {ln}", flush=True)
+    runners = {"current": lambda qkv, mask, dctx, H:
+               at.encoder_attention_backward(qkv, mask, dctx, H)}
+    if args.baseline is not None:
+        runners["baseline"] = load_baseline(args.baseline)
+    turns = ("baseline", "current", "current", "baseline") \
+        if args.baseline is not None else ("current",)
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=device)
+    for i, (label, case) in enumerate(BACKWARD_CASES.items()):
+        B, L, H, hd = case["B"], case["L"], case["H"], case["hd"]
+        qkv, mask, dctx = backward_inputs(case, 160 + i, device)
+        ref = backward_reference(qkv, mask, dctx, H)
+        work = backward_work(B, L, H, hd)["total"]
+        bound, by = bound_ms(*work, H100_TF32X3_OPS_PER_S)
+        ffma, ffma_by = bound_ms(*work, H100_F32_OPS_PER_S)
+        tiles = {k: (t.warps, t.pairs, t.tile, t.stages, t.grid)
+                 for k, t in at.backward_tiles_for(B, H, L, hd).items()}
+        print(f"{label}: {work[0] / 1e6:.1f} MB, {work[1] / 1e9:.3f} GFLOP; "
+              f"bound {bound:.4f} ms ({by}, 3xTF32 at 165 TFLOP/s) [FFMA "
+              f"rate: {ffma:.4f} ms, {ffma_by}]; tiles (warps, pairs, tile, "
+              f"stages, grid) {tiles} [{card}]", flush=True)
+        for who in dict.fromkeys(turns):
+            got = runners[who](qkv, mask, dctx, H)
+            torch.cuda.synchronize()
+            err = float((got.double() - ref).abs().max())
+            if not (bool(torch.isfinite(got).all()) and torch.allclose(
+                    got.double(), ref, rtol=BWD_TOL, atol=BWD_TOL)):
+                raise AssertionError(f"{label}: {who} is not within "
+                                     f"{BWD_TOL} of the f64 reference (max "
+                                     f"abs err {err:.3g})")
+            print(f"  {who}: max abs err {err:.3g} against f64", flush=True)
+        times = {}
+        for who in turns:
+            run = runners[who]
+            for k, v in (
+                    ("warm", time_graph(lambda: run(qkv, mask, dctx, H),
+                                        args.reps)),
+                    ("cold", time_cold(lambda: run(qkv, mask, dctx, H),
+                                       flush, args.reps))):
+                times.setdefault((who, k), []).append(v)
+        for who in dict.fromkeys(turns):
+            warm, cold = min(times[(who, "warm")]), min(times[(who, "cold")])
+            print(f"  {who}: {warm:.4f} ms (L2 warm), {cold:.4f} ms (L2 "
+                  f"cold); {100 * bound / cold:.1f}% of the 3xTF32 bound "
+                  f"cold [{100 * ffma / cold:.1f}% of the FFMA-rate one]; "
+                  f"turns: warm " + ", ".join(
+                      f"{v:.4f}" for v in times[(who, "warm")]) + "; cold "
+                  + ", ".join(f"{v:.4f}" for v in times[(who, "cold")])
+                  + f" [{card}]", flush=True)
+        D = H * hd
+        dqkv, stats = at.launch_backward(qkv, mask, dctx, H)
+        diff = (dqkv.double() - ref).abs()
+        part_cold = {k: time_cold(lambda k=k: at.launch_backward(
+            qkv, mask, dctx, H, (k,), dqkv, stats), flush, args.reps)
+            for k in ("dq", "dkv")}
+        print(f"  current, each kernel alone: dq {part_cold['dq']:.4f} ms, "
+              f"dkv {part_cold['dkv']:.4f} ms (L2 cold); max abs err dQ "
+              f"{float(diff[..., :D].max()):.3g}, dK "
+              f"{float(diff[..., D:2 * D].max()):.3g}, dV "
+              f"{float(diff[..., 2 * D:].max()):.3g} [{card}]", flush=True)
+        lib = SdpaBackward(qkv, mask, dctx, H, flush)
+        lib_warm = time_cuda(lib.graph.replay, args.reps)
+        lib_cold = time_cuda(lib.cold_graph.replay, args.reps) - time_graph(
+            flush.zero_, args.reps)
+        lib_err = float((lib.dqkv.double() - ref).abs().max())
+        del lib
+        print(f"  autograd.grad of scaled_dot_product_attention (additive "
+              f"f32 mask), backward alone: {lib_warm:.4f} ms (L2 warm), "
+              f"{lib_cold:.4f} ms (L2 cold); max abs err {lib_err:.3g} "
+              f"against f64 [{card}]", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

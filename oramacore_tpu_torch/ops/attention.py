@@ -38,8 +38,9 @@ jitted `train_step`): `encoder_attention_backward(qkv, mask, dctx,
 n_heads)` returns dqkv f32[B, L, 3D] in the fused layout, by two kernels
 in stream order (`encoder_attention_backward_dq`: dQ and each query row's
 max, sum and delta = rowsum(P * dP); `encoder_attention_backward_dkv`: dK
-and dV from those). `encoder_attention_backward_plain` is the vjp step by
-step. `EncoderAttention` is the autograd Function around both directions,
+and dV from those), both with their products on the tensor cores in
+3xTF32 as the forward's; `backward_tiles_for` is their tiling.
+`encoder_attention_backward_plain` is the vjp step by step. `EncoderAttention` is the autograd Function around both directions,
 which `BertEncoder` calls: under `inference_mode` only its forward runs.
 
 A CPU tensor runs the plain version. A CUDA tensor launches the kernel or
@@ -129,6 +130,77 @@ def tiles_for(B: int, n_heads: int, L: int, hd: int) -> Tiles:
     return Tiles(W, KT, pairs, q_tiles, stages, grid, smem, max_regs, per_sm)
 
 
+# the backward kernels' tiling (csrc/encoder_attention_backward.cu): rows
+# of the other side (keys in dq, queries in dkv) a tile holds when 4 warps
+# share a (b, h); 2 blocks an SM (255 registers a thread), each within half
+# of an SM's 228 KB of shared memory less the 1 KB it reserves a block
+_BWD_LONG_TILE = {16: 64, 32: 64, 64: 32, 128: 16}
+_BWD_MIN_BLOCKS = 2
+_SMEM_SM = 228 * 1024
+_SMEM_RESERVED = 1024
+
+
+class BackwardTiles(NamedTuple):
+    """How one backward kernel tiles a call (see `backward_tiles_for`);
+    the wrapper launches with every field but `blocks_per_sm`."""
+    warps: int       # warps sharing one (b, h), 16 rows each
+    tile: int        # rows of the other side a shared-memory stage holds
+    pairs: int       # (b, h) pairs a block serves
+    row_tiles: int   # blocks along the rows of one (b, h)
+    stages: int      # cp.async ring depth: 2, or 1 where one tile covers L
+    grid: int        # blocks launched
+    smem: int        # dynamic shared-memory bytes a block (the kernel
+                     # refuses a launch whose layout takes another size)
+    blocks_per_sm: int   # resident blocks an SM, by registers and smem
+
+
+def _backward_floats(kernel: str, hd: int, T: int, stages: int) -> int:
+    """Shared-memory floats of one (b, h) group of a backward kernel: the
+    raw stages as cp.async lands them and the split stage (d-major rows of
+    2 hd + 16 floats, row-pair rows of 4 hd + 8). The kernels' DqTile and
+    DkvTile lay out the same floats, and refuse a launch with another
+    size."""
+    d_major, pair_major = T * (2 * hd + 16), T // 2 * (4 * hd + 8)
+    if kernel == "dq":   # raw K, V, mask; split K both ways, V, the bias
+        return stages * (2 * T * hd + T) + 2 * d_major + pair_major + T
+    # dkv: raw Q, dO, statistics; split Q and dO both ways, the statistics
+    return stages * (2 * T * hd + 4 * T) + 2 * (d_major + pair_major) + 4 * T
+
+
+def backward_tiles_for(B: int, n_heads: int, L: int, hd: int) -> dict:
+    """{"dq": BackwardTiles, "dkv": BackwardTiles} of a call. Both kernels
+    give each warp 16 rows of its side (queries in dq, keys in dkv): W = 1
+    warp a (b, h) up to L = 16, 2 up to 32, else 4 (as `tiles_for`), and
+    walk the other side in tiles of T = min(16 W, 64 at hd 16 and 32, 32
+    at hd 64, 16 at hd 128) rows through a two-stage ring (one stage
+    where one tile covers L). A block serves 4 / W pairs, halved while 2
+    blocks would not fit an SM's shared memory. The launch bound of 2
+    blocks an SM gives a thread 255 registers."""
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"head width {hd} is not one of {HEAD_DIMS}")
+    if not 1 <= L <= MAX_LEN:
+        raise ValueError(f"sequence length {L} is outside [1, {MAX_LEN}]")
+    W = 1 if L <= 16 else 2 if L <= 32 else 4
+    T = min(16 * W, _BWD_LONG_TILE[hd])
+    stages = min(2, -(-L // T))
+    row_tiles = -(-L // (16 * W))
+    out = {}
+    for kernel in ("dq", "dkv"):
+        G = _WARPS // W
+        while G > 1 and _BWD_MIN_BLOCKS * (
+                G * _backward_floats(kernel, hd, T, 2) * 4
+                + _SMEM_RESERVED) > _SMEM_SM:
+            G //= 2
+        threads = 32 * W * G
+        smem = G * _backward_floats(kernel, hd, T, stages) * 4
+        per_sm = min(_REGS_PER_SM // (threads * 255),
+                     _SMEM_SM // (smem + _SMEM_RESERVED), 2048 // threads, 32)
+        out[kernel] = BackwardTiles(
+            W, T, G, row_tiles, stages, -(-(B * n_heads) // G) * row_tiles,
+            smem, per_sm)
+    return out
+
+
 _lib = None
 _bwd_lib = None
 
@@ -162,6 +234,7 @@ def load_backward_kernels() -> ctypes.CDLL:
         for fn in (lib.encoder_attention_backward_dq_launch,
                    lib.encoder_attention_backward_dkv_launch):
             fn.argtypes = [ptr, ptr, ptr, ptr, ptr, i64, i64, i64, i64,
+                           i64, i64, i64, i64, i64, i64, i64,
                            ctypes.c_float, ptr]
             fn.restype = ctypes.c_int
         _bwd_lib = lib
@@ -356,6 +429,8 @@ def launch_backward(qkv: torch.Tensor, mask: torch.Tensor,
     if dqkv.shape != (B, L, 3 * D) or stats.shape != (B * n_heads * L, 4):
         raise ValueError("dqkv or stats of another call")
     div = float(np.float32(np.sqrt(hd)))
+    tiles = backward_tiles_for(B, n_heads, L, hd)
+    dq, dkv = tiles["dq"], tiles["dkv"]
     with torch.cuda.device(dev):
         # read here: autograd runs a backward on its own thread, with the
         # forward's stream set as current
@@ -363,15 +438,17 @@ def launch_backward(qkv: torch.Tensor, mask: torch.Tensor,
         if "dq" in parts:
             err = lib.encoder_attention_backward_dq_launch(
                 qkv.data_ptr(), mask.data_ptr(), dctx.data_ptr(),
-                dqkv.data_ptr(), stats.data_ptr(), B, L, n_heads, hd, div,
-                stream)
+                dqkv.data_ptr(), stats.data_ptr(), B, L, n_heads, hd,
+                dq.warps, dq.pairs, dq.tile, dq.stages, dq.row_tiles,
+                dq.grid, dq.smem, div, stream)
             _raise_on(err, "encoder_attention_backward_dq")
             LAUNCHES["encoder_attention_backward_dq"] += 1
         if "dkv" in parts:
             err = lib.encoder_attention_backward_dkv_launch(
                 qkv.data_ptr(), mask.data_ptr(), dctx.data_ptr(),
-                stats.data_ptr(), dqkv.data_ptr(), B, L, n_heads, hd, div,
-                stream)
+                stats.data_ptr(), dqkv.data_ptr(), B, L, n_heads, hd,
+                dkv.warps, dkv.pairs, dkv.tile, dkv.stages, dkv.row_tiles,
+                dkv.grid, dkv.smem, div, stream)
             _raise_on(err, "encoder_attention_backward_dkv")
             LAUNCHES["encoder_attention_backward_dkv"] += 1
     return dqkv, stats

@@ -1184,11 +1184,12 @@ def test_encoder_attention_refuses_what_it_cannot_run(cuda):
     "training B=64 L=16", "SemanticBase B=1024 L=64", "BGEBase B=8 L=512",
     "hd 16 B=1024 L=64 H=16", "hd 128 B=8 L=512 H=8",
     "SemanticBase B=16 L=37", "SemanticBase B=128 L=32, 28 padded rows",
-    "SemanticBase B=2 L=1, 1 padded row"])
+    "SemanticBase B=2 L=1, 1 padded row", "SemanticBase B=32 L=65",
+    "SemanticBase B=64 L=33, 8 padded rows"])
 def test_encoder_attention_backward_kernels(cuda, label):
     """Both backward kernels (f32) against the f64 reference
     (`train_bench.backward_reference`: P uniform in rows whose keys are all
-    masked, as the f32 math gives): within 5e-5 (f32 sums over up to 512
+    masked, as the f32 math gives): within `BWD_TOL` (f32 sums over up to 512
     keys and 2 recomputed dot products against exact f64; the card's
     largest error in its first run was 8.7e-6)."""
     from oramacore_tpu_torch.benches import train_bench as tb
@@ -1205,7 +1206,8 @@ def test_encoder_attention_backward_kernels(cuda, label):
     assert at.LAUNCHES["encoder_attention"] == before["encoder_attention"]
     assert got.shape == qkv.shape and torch.isfinite(got).all()
     ref = tb.backward_reference(qkv, mask, dctx, case["H"])
-    torch.testing.assert_close(got.double(), ref, rtol=5e-5, atol=5e-5)
+    torch.testing.assert_close(got.double(), ref, rtol=tb.BWD_TOL,
+                               atol=tb.BWD_TOL)
     # one part at a time gives the same gradient
     dqkv, stats = at.launch_backward(qkv, mask, dctx, case["H"],
                                      parts=("dq",))
@@ -1213,6 +1215,26 @@ def test_encoder_attention_backward_kernels(cuda, label):
                        dqkv=dqkv, stats=stats)
     torch.cuda.synchronize()
     assert torch.equal(dqkv, got)
+
+
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+@pytest.mark.parametrize("L", [1, 16, 17, 33, 65])
+def test_encoder_attention_backward_every_tiling(cuda, hd, L):
+    """Every tiling `backward_tiles_for` picks (1, 2 and 4 warps a (b, h),
+    one- and two-stage rings, dkv's two walks at hd 128) against the f64
+    reference, with a full row, partly masked rows and a row whose keys
+    are all masked."""
+    from oramacore_tpu_torch.benches import train_bench as tb
+    from oramacore_tpu_torch.ops import attention as at
+
+    case = dict(B=5, L=L, H=2, hd=hd, padded=1)
+    qkv, mask, dctx = tb.backward_inputs(case, 70 + hd + L, cuda)
+    got = at.encoder_attention_backward(qkv, mask, dctx, 2)
+    torch.cuda.synchronize()
+    ref = tb.backward_reference(qkv, mask, dctx, 2)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got.double(), ref, rtol=tb.BWD_TOL,
+                               atol=tb.BWD_TOL)
 
 
 def test_encoder_attention_function_on_the_card(cuda):
@@ -1232,7 +1254,8 @@ def test_encoder_attention_function_on_the_card(cuda):
         out = at.EncoderAttention.apply(xc, mask.to(cuda), case["H"])
         out.backward(dctx.to(cuda))
     torch.cuda.synchronize()
-    torch.testing.assert_close(xc.grad.cpu(), x.grad, rtol=5e-5, atol=5e-5)
+    torch.testing.assert_close(xc.grad.cpu(), x.grad, rtol=tb.BWD_TOL,
+                               atol=tb.BWD_TOL)
 
 
 def test_encoder_attention_backward_refuses_what_it_cannot_run(cuda):
@@ -1250,6 +1273,37 @@ def test_encoder_attention_backward_refuses_what_it_cannot_run(cuda):
                                       .contiguous().transpose(0, 1), 8)
     with pytest.raises(ValueError):
         at.encoder_attention_backward(qkv, mask, dctx.cpu(), 8)
+
+
+def test_encoder_attention_backward_refuses_another_layout(cuda):
+    """The shared memory `backward_tiles_for` passes is the kernels'
+    layout: the entry points launch with it and refuse it 16 bytes off."""
+    import numpy as np
+
+    from oramacore_tpu_torch.benches import train_bench as tb
+    from oramacore_tpu_torch.ops import attention as at
+
+    case = dict(B=3, L=40, H=2, hd=32, padded=0)
+    qkv, mask, dctx = tb.backward_inputs(case, 5, cuda)
+    dqkv = torch.zeros_like(qkv)
+    stats = torch.zeros((3 * 2 * 40, 4), device=cuda)
+    lib = at.load_backward_kernels()
+    div = float(np.float32(np.sqrt(32)))
+    stream = torch.cuda.current_stream().cuda_stream
+    for kind, tl in at.backward_tiles_for(3, 2, 40, 32).items():
+        fn = getattr(lib, f"encoder_attention_backward_{kind}_launch")
+        tail = (dqkv, stats) if kind == "dq" else (stats, dqkv)
+        for smem, ok in ((tl.smem, True), (tl.smem + 16, False),
+                         (tl.smem - 16, False)):
+            err = fn(qkv.data_ptr(), mask.data_ptr(), dctx.data_ptr(),
+                     *(t.data_ptr() for t in tail), 3, 40, 2, 32, tl.warps,
+                     tl.pairs, tl.tile, tl.stages, tl.row_tiles, tl.grid,
+                     smem, div, stream)
+            assert (err == 0) == ok, (kind, smem, err)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(
+        dqkv.double(), tb.backward_reference(qkv, mask, dctx, 2),
+        rtol=tb.BWD_TOL, atol=tb.BWD_TOL)
 
 
 def test_training_step_on_the_card(cuda):

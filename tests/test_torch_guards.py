@@ -424,3 +424,68 @@ def test_profile_counts_name_each_kernel():
                        facet_hist=4, facet_hist_multi=3, encoder_attention=10,
                        encoder_attention_backward_dq=9,
                        encoder_attention_backward_dkv=10)
+
+
+class _FakeProfile:
+    """torch.profiler.profile's surface that chip_smoke.profile_once uses:
+    on its second step it hands `on_trace_ready` the next reading of
+    `readings` (the profiled count of encoder_attention_kernel); each step
+    is written to `log`."""
+
+    def __init__(self, readings, log, **kw):
+        self.readings, self.log = readings, log
+        self.ready, self.steps = kw["on_trace_ready"], 0
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+    def step(self):
+        self.steps += 1
+        self.log.append("step")
+        if self.steps == 2:
+            n = self.readings.pop(0)
+            event = type("Event", (), dict(
+                self_device_time_total=5.0, count=n, device_type="CUDA",
+                key="void encoder_attention_kernel<32, 4, 64>(float const*)"))
+            self.ready(type("Prof", (), dict(key_averages=lambda s: [event]))())
+
+
+@pytest.mark.parametrize("readings,ok", [([1], True), ([0], False),
+                                         ([2], False)])
+def test_profile_once_holds_each_reading_to_the_launches(monkeypatch, readings,
+                                                         ok):
+    """One reading, whose kernel count must equal the wrappers' LAUNCHES
+    for the profiled call, or the phase fails; the call starts
+    PROFILE_EDGE_S after the window opens and the window closes
+    PROFILE_EDGE_S after it."""
+    import chip_smoke
+    from oramacore_tpu_torch.ops import attention as at
+
+    left, log = list(readings), []
+    monkeypatch.setattr(torch.profiler, "profile",
+                        lambda **kw: _FakeProfile(left, log, **kw))
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: log.append("sync"))
+    monkeypatch.setattr(chip_smoke.time, "sleep",
+                        lambda s: log.append(("sleep", s)))
+
+    def call():   # one launch of the attention a call, as a wrapper counts
+        at.LAUNCHES["encoder_attention"] += 1
+        log.append("call")
+
+    before = dict(at.LAUNCHES)
+    try:
+        if ok:
+            assert chip_smoke.profile_once("fake", call, "CPU") == 5.0 / 1e3
+        else:
+            with pytest.raises(chip_smoke.SmokeFailure, match="missed"):
+                chip_smoke.profile_once("fake", call, "CPU")
+        assert not left
+        edge = ("sleep", chip_smoke.PROFILE_EDGE_S)
+        assert chip_smoke.PROFILE_EDGE_S > 0
+        assert log[-8:] == ["call", "sync", "step", edge, "call", "sync",
+                            edge, "step"]
+    finally:
+        at.LAUNCHES.update(before)
