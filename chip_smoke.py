@@ -70,7 +70,7 @@ launch counts set to 0 just before it and read just after:
   (`HybridSearchTopK.search_topk_hybrid` over a `StringIndex` of the same
   passages, indexed through the text parser's packed tokens) with
   embedded query texts;
-- the ingest text pipeline on 262,144 seeded JSON documents of the
+- the ingest text pipeline on 32,768 seeded JSON documents of the
   reference's games-bench shape (`oramacore_tpu_torch/benches/
   ingest_bench.py`): the native tokenizer, live accumulator and hash
   encoder against their Python routes on 16,384 of them (timed, held
@@ -90,7 +90,20 @@ launch counts set to 0 just before it and read just after:
   tokens, seed 0), the run's first steps held card against CPU, and the
   trained checkpoint saved under `build/trained/`, loaded through
   `load_torch_encoder`, checked (probes, synonyms, phrases) and searched
-  with.
+  with;
+- the runtime, through the entry points a user calls: `build_orama(config,
+  device="cuda")` with the in-memory op log and the consumer thread;
+  262,144 games documents of phase 15's generator (hash model) and 16,384 of
+  phase 14's passages (SemanticBase, embedded by the write side's queue)
+  through `WriteSide.insert_documents` in batches of 1,024; searches of
+  every kind (full-text, where-filters, facets, sort-by, group-by,
+  tolerance, exact, a pin rule, vector, hybrid) through `ReadSide.search`
+  and `search_batch` (the shared B=256 route, filtered, sorted, vector and
+  hybrid batches) on the live layer and after the commit; held to a CPU
+  read side loaded from the snapshots, to the BM25 reference scorer, to
+  a restart, and, with `reader_side.pruning = "on"`, card against CPU
+  again; latency, QPS, the B=256 batch's device time and the read side's
+  overhead over a direct `search_topk_shared` call.
 
 Each `torch.profiler` reading is held to the wrappers' launch counts of
 the same call (`profile_once`): a profile that misses a launch gives no
@@ -194,7 +207,8 @@ ENC_PHRASE_T = ["automobile purchase", "rapid vessel voyage",
 
 # phase 15: the ingest text pipeline, from JSON documents to search
 # (oramacore_tpu_torch/benches/ingest_bench.py)
-INGEST_DOCS = 262_144     # documents of the games bench's shape
+INGEST_DOCS = 32_768      # documents of the games bench's shape (phase 17
+#                           takes 262,144 of them through the runtime)
 INGEST_SEED = 15
 INGEST_VOCAB = 50_000     # English-like words, stems x suffixes
 INGEST_COMPARE = 16_384   # documents timed on the native and Python routes
@@ -211,6 +225,25 @@ TRAIN_COMPARE = 10        # first steps of the run held card against CPU
 TRAIN_LOSS_TOL = 1e-4     # |loss| card against CPU at each of those steps
 TRAIN_PARAM_TOL = 1e-5    # |parameter| card against CPU after them
 TRAIN_PASSAGES = 512      # passages embedded with the trained model
+
+# phase 17: the runtime (build_orama -> WriteSide -> op log -> ReadSide)
+RS_DOCS = 262_144         # games documents (phase 15's corpus, seed 15)
+RS_PASSAGES = 16_384      # SemanticBase passages (phase 14's, seed 14)
+RS_INSERT = 1_024         # documents an insert_documents call
+RS_QUERIES = 256          # query strings (the B=256 shared batch)
+RS_SINGLE = 64            # single full-text search calls
+RS_KIND_QUERIES = 4       # queries of each other search kind
+RS_VEC_B = 64             # the vector and hybrid batches
+RS_SIM = 0.2              # vector similarity on the hash-model games
+RS_PASSAGE_SIM = 0.5      # vector similarity on SemanticBase passages
+RS_LATENCY_N = 32         # single calls timed for each other mode
+RS_CPU_FULLTEXT = 8       # single full-text searches held card to CPU
+RS_CPU_KIND = 2           # queries of each other kind held card to CPU
+N_RS_NUMPY = 16           # plain queries held to host_bm25_reference
+RS_DIR = os.path.join(ROOT, "build", "read_side")
+RS_MASTER = "smoke-master-key"
+RS_KEYS = {"games": ("games-read", "games-write"),
+           "passages": ("passages-read", "passages-write")}
 
 # Every ported kernel entry point: its wrapper module, the CUDA source, the
 # TPU kernel (or, with jitted=True, the jitted JAX function) it replaces,
@@ -2928,6 +2961,560 @@ def phase_train(device, card):
     return timings, launches
 
 
+# ---------------------------------------------------------------------------
+# the runtime: write side, op log, read side (phase 17)
+# ---------------------------------------------------------------------------
+
+def rs_config(data_dir, pruning="auto"):
+    """The runtime's config for phase 17: defaults, with commits left to
+    the script (the per-collection thresholds would otherwise commit
+    every 10,000 ops during the ingest)."""
+    from oramacore_tpu_torch.config import OramacoreConfig
+
+    cfg = OramacoreConfig()
+    cfg.data_dir = data_dir
+    cfg.auth.master_api_key = RS_MASTER
+    big = 1 << 40
+    cfg.writer_side.insert_batch_commit_size = big
+    cfg.reader_side.insert_batch_commit_size = big
+    cfg.reader_side.operation_threshold = big
+    cfg.reader_side.time_threshold = float(big)
+    cfg.reader_side.pruning = pruning
+    return cfg
+
+
+def rs_cases(qtexts, ptexts):
+    """(single searches, batches) of phase 17: name -> (collection,
+    SearchParams JSON), name -> (collection, [SearchParams JSON])."""
+    from oramacore_tpu_torch.benches import ingest_bench as ib
+
+    g = ib.GENRES
+    ranges = [{"from": 10 * i, "to": 10 * i + 10} for i in range(8)]
+    singles = {f"fulltext {i}": ("games", {"term": qtexts[i]})
+               for i in range(RS_SINGLE)}
+    kinds = {
+        "price range": lambda q, i: {
+            "term": q, "where": {"price": {"between": [20, 45]}}},
+        "genre": lambda q, i: {"term": q, "where": {"genre": g[i % len(g)]}},
+        "price and genre": lambda q, i: {"term": q, "where": {
+            "genre": [g[i % len(g)], g[(i + 7) % len(g)]],
+            "price": {"lt": 50}}},
+        "facets": lambda q, i: {"term": q, "facets": {
+            "genre": {}, "price": {"ranges": ranges}}},
+        "sort asc": lambda q, i: {"term": q, "limit": 20, "sortBy": {
+            "property": "price", "order": "asc"}},
+        "sort desc": lambda q, i: {"term": q, "limit": 20, "sortBy": {
+            "property": "price", "order": "desc"}},
+        "group by genre": lambda q, i: {"term": q, "groupBy": {
+            "properties": ["genre"], "maxResults": 3}},
+        "tolerance 1": lambda q, i: {"term": q, "tolerance": 1},
+        "exact": lambda q, i: {"term": q, "exact": True},
+        "pinned": lambda q, i: {"term": "pinned " + q},
+        "vector": lambda q, i: {"mode": "vector", "term": q,
+                                "similarity": RS_SIM},
+        "hybrid": lambda q, i: {"mode": "hybrid", "term": q,
+                                "similarity": RS_SIM},
+    }
+    at = RS_SINGLE
+    for kind, make in kinds.items():
+        for i in range(RS_KIND_QUERIES):
+            singles[f"{kind} {i}"] = ("games", make(qtexts[at % len(qtexts)],
+                                                    i))
+            at += 1
+    for i in range(RS_KIND_QUERIES):
+        singles[f"passages fulltext {i}"] = ("passages", {"term": ptexts[i]})
+        singles[f"passages vector {i}"] = ("passages", {
+            "mode": "vector", "term": ptexts[i], "similarity": RS_PASSAGE_SIM})
+        singles[f"passages hybrid {i}"] = ("passages", {
+            "mode": "hybrid", "term": ptexts[i],
+            "similarity": RS_PASSAGE_SIM})
+    qb = qtexts[:RS_VEC_B]
+    batches = {
+        f"batch fulltext B={len(qtexts)}": ("games", [
+            {"term": q} for q in qtexts]),
+        f"batch fulltext B={len(qb)}": ("games", [{"term": q} for q in qb]),
+        f"batch genre B={len(qb)}": ("games", [
+            {"term": q, "where": {"genre": g[i % len(g)]}}
+            for i, q in enumerate(qb)]),
+        f"batch sort B={len(qb)}": ("games", [
+            {"term": q, "sortBy": {"property": "price", "order": "desc"}}
+            for q in qb]),
+        f"batch vector B={len(qb)}": ("games", [
+            {"mode": "vector", "term": q, "similarity": RS_SIM} for q in qb]),
+        f"batch hybrid B={len(qb)}": ("games", [
+            {"mode": "hybrid", "term": q, "similarity": RS_SIM} for q in qb]),
+        f"passages batch hybrid B={len(ptexts)}": ("passages", [
+            {"mode": "hybrid", "term": q, "similarity": RS_PASSAGE_SIM}
+            for q in ptexts]),
+        f"passages batch vector B={len(ptexts)}": ("passages", [
+            {"mode": "vector", "term": q, "similarity": RS_PASSAGE_SIM}
+            for q in ptexts]),
+    }
+    return singles, batches
+
+
+def rs_held_to_cpu(name, pruned=False):
+    """The cases a CPU read side answers (its plain kernel versions take
+    seconds a search at this size): the first RS_CPU_FULLTEXT single
+    full-text searches, the first RS_CPU_KIND of every other kind, every
+    batch; with pruning "on" one of each kind, no tolerance (each fuzzy
+    variant span is a binary search per posting in the plain worklist)
+    and no B=256 batch."""
+    if name.startswith("batch") or name.startswith("passages batch"):
+        return not (pruned and f"B={RS_QUERIES}" in name)
+    kind, i = name.rsplit(" ", 1)
+    if pruned:
+        return kind != "tolerance 1" and int(i) < (
+            RS_CPU_FULLTEXT // 2 if kind == "fulltext" else 1)
+    return int(i) < (RS_CPU_FULLTEXT if kind == "fulltext" else RS_CPU_KIND)
+
+
+def rs_answers(rs, singles, batches, only=None):
+    """Every case through ReadSide.search / search_batch: name -> list of
+    SearchResult."""
+    from oramacore_tpu_torch.types import SearchParams
+
+    out = {}
+    for name, (coll, p) in singles.items():
+        if only is None or only(name):
+            out[name] = [rs.search(coll, RS_KEYS[coll][0],
+                                   SearchParams.from_json(p))]
+    for name, (coll, plist) in batches.items():
+        if only is None or only(name):
+            out[name] = rs.search_batch(
+                coll, RS_KEYS[coll][0],
+                [SearchParams.from_json(p) for p in plist])
+    return out
+
+
+def rs_hits_errors(a, b, label, rtol=1e-4, tie_rtol=1e-5):
+    """Two pages of hits, `a` the reference: scores within rtol, ids
+    equal outside runs of near-tied reference scores (inside a run the
+    order is free; a run reaching the page's end may hold other docs),
+    and equal documents under equal ids."""
+    if len(a) != len(b):
+        return [f"{label}: {len(b)} hits vs {len(a)}"]
+    errs = []
+    sa = np.array([h.score for h in a], np.float64)
+    sb = np.array([h.score for h in b], np.float64)
+    if not np.allclose(sb, sa, rtol=rtol, atol=1e-7):
+        errs.append(f"{label}: scores {sb[:5]} vs {sa[:5]}")
+    i, n = 0, len(a)
+    while i < n:
+        j = i + 1
+        while j < n and abs(sa[j] - sa[i]) <= tie_rtol * max(abs(sa[i]), 1e-30):
+            j += 1
+        ia, ib_ = [h.id for h in a[i:j]], [h.id for h in b[i:j]]
+        if j < n and sorted(ia) != sorted(ib_):
+            errs.append(f"{label}: ranks {i}-{j - 1} {ib_} vs {ia}")
+        i = j
+    docs = {h.id: h.document for h in a}
+    errs += [f"{label}: document of {h.id}" for h in b
+             if h.id in docs and docs[h.id] != h.document]
+    return errs
+
+
+def rs_result_errors(a, b, label):
+    """SearchResult `b` against `a`: the hits as above, count and
+    count_estimated exact, facet counts exact, groups' labels exact and
+    their hits as above."""
+    errs = rs_hits_errors(a.hits, b.hits, label)
+    if (a.count, a.count_estimated) != (b.count, b.count_estimated):
+        errs.append(f"{label}: count {b.count} ({b.count_estimated}) vs "
+                    f"{a.count} ({a.count_estimated})")
+    fa = {k: v.values for k, v in (a.facets or {}).items()}
+    fb = {k: v.values for k, v in (b.facets or {}).items()}
+    if fa != fb:
+        errs.append(f"{label}: facets {fb} vs {fa}")
+    ga, gb = a.groups or [], b.groups or []
+    if [x.values for x in ga] != [x.values for x in gb]:
+        errs.append(f"{label}: group labels differ")
+    else:
+        for x, y in zip(ga, gb):
+            errs += rs_hits_errors(x.result, y.result, f"{label} {x.values}")
+    return errs
+
+
+def rs_compare(ref, got, what):
+    """Hold every case of `got` to `ref` (rs_result_errors)."""
+    bad, n = [], 0
+    for name, results in got.items():
+        for qi, (a, b) in enumerate(zip(ref[name], results)):
+            bad += rs_result_errors(a, b, f"{name}[{qi}]")
+            n += 1
+    report_check(bad, f"{what}: {n} searches ({len(got)} cases) agree: ids "
+                      f"outside near-ties (1e-5), scores rtol 1e-4, counts, "
+                      f"facet counts, groups, hydrated documents")
+    return n
+
+
+def rs_sanity(ans, what):
+    """Every case answered with finite scores; the search kinds reached
+    what they name (hits, facets, groups, pinned docs first)."""
+    bad = []
+    for name, results in ans.items():
+        for r in results:
+            if not all(np.isfinite(h.score) for h in r.hits):
+                bad.append(f"{name}: a score is not finite")
+    for name in (n for n in ans if n.endswith(" 0")):
+        r = ans[name][0]
+        if name.startswith(("fulltext", "facets", "group", "hybrid")) \
+                and not r.hits:
+            bad.append(f"{name}: no hits")
+        if name.startswith("facets") and not r.facets["genre"].values:
+            bad.append(f"{name}: no genre facet")
+        if name.startswith("group") and r.hits and not r.groups:
+            bad.append(f"{name}: no groups")
+    report_check(bad, f"{what}: finite scores; full-text, hybrid, facet and "
+                      f"group cases answered")
+
+
+def rs_wait_searchable(orama, doc, coll="games"):
+    """Seconds until `doc`, the last one sent, is a hit of a search for
+    its own title (every word, exact). The read side's applied offset is
+    polled every 10 ms until it reaches the write side's, then the search
+    runs (a search on the live layer packs it anew after every applied
+    op, so polling with searches would slow the consumer it waits for)."""
+    from oramacore_tpu_torch.types import SearchParams
+
+    ws, rs = orama.write_side, orama.read_side
+    target = ws.op_sender.offset
+    p = SearchParams.from_json({"term": doc["title"], "exact": True,
+                                "threshold": 1.0, "limit": 1000})
+    t0 = time.perf_counter()
+    while True:
+        if rs.live_offset >= target:
+            res = rs.search(coll, RS_KEYS[coll][0], p)
+            if any(h.id.endswith(":" + doc["id"]) for h in res.hits):
+                return time.perf_counter() - t0
+        if time.perf_counter() - t0 > 600:
+            raise SmokeFailure(f"document {doc['id']} not searchable after "
+                               f"600 s")
+        time.sleep(0.01)
+
+
+def rs_wait_applied(orama, timeout=900.0):
+    """Wait until the read side has applied every op the write side sent
+    (the embedding queue drained first)."""
+    ws, rs = orama.write_side, orama.read_side
+    if not ws.embedding_queue.flush_and_wait(timeout=timeout):
+        raise SmokeFailure("the embedding queue did not drain")
+    t0 = time.perf_counter()
+    while rs.live_offset < ws.op_sender.offset:
+        if time.perf_counter() - t0 > timeout:
+            raise SmokeFailure("the read side did not apply the op log")
+        time.sleep(0.01)
+
+
+def rs_latency(rs, singles, card):
+    """p50 / p99 of single ReadSide.search calls by mode (host clock)."""
+    from oramacore_tpu_torch.types import SearchParams
+
+    modes = {"fulltext": "fulltext ", "price range": "price range ",
+             "facets": "facets ", "sort": "sort asc ",
+             "group by": "group by genre ", "vector": "vector ",
+             "hybrid": "hybrid ", "passages hybrid (SemanticBase)":
+             "passages hybrid "}
+    out = {}
+    for mode, prefix in modes.items():
+        names = [n for n in singles if n.startswith(prefix)]
+        calls = [singles[names[i % len(names)]] for i in range(
+            RS_SINGLE if mode == "fulltext" else RS_LATENCY_N)]
+        ms = []
+        for coll, p in calls:
+            sp = SearchParams.from_json(p)
+            t = time.perf_counter()
+            rs.search(coll, RS_KEYS[coll][0], sp)
+            ms.append((time.perf_counter() - t) * 1e3)
+        out[mode] = (float(np.percentile(ms, 50)), float(np.percentile(ms, 99)))
+        print(f"  ReadSide.search, {mode}: {len(ms)} calls, p50 "
+              f"{out[mode][0]:.3f} ms, p99 {out[mode][1]:.3f} ms [{card}]",
+              flush=True)
+    return out
+
+
+def rs_numpy_check(rs, qtexts):
+    """N_RS_NUMPY plain queries: ReadSide.search's top-10 and count held
+    to host_bm25_reference on the read side's committed index (the
+    tokens and fields the read side plans)."""
+    from oramacore_tpu_torch.index.search_exec import host_bm25_reference
+    from oramacore_tpu_torch.types import SearchParams
+
+    idx = rs.collections["games"].indexes["main"]
+    props = [p for p, t in idx.field_types.items()
+             if t.startswith("string") or t == "date"]
+    n = float(idx.document_count())
+    bad = []
+    for b, q in enumerate(qtexts[:N_RS_NUMPY]):
+        toks = [w for t, v in idx.parser.tokenize_and_stem(q) for w in [t] + v]
+        ref = host_bm25_reference(idx.string, toks, props, {}, n)
+        res = rs.search("games", RS_KEYS["games"][0],
+                        SearchParams.from_json({"term": q}))
+        ids = np.array([idx.user_to_internal[h.id.split(":", 1)[1]]
+                        for h in res.hits])
+        vals = np.array([h.score for h in res.hits], np.float64)
+        ref_ids, ref_vals = reference_top(ref, K)
+        errs = topk_errors(ids, vals, ref_ids, ref_vals, ref)
+        if res.count != len(ref):
+            errs.append(f"count {res.count} vs {len(ref)}")
+        bad += [f"query {b} {q!r}: {e}" for e in errs]
+    report_check(bad, f"{N_RS_NUMPY} plain queries through ReadSide.search: "
+                      f"top-{K} and counts equal host_bm25_reference over "
+                      f"{props} of the committed index")
+
+
+def rs_overhead(rs, qtexts, card):
+    """The same queries through SharedBatchExecutor.search_topk_shared on
+    the read side's own committed index and through ReadSide.search_batch,
+    in turns (A B B A A B); returns (executor ms, read side ms)."""
+    from oramacore_tpu_torch.types import SearchParams
+
+    idx = rs.collections["games"].indexes["main"]
+    props = [p for p, t in idx.field_types.items() if t.startswith("string")]
+    toks = [[w for t, v in idx.parser.tokenize_and_stem(q) for w in [t] + v]
+            or [""] for q in qtexts]
+    ex = rs._shared_executor
+    n, cap = float(idx.document_count()), idx.cap()
+    params = [SearchParams.from_json({"term": q}) for q in qtexts]
+
+    def direct():
+        # the arguments the read side passes (its thresholds are zeros)
+        return ex.search_topk_shared(idx.string, toks, props, {}, n, cap, K,
+                                     thresholds=[0.0] * len(toks))
+
+    def read_side():
+        return rs.search_batch("games", RS_KEYS["games"][0], params)
+
+    times = {"direct": [], "read side": []}
+    for fn in ("direct", "read side", "read side", "direct", "direct",
+               "read side"):
+        times[fn].append(timed_ms(direct if fn == "direct" else read_side)[1])
+    a, b = min(times["direct"]), min(times["read side"])
+    vals, ids, counts = direct()
+    res = read_side()
+    check(all(int(counts[i]) == r.count for i, r in enumerate(res)),
+          f"the direct executor call and ReadSide.search_batch give the same "
+          f"{len(res)} counts")
+    print(f"  read side overhead, B={len(qtexts)} full-text: "
+          f"search_topk_shared {a:.2f} ms, ReadSide.search_batch {b:.2f} ms "
+          f"(best of 3 each, in turns): {b / a:.3f}x [{card}]", flush=True)
+    return a, b
+
+
+def phase_read_side(device, card):
+    """Phase 17: the runtime on the card. build_orama, two collections
+    through WriteSide.insert_documents while the consumer thread applies
+    the op log, searches of every kind through ReadSide.search and
+    search_batch before and after the commit, then held to a CPU read
+    side loaded from the snapshots, to host_bm25_reference, to a restart
+    and, with pruning switched "on" on both, card against CPU again.
+    Returns the launch counts of its paths and its numbers."""
+    import copy
+    import shutil
+
+    import torch
+
+    from oramacore_tpu_torch.benches import ingest_bench as ib
+    from oramacore_tpu_torch.benches.encoder_bench import (
+        passages,
+        vocab_words,
+    )
+    from oramacore_tpu_torch.embeddings import EmbeddingsService
+    from oramacore_tpu_torch.oplog import InMemoryTransport
+    from oramacore_tpu_torch.read import ReadSide
+    from oramacore_tpu_torch.runtime import build_orama
+    from oramacore_tpu_torch.utils.tokenizer import NLPService
+
+    out = {}
+    t0 = time.perf_counter()
+    words, stems = ib.vocabulary(INGEST_VOCAB, seed=INGEST_SEED)
+    docs = ib.documents(RS_DOCS, seed=INGEST_SEED, words=words)
+    qtexts = ib.queries(stems, RS_QUERIES, seed=INGEST_SEED + 1)
+    pwords = vocab_words(os.path.join(ROOT, "models", "semantic-base",
+                                      "vocab.txt"))
+    pdocs = [{"id": f"p{i}", "text": t} for i, t in enumerate(
+        passages(pwords, RS_PASSAGES, seed=ENC_SEED))]
+    ptexts = passages(pwords, RS_VEC_B, seed=ENC_SEED + 1, n_words=(2, 4))
+    pin_ids = [docs[5]["id"], docs[77]["id"]]
+    singles, batches = rs_cases(qtexts, ptexts)
+    print(f"  corpus: {len(docs):,} games documents, {len(pdocs):,} "
+          f"passages, {len(singles)} single searches and {len(batches)} "
+          f"batches: {time.perf_counter() - t0:.1f} s of host time",
+          flush=True)
+
+    shutil.rmtree(RS_DIR, ignore_errors=True)
+    cfg = rs_config(RS_DIR)
+    torch.cuda.reset_peak_memory_stats()
+    orama = build_orama(cfg, device=device, start_consumer=True)
+    ws, rs = orama.write_side, orama.read_side
+    for cid, (rk, wk) in RS_KEYS.items():
+        ws.create_collection(RS_MASTER, cid, read_api_key=rk,
+                             write_api_key=wk,
+                             embedding_model="SemanticBase"
+                             if cid == "passages" else None)
+        ws.create_index(cid, wk, "main")
+    ws.insert_pin_rule("games", RS_KEYS["games"][1], {
+        "id": "promo",
+        "conditions": [{"pattern": "pinned", "anchoring": "contains"}],
+        "consequence": {"promote": [{"doc_id": pin_ids[0], "position": 0},
+                                    {"doc_id": pin_ids[1], "position": 2}]},
+    })
+
+    # the games: insert batches while the consumer applies them
+    t0 = time.perf_counter()
+    for lo in range(0, len(docs), RS_INSERT):
+        ws.insert_documents("games", "main", RS_KEYS["games"][1],
+                            docs[lo:lo + RS_INSERT])
+    t_insert = time.perf_counter() - t0
+    t_last = t_insert + rs_wait_searchable(orama, docs[-1])
+    rs_wait_applied(orama)
+    t_applied = time.perf_counter() - t0
+    out["docs_per_s"] = len(docs) / t_insert
+    print(f"  games: {len(docs):,} documents through insert_documents in "
+          f"batches of {RS_INSERT}: {t_insert:.2f} s, {out['docs_per_s']:,.0f} "
+          f"documents/s; the last document searchable at {t_last:.2f} s; "
+          f"every op (with the hash-model embeddings) applied at "
+          f"{t_applied:.2f} s [{card}]", flush=True)
+
+    # the passages: SemanticBase embeddings on the write side's queue
+    def passages_ingest():
+        t = time.perf_counter()
+        for lo in range(0, len(pdocs), RS_INSERT):
+            ws.insert_documents("passages", "main", RS_KEYS["passages"][1],
+                                pdocs[lo:lo + RS_INSERT])
+        rs_wait_applied(orama)
+        return time.perf_counter() - t
+
+    t_pass, launches = counted("read side, passages ingest", passages_ingest)
+    check(launches["encoder_attention"] > 0,
+          f"the passages' embedding queue launched encoder_attention "
+          f"{launches['encoder_attention']} times")
+    out["launches_passages"] = launches
+    print(f"  passages: {len(pdocs):,} through insert_documents and the "
+          f"SemanticBase embedding queue, applied in {t_pass:.2f} s [{card}]",
+          flush=True)
+
+    # searches on the live layer, before any commit
+    t0 = time.perf_counter()
+    live, launches = counted("read side, live layer",
+                             lambda: rs_answers(rs, singles, batches))
+    print(f"  every case on the live layer: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    rs_sanity(live, "live layer")
+    check(launches["score_ranges_accumulate"] > 0
+          and launches["encoder_attention"] > 0,
+          "the live-layer searches launched score_ranges_accumulate and "
+          "encoder_attention")
+
+    t0 = time.perf_counter()
+    ws.commit()
+    t1 = time.perf_counter()
+    rs.commit(force=True)
+    t2 = time.perf_counter()
+    out["commit_s"] = (t1 - t0, t2 - t1)
+    print(f"  commit: WriteSide.commit {t1 - t0:.2f} s, "
+          f"ReadSide.commit(force=True) {t2 - t1:.2f} s [{card}, host]",
+          flush=True)
+
+    t0 = time.perf_counter()
+    committed, launches = counted("read side, committed",
+                                  lambda: rs_answers(rs, singles, batches))
+    print(f"  every case after the commit: {time.perf_counter() - t0:.1f} s "
+          f"(the first search packs the committed slab)", flush=True)
+    out["launches_dense"] = launches
+    check(launches["score_ranges_accumulate"] > 0,
+          f"the committed dense searches launched score_ranges_accumulate "
+          f"{launches['score_ranges_accumulate']} times")
+    rs_sanity(committed, "committed")
+    rs_compare(committed, live, "live layer against committed, card")
+    pinned = [h.id for h in committed["pinned 0"][0].hits]
+    check(pinned[0] == "main:" + pin_ids[0] and pinned[2] == "main:" + pin_ids[1],
+          f"the pin rule put {pin_ids[0]} first and {pin_ids[1]} third")
+    rs_numpy_check(rs, qtexts)
+
+    out["latency"] = rs_latency(rs, singles, card)
+    from oramacore_tpu_torch.types import SearchParams
+
+    big = [SearchParams.from_json(p)
+           for p in batches[f"batch fulltext B={len(qtexts)}"][1]]
+    hyb = [SearchParams.from_json(p)
+           for p in batches[f"batch hybrid B={RS_VEC_B}"][1]]
+    for label, plist in ((f"full-text B={len(big)}", big),
+                         (f"hybrid B={len(hyb)}", hyb)):
+        steady = [timed_ms(lambda: rs.search_batch(
+            "games", RS_KEYS["games"][0], plist))[1] for _ in range(3)]
+        out[f"qps {label}"] = len(plist) / min(steady) * 1e3
+        print(f"  ReadSide.search_batch {label}: "
+              f"{', '.join(f'{x:.2f}' for x in steady)} ms, "
+              f"{out[f'qps {label}']:,.1f} QPS (best of 3) [{card}]",
+              flush=True)
+    out["device_ms_b256"] = profile_once(
+        f"ReadSide.search_batch full-text B={len(big)}",
+        lambda: rs.search_batch("games", RS_KEYS["games"][0], big), card)
+    out["overhead"] = rs_overhead(rs, qtexts, card)
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    print(f"  peak device memory {out['peak_gib']:.3f} GiB [{card}]",
+          flush=True)
+
+    # restart from the data dir
+    t0 = time.perf_counter()
+    orama.stop()
+    orama = build_orama(cfg, device=device, start_consumer=True)
+    rs = orama.read_side
+    print(f"  restart: stop and build_orama from {RS_DIR} in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    t0 = time.perf_counter()
+    restarted = rs_answers(rs, singles, batches)
+    print(f"  every case after the restart: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    rs_compare(committed, restarted, "restart against before it, card")
+
+    # a CPU read side loaded from the same snapshots (never committed:
+    # it shares the data dir)
+    t0 = time.perf_counter()
+    cpu = ReadSide(rs_config(RS_DIR), InMemoryTransport().receiver,
+                   EmbeddingsService(), NLPService(), device="cpu")
+    cpu_ans = rs_answers(cpu, singles, batches, rs_held_to_cpu)
+    print(f"  CPU read side: loaded and answered in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    rs_compare(cpu_ans, {k: restarted[k] for k in cpu_ans},
+               "card against a CPU read side (plain kernel versions) on the "
+               "snapshots")
+
+    # the pruned tier: the restarted read side (a reload from the
+    # snapshots) and the CPU one with reader_side.pruning switched to "on"
+    # (read at each search), card against CPU
+    rs.config.reader_side.pruning = "on"
+    cpu.config.reader_side.pruning = "on"
+    t0 = time.perf_counter()
+    pruned, launches = counted("read side, pruned", lambda: rs_answers(
+        rs, singles, batches, lambda name: not name.startswith("tolerance")))
+    print(f"  every case but tolerance, pruned: {time.perf_counter() - t0:.1f} "
+          f"s", flush=True)
+    out["launches_pruned"] = launches
+    for name in ("rescore_bsearch", "rescore_worklist", "facet_hist"):
+        check(launches[name] > 0,
+              f"the pruned searches launched {name} {launches[name]} times")
+    rs_sanity(pruned, "pruned")
+    t0 = time.perf_counter()
+    cpu_p = rs_answers(cpu, singles, batches,
+                       lambda name: rs_held_to_cpu(name, pruned=True))
+    print(f"  CPU read side, pruned: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    rs_compare(cpu_p, {k: pruned[k] for k in cpu_p},
+               "pruned: card against CPU")
+    check(pruned["fulltext 0"][0].count_estimated,
+          "the pruned plain searches report estimated counts")
+    profile_once("ReadSide.search, pruned facets", lambda: rs.search(
+        "games", RS_KEYS["games"][0], SearchParams.from_json(
+            singles["facets 0"][1])), card)
+    orama.stop()
+    del cpu
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def sync(device):
     import torch
 
@@ -3110,6 +3697,17 @@ def main() -> int:
     train_timings, path_launches["train"] = phase_train(device, card)
     timings.update(train_timings)
     print(f"  phase 16: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    print(f"[17] the runtime: build_orama, {RS_DOCS:,} games documents and "
+          f"{RS_PASSAGES:,} SemanticBase passages through WriteSide and the "
+          f"op log, searches through ReadSide.search and search_batch",
+          flush=True)
+    t_phase = time.perf_counter()
+    phase_read_side(device, card)
+    print(f"  phase 17: {time.perf_counter() - t_phase:.1f} s", flush=True)
 
     kernels = {"kernels": [{
         "name": k["name"],

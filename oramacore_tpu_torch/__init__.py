@@ -5,7 +5,17 @@ and the text encoder that embeds passages and queries for them
 (`embeddings/`), on an NVIDIA Hopper card, and the ingest text pipeline
 that feeds them on the host: the text parser (`utils/tokenizer.py`), the
 write side's op bodies and embedding queue (`write/`) and three native
-C++ libraries (`native/`: tokenizer, hash encoder, live accumulator). It mirrors the layout of `oramacore_tpu` (so
+C++ libraries (`native/`: tokenizer, hash encoder, live accumulator).
+
+Around them runs the system's own entry point, as in the JAX package:
+`runtime.build_orama(config, device="cuda")` wires the write side
+(`write.WriteSide`: collections, indexes, documents, pin rules, values,
+commit) to the read side (`read.ReadSide`: op apply, filters, facets,
+sort, group, pin rules, hydration, `search` and `search_batch`, commit
+and snapshots) through the op log (`oplog/`), with `config.py`,
+`storage/` (JSON in place of msgpack) and `index/filter_fields.py`.
+
+It mirrors the layout of `oramacore_tpu` (so
 `oramacore_tpu_torch/ops/bm25.py` is the counterpart of
 `oramacore_tpu/ops/bm25.py`) and is held against that package in the
 tests: the same numpy inputs go through the JAX function and its port.
@@ -16,7 +26,8 @@ from such a module it keeps as its own copy (`index/string_index.py` is
 the host index).
 
 Every executor takes an explicit `device`. There is no "CUDA if present"
-default: a CUDA device on a host without CUDA raises (`require_cuda`).
+default: a CUDA device on a host without CUDA raises (`require_cuda`), and
+`build_orama` runs on "cuda" unless the caller asks for "cpu".
 """
 
 from __future__ import annotations

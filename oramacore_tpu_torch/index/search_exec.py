@@ -29,6 +29,11 @@ same reps in `facet_match_count`; multi-valued columns come as
 `pair_table`s), and `HybridSearchTopK.search_topk_hybrid_int8_pruned` is
 the pruned hybrid over the int8 IVF layout.
 
+The read side (`read/__init__.py`, `ReadSide.search` and `search_batch`)
+builds these executors on its device and drives them as the JAX read side
+drives the JAX ones: `HybridSearchTopK` per index, one
+`SharedBatchExecutor` for batches.
+
 The vectors these executors search come from the port's text encoder
 (`embeddings/encoder.py`), which the port also trains
 (`train/semantic_encoder.py`: the contrastive loop of

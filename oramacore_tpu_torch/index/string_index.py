@@ -22,9 +22,11 @@ The live layer's bump loop runs in the native (C++) live accumulator
 (`native/live_accum.cpp`, `native.NativeLiveAccum`) by default, as in the
 JAX module; `ORAMACORE_NATIVE_LIVE=0` keeps it in Python, the semantic
 oracle the native one is tested against. `index_text_packed` takes the
-writer's packed wire payload straight to it. Left out of the copy: the
-msgpack snapshots. `plan_query`'s body, with its `with_prefix` (pruned
-tier) branch, is `index/plan.py::plan_query`.
+writer's packed wire payload straight to it. The snapshots
+(`save_string_index` / `load_string_index`) write `np.savez` arrays beside
+a JSON meta file in place of the JAX module's `.meta.msgpack`.
+`plan_query`'s body, with its `with_prefix` (pruned tier) branch, is
+`index/plan.py::plan_query`.
 """
 
 from __future__ import annotations
@@ -1164,3 +1166,114 @@ class StringIndex:
             "pending_ops": self.pending_ops(),
             "unique_terms": self.term_count(),
         }
+
+
+# ---------------------------------------------------------------------------
+# Persistence: committed state → offset-N snapshot dirs (SURVEY §5.4)
+# ---------------------------------------------------------------------------
+
+def save_string_index(idx: StringIndex, path_prefix: str) -> None:
+    """Persist COMMITTED state (callers commit first). Two files:
+    <prefix>.npz (arrays) + <prefix>.meta.json (terms/stats; the JAX
+    module writes the same meta as msgpack)."""
+    import os
+
+    from ..storage.files import atomic_write_json, savez_snapshot
+
+    os.makedirs(os.path.dirname(path_prefix) or ".", exist_ok=True)
+    arrays = {}
+    meta = {"v": 3, "fields": {}}  # v3: doc-sorted ranges + prefix blocks
+    for path, segs in idx._committed.items():
+        key = path.replace("/", "_")
+        stats = idx._stats.get(path) or FieldStats()
+        seg_metas = []
+        for si, cf in enumerate(segs):
+            skey = f"{key}__s{si}"
+            arrays[f"{skey}__starts"] = cf.starts
+            arrays[f"{skey}__lens"] = cf.lens
+            arrays[f"{skey}__doc"] = cf.doc
+            arrays[f"{skey}__tf"] = cf.tf
+            arrays[f"{skey}__exact_tf"] = cf.exact_tf
+            arrays[f"{skey}__flen"] = cf.flen
+            sm = {"key": skey, "terms": cf.terms}
+            if cf.pdoc is not None:
+                arrays[f"{skey}__pdoc"] = cf.pdoc
+                arrays[f"{skey}__ptf"] = cf.ptf
+                arrays[f"{skey}__petf"] = cf.petf
+                arrays[f"{skey}__pflen"] = cf.pflen
+                sm["prefix"] = [
+                    [int(tid), int(o), int(ln)]
+                    for tid, (o, ln) in cf.prefix_ranges.items()
+                ]
+            seg_metas.append(sm)
+        meta["fields"][path] = {
+            "segments": seg_metas,
+            "doc_count": stats.doc_count,
+            "sum_len": stats.sum_len,
+        }
+    # atomic: write tmp then rename, so a crash mid-write never leaves a
+    # corrupt npz beside a valid meta file
+    tmp_npz = path_prefix + ".npz.tmp"
+    with open(tmp_npz, "wb") as fh:
+        savez_snapshot(fh, **arrays)
+    os.replace(tmp_npz, path_prefix + ".npz")
+    atomic_write_json(path_prefix + ".meta.json", meta)
+
+
+def load_string_index(path_prefix: str) -> StringIndex:
+    from ..storage.files import read_json
+
+    idx = StringIndex()
+    meta = read_json(path_prefix + ".meta.json")
+    if meta is None:
+        return idx
+    with np.load(path_prefix + ".npz") as arrays:
+        for path, m in meta["fields"].items():
+            stats = FieldStats(m["doc_count"], m["sum_len"])
+            if "segments" in m:
+                seg_metas = m["segments"]
+            else:  # legacy v1: one unsegmented field per path
+                seg_metas = [{"key": m["key"], "terms": m["terms"]}]
+            segs = []
+            for sm in seg_metas:
+                key = sm["key"]
+                terms = list(sm["terms"])
+                cf = _CommittedField(
+                    terms=terms,
+                    starts=arrays[f"{key}__starts"],
+                    lens=arrays[f"{key}__lens"],
+                    doc=arrays[f"{key}__doc"],
+                    tf=arrays[f"{key}__tf"],
+                    exact_tf=arrays[f"{key}__exact_tf"],
+                    flen=arrays[f"{key}__flen"],
+                    stats=FieldStats(stats.doc_count, stats.sum_len),
+                )
+                if "prefix" in sm:
+                    cf.pdoc = arrays[f"{key}__pdoc"]
+                    cf.ptf = arrays[f"{key}__ptf"]
+                    cf.petf = arrays[f"{key}__petf"]
+                    cf.pflen = arrays[f"{key}__pflen"]
+                    cf.prefix_ranges = {
+                        int(t): (int(o), int(ln))
+                        for t, o, ln in sm["prefix"]
+                    }
+                else:
+                    if meta.get("v", 1) < 3 and len(cf.doc):
+                        # legacy snapshot: ranges were IMPACT-ordered;
+                        # the pruned rescore requires doc order — one
+                        # vectorized in-range re-sort at load
+                        tid_of = np.repeat(
+                            np.arange(len(cf.terms), dtype=np.int64),
+                            cf.lens.astype(np.int64),
+                        )
+                        order = np.lexsort((cf.doc, tid_of))
+                        cf.doc = cf.doc[order]
+                        cf.tf = cf.tf[order]
+                        cf.exact_tf = cf.exact_tf[order]
+                        cf.flen = cf.flen[order]
+                    StringIndex._build_prefix_blocks(cf)
+                segs.append(cf)
+            idx._committed[path] = segs
+            idx._stats[path] = FieldStats(stats.doc_count, stats.sum_len)
+    idx._dirty = True
+    return idx

@@ -1335,3 +1335,56 @@ def test_training_step_on_the_card(cuda):
         g, h = p.grad.cpu(), q.grad
         assert float((g - h).abs().max()) <= 1e-3 * max(
             float(h.abs().max()), 1e-6), k
+
+
+@pytest.mark.parametrize("pruning", ["auto", "on"])
+def test_read_side_on_the_card_equals_the_cpu(cuda, pruning, tmp_path):
+    """The runtime on the card: build_orama(device="cuda"), 2,000 games
+    documents through the write side and the op log, committed; a CPU
+    read side loaded from the same snapshots gives the same answers
+    (chip_smoke's gate: ids outside near-ties, scores rtol 1e-4, counts,
+    facets, groups, documents) for searches of every kind, dense and
+    with pruning "on"."""
+    import chip_smoke as cs
+    from oramacore_tpu_torch.benches import ingest_bench as ib
+    from oramacore_tpu_torch.embeddings import EmbeddingsService
+    from oramacore_tpu_torch.oplog import InMemoryTransport
+    from oramacore_tpu_torch.read import ReadSide
+    from oramacore_tpu_torch.runtime import build_orama
+    from oramacore_tpu_torch.utils.tokenizer import NLPService
+
+    words, stems = ib.vocabulary(2_000, seed=3)
+    docs = ib.documents(2_000, seed=3, words=words)
+    qtexts = ib.queries(stems, 16, seed=4)
+    data = str(tmp_path / "data")
+    orama = build_orama(cs.rs_config(data), device=cuda,
+                        sync_embeddings=True, start_consumer=False)
+    ws, rs = orama.write_side, orama.read_side
+    rk, wk = cs.RS_KEYS["games"]
+    ws.create_collection(cs.RS_MASTER, "games", read_api_key=rk,
+                         write_api_key=wk)
+    ws.create_index("games", wk, "main")
+    ws.insert_documents("games", "main", wk, docs)
+    rs.pump()
+    ws.commit()
+    rs.commit(force=True)
+    orama.stop()
+    readers = {dev: ReadSide(cs.rs_config(data, pruning),
+                             InMemoryTransport().receiver,
+                             EmbeddingsService(), NLPService(), device=dev)
+               for dev in (cuda, "cpu")}
+    old = (cs.RS_SINGLE, cs.RS_KIND_QUERIES, cs.RS_VEC_B)
+    cs.RS_SINGLE, cs.RS_KIND_QUERIES, cs.RS_VEC_B = 4, 1, 8
+    try:
+        singles, batches = cs.rs_cases(qtexts, qtexts[:8])
+    finally:
+        cs.RS_SINGLE, cs.RS_KIND_QUERIES, cs.RS_VEC_B = old
+    games = lambda name: not name.startswith(("passages", "tolerance"))
+    got = {dev: cs.rs_answers(r, singles, batches, games)
+           for dev, r in readers.items()}
+    bad = []
+    for name, results in got["cpu"].items():
+        for qi, (a, b) in enumerate(zip(results, got[cuda][name])):
+            bad += cs.rs_result_errors(a, b, f"{name}[{qi}]")
+    assert not bad, "\n".join(bad[:20])
+    assert sum(r.count for r in got[cuda]["fulltext 0"]) > 0

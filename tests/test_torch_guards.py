@@ -140,7 +140,49 @@ _NO_JAX_SCRIPT = textwrap.dedent("""
         from oramacore_tpu_torch.embeddings.encoder import TorchTextEncoder
         tv = TorchTextEncoder(d, "cpu").encode(["car"])
         assert abs(float(np.linalg.norm(tv[0])) - 1) < 1e-5
-    for name in ("oramacore_tpu_torch.train.semantic_encoder",
+    # the runtime: build_orama on the CPU, a collection through the
+    # write side, the op log and the read side, a search, a commit and a
+    # reload from the snapshots
+    import tempfile as _tf
+    from oramacore_tpu_torch.config import OramacoreConfig
+    from oramacore_tpu_torch.runtime import build_orama
+    from oramacore_tpu_torch.types import SearchParams
+    cfg = OramacoreConfig()
+    cfg.data_dir = _tf.mkdtemp()
+    orama = build_orama(cfg, device="cpu", sync_embeddings=True,
+                        start_consumer=False)
+    coll = orama.write_side.create_collection(None, "c")
+    orama.write_side.create_index("c", coll.write_api_key, "i")
+    orama.write_side.insert_documents("c", "i", coll.write_api_key, [
+        {"id": str(i), "t": f"red fox {i}", "n": i} for i in range(20)])
+    orama.read_side.pump()
+    orama.write_side.commit()
+    orama.read_side.commit(force=True)
+    orama.stop()
+    orama = build_orama(cfg, device="cpu", sync_embeddings=True,
+                        start_consumer=False)
+    res = orama.read_side.search("c", coll.read_api_key, SearchParams.from_json(
+        {"term": "fox", "where": {"n": {"lt": 5}}, "facets": {"n": {
+            "ranges": [{"from": 0, "to": 9}]}}}))
+    # facets count the unfiltered matches (the reference's facet quirk)
+    assert res.count == 5 and res.facets["n"].values == {"0-9": 10}, res
+    orama.stop()
+    for name in ("oramacore_tpu_torch.runtime",
+                 "oramacore_tpu_torch.config",
+                 "oramacore_tpu_torch.metrics",
+                 "oramacore_tpu_torch.oplog",
+                 "oramacore_tpu_torch.storage.files",
+                 "oramacore_tpu_torch.storage.kv",
+                 "oramacore_tpu_torch.storage.docstore",
+                 "oramacore_tpu_torch.index.filter_fields",
+                 "oramacore_tpu_torch.read",
+                 "oramacore_tpu_torch.read.read_index",
+                 "oramacore_tpu_torch.read.pin_rules",
+                 "oramacore_tpu_torch.read.analytics",
+                 "oramacore_tpu_torch.utils.trace",
+                 "oramacore_tpu_torch.utils.locks",
+                 "oramacore_tpu_torch.write",
+                 "oramacore_tpu_torch.train.semantic_encoder",
                  "oramacore_tpu_torch.benches.train_bench",
                  "oramacore_tpu_torch.embeddings",
                  "oramacore_tpu_torch.native",
@@ -165,8 +207,8 @@ _NO_JAX_SCRIPT = textwrap.dedent("""
                  "oramacore_tpu_torch.index.vector_index"):
         assert name in sys.modules, name
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in (
-        "aiohttp", "msgpack", "transformers", "safetensors", "optax",
-        "scripts"))
+        "aiohttp", "msgpack", "yaml", "transformers", "safetensors",
+        "optax", "scripts"))
     assert not leaked, leaked
     leaked = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
     assert not leaked, leaked
@@ -217,13 +259,14 @@ def test_no_source_of_the_port_imports_the_jax_package():
 
 _IMPORT_OF_ABSENT_PACKAGE = re.compile(
     r"^\s*(from|import)\s+(jax|jaxlib|flax|transformers|safetensors|msgpack"
-    r"|optax|scripts)(\.\S*)?(\s|,|$)", re.M)
+    r"|yaml|aiohttp|optax|scripts)(\.\S*)?(\s|,|$)", re.M)
 
 
 def test_no_source_of_the_port_imports_jax_transformers_or_safetensors():
     """The card's machine has none of them: no .py file of
     oramacore_tpu_torch/ and no line of chip_smoke.py imports jax,
-    transformers, safetensors, msgpack or optax, even inside a function;
+    transformers, safetensors, msgpack, yaml, aiohttp or optax, even
+    inside a function;
     nor the repo's scripts/ (the trainer keeps its own copy of what it
     needs of scripts/train_semantic_encoder_v2.py)."""
     files = [os.path.join(REPO, "chip_smoke.py")]
@@ -242,6 +285,9 @@ def test_no_source_of_the_port_imports_jax_transformers_or_safetensors():
                       ("    import optax", True),
                       ("import scripts.train_semantic_encoder_v2 as s", True),
                       ("from scripts import train_semantic_encoder_v2", True),
+                      ("import yaml", True),
+                      ("    from aiohttp import web", True),
+                      ("import yamlx", False),
                       ("import scriptsx", False),
                       ("import jaxtyping", False)):
         assert bool(_IMPORT_OF_ABSENT_PACKAGE.search(line)) == hit, line
