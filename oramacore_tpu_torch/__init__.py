@@ -12,8 +12,13 @@ Around them runs the system's own entry point, as in the JAX package:
 (`write.WriteSide`: collections, indexes, documents, pin rules, values,
 commit) to the read side (`read.ReadSide`: op apply, filters, facets,
 sort, group, pin rules, hydration, `search` and `search_batch`, commit
-and snapshots) through the op log (`oplog/`), with `config.py`,
-`storage/` (JSON in place of msgpack) and `index/filter_fields.py`.
+and snapshots) through the op log (`oplog/`: in-memory, file-stream and
+tcp-stream), with `config.py` (YAML through `utils/yaml_subset.py`),
+`storage/` (JSON in place of msgpack), `index/filter_fields.py`, JWT
+auth (`auth.py`), secrets (`utils/secrets.py`) and the sandboxed hooks
+runtime (`ai/hooks.py`). The HTTP server (`server/`: `python -m
+oramacore_tpu_torch.server --config <yaml>`) serves it, and `client.py`
+and `utils/hurl.py` talk to the server.
 
 It mirrors the layout of `oramacore_tpu` (so
 `oramacore_tpu_torch/ops/bm25.py` is the counterpart of

@@ -5,11 +5,12 @@ host time left between the call and the edges of the profiler's window:
         [--edges 0 0.005]
 
 Each reading profiles one call as `chip_smoke.profile_once` does (a
-schedule of one warm-up step and one active step, the call once in
-each) and compares the profile's count of `score_ranges_accumulate_kernel`
-with the wrapper's `LAUNCHES` for the active call. The call launches the
-kernel twice at its start and twice at its end, with a matmul between, so
-counted kernels sit at both edges of the window. For each edge in
+schedule of one cycle, one warm-up step and one active step, the call
+once in each) and compares the profile's count of
+`score_ranges_accumulate_kernel` with the wrapper's `LAUNCHES` for the
+active call. The call launches the kernel twice at its start and twice
+at its end, with a matmul between, so counted kernels sit at both edges
+of the window. For each edge in
 `--edges` the active call starts that many seconds after the window
 opens, and the window closes that many seconds after the call has
 finished on the device; the readings take the edges in turns. It prints
@@ -35,7 +36,7 @@ def reading(fn, edge_s: float) -> tuple:
 
     got = {}
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=1),
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
                  on_trace_ready=lambda p: got.update(
                      events=p.key_averages())) as prof:
         fn()

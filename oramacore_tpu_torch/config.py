@@ -1,10 +1,13 @@
-"""Typed configuration of the port: a JSON file or a dict merged with
-ORAMACORE_* env vars.
+"""Typed configuration of the port: a YAML or JSON file, or a dict,
+merged with ORAMACORE_* env vars.
 
 The port's copy of `oramacore_tpu/config.py`: the same dataclasses,
-defaults and environment overrides. It reads JSON (`load_config`) or a
-dict (`config_from_dict`) in place of YAML, since the port does without
-`yaml`; `LogConfig` is the JAX `utils/logs.py` dataclass, copied here.
+defaults and environment overrides. `load_config` reads a `.yaml` /
+`.yml` file with the port's own reader of the YAML subset the config
+files use (`utils/yaml_subset.py`, which refuses what lies outside it,
+naming the line), since the port does without `yaml`, and any other
+file as JSON; `config_from_dict` takes a dict. `LogConfig` is the JAX
+`utils/logs.py` dataclass, copied here (`utils/logs.py` imports it).
 
 Reference: `OramacoreConfig` (lib.rs:141-150), `load_config`
 (bin/oramacore.rs:17-36; env separator `_`), config.yaml annotated example.
@@ -216,13 +219,19 @@ _SECTIONS = {
 
 
 def load_config(path: Optional[str] = None) -> OramacoreConfig:
-    """The config of a JSON file (`path`, else $CONFIG_PATH; none or a
-    missing file gives the defaults), with the env overrides."""
+    """The config of a YAML (`.yaml`, `.yml`) or JSON file (`path`, else
+    $CONFIG_PATH; none or a missing file gives the defaults), with the
+    env overrides."""
     path = path or os.environ.get("CONFIG_PATH")
     raw: Dict[str, Any] = {}
     if path and os.path.exists(path):
-        with open(path) as fh:
-            raw = json.load(fh) or {}
+        if path.endswith((".yaml", ".yml")):
+            from .utils import yaml_subset
+
+            raw = yaml_subset.load(path) or {}
+        else:
+            with open(path) as fh:
+                raw = json.load(fh) or {}
     return config_from_dict(raw)
 
 

@@ -22,7 +22,7 @@ names and behaviour, apart from two things. A frame holds tagged JSON
 the stream exactly: int map keys, strings with control separators and
 f32 vectors carried as float lists (each f32 is a double in JSON, read
 back as the same double). The TCP transport (`tcp-stream`, multi-node)
-is not ported: `channel_creator` refuses it.
+carries those same frames.
 """
 
 from __future__ import annotations
@@ -309,6 +309,193 @@ class FileStreamReceiver(OperationReceiver):
             self._fh = None
 
 
+# ---------------------------------------------------------------------------
+# Networked transport: TCP tail of the durable file stream.
+#
+# Reference analog: RabbitMQ streams (operation/rabbit.rs) — an HA
+# producer whose log survives restarts, consumers that start from a
+# stored offset, and reconnect with exponential backoff on both sides
+# (rabbit.rs:37-90 resend-unconfirmed; read/mod.rs:1219-1249 consumer
+# reconnect). Here the WRITER owns the durable framed file (single
+# producer — the op log has exactly one writer by design) and serves it
+# over TCP: a consumer connects, sends its start offset, and the server
+# streams frames from that offset onward, tailing the file for new ops.
+# Reconnection is trivially safe: the consumer re-requests from its
+# cursor and the read side's offset dedup absorbs any overlap
+# (at-least-once delivery).
+# ---------------------------------------------------------------------------
+
+_HELLO = struct.Struct("<Q")  # consumer start offset
+
+
+class TcpLogServer:
+    """Serves a FileStream op log to TCP consumers (writer side)."""
+
+    def __init__(self, path: str, host: str = "127.0.0.1", port: int = 0):
+        import socket
+
+        self.path = path
+        self._sock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+        self._sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        self._sock.bind((host, port))
+        self._sock.listen(16)
+        self.host, self.port = self._sock.getsockname()
+        self._stop = False
+        self._accept_thread = threading.Thread(
+            target=self._accept_loop, name="oplog-tcp-accept", daemon=True
+        )
+        self._accept_thread.start()
+
+    def _accept_loop(self):
+        import socket
+
+        while not self._stop:
+            try:
+                self._sock.settimeout(0.5)
+                conn, _addr = self._sock.accept()
+            except socket.timeout:
+                continue
+            except OSError:
+                return
+            threading.Thread(
+                target=self._serve_client, args=(conn,),
+                name="oplog-tcp-client", daemon=True,
+            ).start()
+
+    def _serve_client(self, conn):
+        import socket
+        import time as _time
+
+        try:
+            conn.setsockopt(socket.SOL_SOCKET, socket.SO_KEEPALIVE, 1)
+            conn.settimeout(10.0)
+            hello = b""
+            while len(hello) < _HELLO.size:
+                chunk = conn.recv(_HELLO.size - len(hello))
+                if not chunk:
+                    return
+                hello += chunk
+            (start_offset,) = _HELLO.unpack(hello)
+            conn.settimeout(None)
+            rx = FileStreamReceiver(self.path, start_offset)
+            while not self._stop:
+                item_raw = rx.recv(timeout=0)
+                if item_raw is None:
+                    _time.sleep(0.02)  # tail: wait for new frames
+                    continue
+                off, op = item_raw
+                data = op.to_bytes()
+                conn.sendall(_FRAME.pack(off, len(data)) + data)
+        except (OSError, ValueError):
+            pass  # consumer gone; it will reconnect and re-request
+        finally:
+            try:
+                conn.close()
+            except OSError:
+                pass
+
+    def close(self):
+        self._stop = True
+        try:
+            self._sock.close()
+        except OSError:
+            pass
+
+
+class TcpOperationReceiver(OperationReceiver):
+    """Consumer side: connects to a TcpLogServer, requests frames from
+    its cursor, reconnects with exponential backoff on failure."""
+
+    BACKOFF_INITIAL = 0.1
+    BACKOFF_MAX = 10.0
+
+    def __init__(self, host: str, port: int, start_offset: Offset = 0):
+        self.host = host
+        self.port = port
+        self._cursor = start_offset
+        self._sock = None
+        self._buf = b""
+        self._backoff = self.BACKOFF_INITIAL
+
+    def _connect(self) -> bool:
+        import socket
+
+        try:
+            s = socket.create_connection((self.host, self.port), timeout=2.0)
+            s.sendall(_HELLO.pack(self._cursor))
+            s.settimeout(0.05)
+            self._sock = s
+            self._buf = b""
+            self._backoff = self.BACKOFF_INITIAL
+            return True
+        except OSError:
+            return False
+
+    def _disconnect(self):
+        if self._sock is not None:
+            try:
+                self._sock.close()
+            except OSError:
+                pass
+            self._sock = None
+        self._buf = b""
+
+    def recv(self, timeout: Optional[float] = None) -> Optional[Tuple[Offset, Operation]]:
+        import socket
+        import time as _time
+
+        deadline = None if timeout is None else _time.monotonic() + timeout
+        while True:
+            if self._sock is None:
+                if not self._connect():
+                    # exponential backoff (rabbit.rs reconnect semantics)
+                    wait = self._backoff
+                    self._backoff = min(self._backoff * 2, self.BACKOFF_MAX)
+                    if deadline is not None and (
+                        timeout == 0 or _time.monotonic() + wait > deadline
+                    ):
+                        return None
+                    _time.sleep(wait)
+                    continue
+            # parse a whole frame from the buffer if available
+            if len(self._buf) >= _FRAME.size:
+                off, length = _FRAME.unpack(self._buf[: _FRAME.size])
+                if len(self._buf) >= _FRAME.size + length:
+                    data = self._buf[_FRAME.size:_FRAME.size + length]
+                    self._buf = self._buf[_FRAME.size + length:]
+                    if off <= self._cursor:
+                        continue  # overlap after reconnect: dedup
+                    self._cursor = off
+                    return off, Operation.from_bytes(data)
+            try:
+                chunk = self._sock.recv(65536)
+                if not chunk:  # server closed: reconnect
+                    self._disconnect()
+                    continue
+                self._buf += chunk
+            except socket.timeout:
+                if deadline is not None and _time.monotonic() >= deadline:
+                    return None
+                if timeout == 0:
+                    return None
+            except OSError:
+                self._disconnect()
+
+    def close(self):
+        self._disconnect()
+
+
+class _ReadOnlySender(OperationSender):
+    def send(self, op: Operation) -> Offset:
+        raise RuntimeError(
+            "this node consumes a remote op log; it cannot produce ops"
+        )
+
+    @property
+    def offset(self) -> Offset:
+        return 0
+
+
 def channel_creator(config: Dict[str, Any]):
     """Build (sender, receiver_factory) from config — reference
     operation/mod.rs:232 channel_creator."""
@@ -321,7 +508,21 @@ def channel_creator(config: Dict[str, Any]):
         t = FileStreamTransport(cfg["path"], fsync=bool(cfg.get("fsync")))
         return t.sender(), t.receiver
     if kind == "tcp-stream":
-        raise NotImplementedError(
-            "the tcp-stream op log is not ported yet (ROADMAP.md §1, "
-            "'the TCP op log'); use in-memory or file-stream")
+        if "path" in cfg:
+            # producer node: durable local file + TCP tail server
+            t = FileStreamTransport(cfg["path"], fsync=bool(cfg.get("fsync")))
+            server = TcpLogServer(
+                cfg["path"], cfg.get("host", "127.0.0.1"),
+                int(cfg.get("port", 0)),
+            )
+            sender = t.sender()
+            sender.tcp_server = server  # keep it alive / expose the port
+            return sender, t.receiver
+        # consumer node: remote tail with reconnect/backoff
+        def receiver_factory(start_offset: Offset = 0):
+            return TcpOperationReceiver(
+                cfg.get("host", "127.0.0.1"), int(cfg["port"]), start_offset
+            )
+
+        return _ReadOnlySender(), receiver_factory
     raise ValueError(f"unknown op-log transport: {kind}")

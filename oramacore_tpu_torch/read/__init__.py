@@ -13,11 +13,11 @@ device=...)`: `CollectionReader.executor` builds `HybridSearchTopK(device)`,
 the batch functions build one `SharedBatchExecutor(device)` for the read
 side, and each `ReadIndex` builds its `VectorIndex` on the device.
 
-Left out, each named in ROADMAP.md §1: the doc-sharded mesh
+Left out, named in ROADMAP.md §1: the doc-sharded mesh
 (`reader_side.sharded_shards > 1` raises when enough CUDA devices exist,
-and is switched off with a warning otherwise, as in the JAX read side)
-and the hooks runtime (`hooks_runtime` stays None, so the BeforeSearch
-and TransformDocumentAfterSearch hooks are stored but never run).
+and is switched off with a warning otherwise, as in the JAX read side).
+The BeforeSearch and TransformDocumentAfterSearch hooks run in the
+hooks runtime that `build_orama` attaches (`ai/hooks.py`).
 """
 
 from __future__ import annotations
@@ -202,7 +202,7 @@ class ReadSide:
             os.path.join(self.data_dir, "analytics.jsonl"),
             enabled=config.reader_side.analytics_enabled,
         )
-        # the hooks runtime is not ported (ROADMAP.md §1): it stays None
+        # sandboxed hook runtime, attached by build_orama
         self.hooks_runtime = None
         # doc-id-sharded search over a device mesh (SURVEY §5.8) is not
         # ported (ROADMAP.md §1.12): with enough devices for the

@@ -11,9 +11,9 @@ caller asks for "cpu" (as the tests do); "cuda" without a card raises
 (`resolve_device`), nothing carries on on the CPU. In place of the JAX
 package's device bootstrap and flax registration it binds the bundled
 checkpoints through `embeddings.encoder.register_bundled_checkpoints`.
-What the port does not have yet it refuses rather than ignores, each
-naming its ROADMAP.md §1 item: JWT providers, a secrets provider, and
-hooks settings other than the defaults (the hooks runtime).
+As in the JAX package it builds the JWT manager (`auth.py`), the secrets
+service (`utils/secrets.py`) and the sandboxed hooks runtime
+(`ai/hooks.py`) and attaches them to both sides.
 """
 
 from __future__ import annotations
@@ -21,7 +21,7 @@ from __future__ import annotations
 from typing import Optional
 
 from . import resolve_device
-from .config import HooksConfig, OramacoreConfig
+from .config import OramacoreConfig
 from .embeddings import EmbeddingsService
 from .oplog import channel_creator
 from .read import ReadSide
@@ -97,26 +97,6 @@ class Orama:
             self.read_side.stop()
 
 
-def _refuse_unported(config: OramacoreConfig) -> None:
-    """Raise for a configured feature the port cannot serve yet, so that
-    no auth provider or hook setting is silently ignored."""
-    if config.auth.jwt_providers:
-        raise NotImplementedError(
-            "auth.jwt_providers: JWT auth is not ported yet (ROADMAP.md "
-            "§1, 'JWT and secrets')"
-        )
-    if config.secrets.provider != "none":
-        raise NotImplementedError(
-            f"secrets.provider={config.secrets.provider!r}: the secrets "
-            "service is not ported yet (ROADMAP.md §1, 'JWT and secrets')"
-        )
-    if config.hooks != HooksConfig():
-        raise NotImplementedError(
-            "hooks settings other than the defaults: the hooks runtime "
-            "is not ported yet (ROADMAP.md §1, 'the hooks runtime')"
-        )
-
-
 def build_orama(
     config: OramacoreConfig,
     *,
@@ -125,7 +105,6 @@ def build_orama(
     start_consumer: bool = True,
     llm_resolve_mode=None,
 ) -> Orama:
-    _refuse_unported(config)
     device = resolve_device(device)
     from .embeddings.encoder import (
         register_bundled_checkpoints,
@@ -144,6 +123,41 @@ def build_orama(
     for _name, _path in (config.ai.embeddings_model_paths or {}).items():
         register_torch_backend(_path, model_name=_name, device=device)
     nlp = NLPService()
+
+    jwt_manager = None
+    if config.auth.jwt_providers:
+        from .auth import JwtManager, JwtProvider
+
+        jwt_manager = JwtManager(
+            [
+                JwtProvider(
+                    issuer=p.issuer, audience=p.audience,
+                    hs256_secret=p.hs256_secret, jwks_url=p.jwks_url,
+                )
+                for p in config.auth.jwt_providers
+            ]
+        )
+
+    secrets_service = None
+    if config.secrets.provider != "none":
+        from .utils.secrets import SecretsService, make_provider
+
+        kind = config.secrets.provider
+        if kind == "aws":
+            provider = make_provider(
+                "aws", region=config.secrets.region or "us-east-1"
+            )
+        elif kind == "http":
+            provider = make_provider(
+                "http", url=config.secrets.url or "",
+                token=config.secrets.token,
+            )
+        else:
+            provider = make_provider("local", path=config.secrets.path)
+        secrets_service = SecretsService(
+            provider, ttl_s=config.secrets.ttl_s,
+            key_pattern=config.secrets.key_pattern,
+        )
 
     role = config.role
     write_side = None
@@ -166,6 +180,23 @@ def build_orama(
             llm_resolve_mode=llm_resolve_mode, device=device,
         )
 
+    # the sandboxed hook runtime needs no LLM — attach it unconditionally
+    # (the reference builds its JS pool per collection regardless of AI
+    # config, read/collection.rs:180-185)
+    from .ai.hooks import HooksRuntime
+
+    hooks_runtime = HooksRuntime(
+        execution_timeout_s=config.hooks.execution_timeout_ms / 1000.0,
+        allowed_domains=config.hooks.allowed_domains,
+        deny_domains=config.hooks.deny_domains,
+        allow_js=config.hooks.allow_js,
+    )
+
+    for side in (write_side, read_side):
+        if side is not None:
+            side.jwt_manager = jwt_manager
+            side.secrets_service = secrets_service
+            side.hooks_runtime = hooks_runtime
     if read_side is not None and start_consumer:
         read_side.start()
     return Orama(config, write_side, read_side)

@@ -14,9 +14,7 @@ and behaviour, built on the port's op bodies (`doc_op.build_doc_op`,
 `doc_op.embedding_text`) and embedding queue
 (`embedding_queue.EmbeddingQueue`, whose sink sends each `index_embedding`
 body to the op log). The doc-id maps are tagged JSON files
-(`storage.files.atomic_write_packed`) in place of msgpack. The hooks
-runtime is not ported (ROADMAP.md §1): `set_hook` raises
-NotImplementedError, so no hook is stored that would never run.
+(`storage.files.atomic_write_packed`) in place of msgpack.
 """
 
 from __future__ import annotations
@@ -221,6 +219,8 @@ class WriteSide:
             synchronous=sync_embeddings,
         )
         self._ops_since_commit = 0
+        # sandboxed hook runtime, attached by build_orama
+        self.hooks_runtime = None
         # LLM-backed automatic embedding-property selector, attached by
         # the AI service (reference AutomaticEmbeddingsSelector): takes a
         # sample document dict, returns property paths to embed
@@ -479,6 +479,22 @@ class WriteSide:
         ops: List[Operation] = []
         embed_jobs: List[Tuple[str, str, int, str, str]] = []
         parser = self.nlp.get_parser(Locale.parse(idx.locale))
+        # TransformDocumentBeforeSave hook (reference write/mod.rs:817-879)
+        hook_code = self.kv.get(f"hook:{collection_id}:TransformDocumentBeforeSave")
+        if hook_code and self.hooks_runtime is not None:
+            transformed = []
+            for doc in docs:
+                out = self.hooks_runtime.exec_hook(
+                    collection_id, "TransformDocumentBeforeSave", hook_code, doc
+                )
+                if isinstance(out, dict):
+                    # id must not change (reference :855-871)
+                    if doc.get("id") is not None and out.get("id") != doc.get("id"):
+                        out["id"] = doc["id"]
+                    transformed.append(out)
+                else:
+                    transformed.append(doc)
+            docs = transformed
 
         # pre-tokenize every unique string value in parallel (memoized;
         # the native tokenizer releases the GIL during execution)
@@ -829,10 +845,15 @@ class WriteSide:
 
     def set_hook(self, collection_id: str, write_key: Optional[str], name: str, code: str):
         self.check_write_key(collection_id, write_key)
-        raise NotImplementedError(
-            "hooks are not ported yet (ROADMAP.md §1, 'the hooks "
-            "runtime'): a stored hook would never run"
+        self.kv.insert(f"hook:{collection_id}:{name}", code, forward=False)
+        self.op_sender.send(
+            Operation(
+                kind="hook_insert",
+                collection=collection_id,
+                body={"name": name, "code": code},
+            )
         )
+        self._count_op()
 
     def delete_hook(self, collection_id: str, write_key: Optional[str], name: str):
         self.check_write_key(collection_id, write_key)
@@ -960,10 +981,14 @@ class WriteSide:
             for cid, coll in self.collections.items():
                 for iid, idx in coll.indexes.items():
                     if idx.doc_map_dirty:
-                        atomic_write_packed(
-                            self._doc_map_path(cid, iid), idx.doc_id_map
-                        )
+                        # insert_documents fills the map without this
+                        # lock: write a copy (taken whole under the GIL)
+                        # and clear the flag first, so an insert that
+                        # lands meanwhile marks it dirty again
                         idx.doc_map_dirty = False
+                        atomic_write_packed(
+                            self._doc_map_path(cid, iid), dict(idx.doc_id_map)
+                        )
             atomic_write_json(
                 os.path.join(self.data_dir, "info.json"),
                 {

@@ -37,6 +37,7 @@ from oramacore_tpu_torch import oplog as port_oplog
 from oramacore_tpu_torch import read as port_read
 from oramacore_tpu_torch import runtime as port_runtime
 from oramacore_tpu_torch import types as port_types
+from oramacore_tpu_torch.ai import hooks as port_hooks
 from oramacore_tpu_torch.index import search_exec as port_search_exec
 
 from . import test_e2e_search as e2e_suite
@@ -178,15 +179,9 @@ def ids_of(result) -> List[str]:
     return [h.id.split(":", 1)[1] for h in result.hits]
 
 
-# the bodies this port cannot run, each with its reason
-EXCLUDED = {
-    "test_secret_passed_to_before_search_hook": (
-        "needs the hooks runtime (oramacore_tpu.ai.hooks) and the secrets "
-        "service, neither of which is ported (ROADMAP.md §1); "
-        "tests/test_torch_runtime_parts.py holds build_orama's refusal of a "
-        "secrets provider and WriteSide.set_hook's refusal"
-    ),
-}
+# the bodies this port cannot run, each with its reason (none since the
+# hooks runtime and the secrets service were ported)
+EXCLUDED: Dict[str, str] = {}
 
 
 def _bodies(module) -> List[str]:
@@ -206,6 +201,7 @@ def _port_modules() -> Dict[str, types.ModuleType]:
         "oramacore_tpu.oplog": port_oplog,
         "oramacore_tpu.runtime": rt,
         "oramacore_tpu.index.search_exec": port_search_exec,
+        "oramacore_tpu.ai.hooks": port_hooks,
     }
 
 

@@ -208,7 +208,7 @@ _NO_JAX_SCRIPT = textwrap.dedent("""
         assert name in sys.modules, name
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in (
         "aiohttp", "msgpack", "yaml", "transformers", "safetensors",
-        "optax", "scripts"))
+        "optax", "scripts", "cryptography"))
     assert not leaked, leaked
     leaked = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
     assert not leaked, leaked
@@ -259,14 +259,14 @@ def test_no_source_of_the_port_imports_the_jax_package():
 
 _IMPORT_OF_ABSENT_PACKAGE = re.compile(
     r"^\s*(from|import)\s+(jax|jaxlib|flax|transformers|safetensors|msgpack"
-    r"|yaml|aiohttp|optax|scripts)(\.\S*)?(\s|,|$)", re.M)
+    r"|yaml|aiohttp|optax|scripts|cryptography)(\.\S*)?(\s|,|$)", re.M)
 
 
 def test_no_source_of_the_port_imports_jax_transformers_or_safetensors():
     """The card's machine has none of them: no .py file of
     oramacore_tpu_torch/ and no line of chip_smoke.py imports jax,
-    transformers, safetensors, msgpack, yaml, aiohttp or optax, even
-    inside a function;
+    transformers, safetensors, msgpack, yaml, aiohttp, optax or
+    cryptography, even inside a function;
     nor the repo's scripts/ (the trainer keeps its own copy of what it
     needs of scripts/train_semantic_encoder_v2.py)."""
     files = [os.path.join(REPO, "chip_smoke.py")]
@@ -288,9 +288,66 @@ def test_no_source_of_the_port_imports_jax_transformers_or_safetensors():
                       ("import yaml", True),
                       ("    from aiohttp import web", True),
                       ("import yamlx", False),
+                      ("    from cryptography.hazmat.primitives import x",
+                       True),
+                      ("import cryptographyx", False),
                       ("import scriptsx", False),
                       ("import jaxtyping", False)):
         assert bool(_IMPORT_OF_ABSENT_PACKAGE.search(line)) == hit, line
+
+
+_SERVER_IMPORTS = textwrap.dedent("""
+    import sys
+    import oramacore_tpu_torch.server
+    import oramacore_tpu_torch.server.__main__
+    import oramacore_tpu_torch.auth
+    import oramacore_tpu_torch.ai.hooks
+    import oramacore_tpu_torch.client
+    import oramacore_tpu_torch.utils.hurl
+    import oramacore_tpu_torch.utils.secrets
+    import oramacore_tpu_torch.utils.yaml_subset
+    import oramacore_tpu_torch.utils.logs
+    from oramacore_tpu_torch.config import load_config
+    cfg = load_config("config.example.yaml")
+    assert cfg.auth.master_api_key == "change-me"
+    banned = ("jax", "oramacore_tpu", "aiohttp", "yaml", "cryptography",
+              "msgpack")
+    leaked = sorted(m for m in sys.modules if m.split(".")[0] in banned)
+    assert not leaked, leaked
+    print("SERVER_IMPORTS_OK")
+""")
+
+
+def test_server_auth_hooks_and_client_import_nothing_banned():
+    """The server, auth, hooks, client, hurl, secrets, logging and YAML
+    modules (and reading config.example.yaml) leave no jax, JAX package,
+    aiohttp, yaml, cryptography or msgpack module in a fresh
+    interpreter."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    proc = subprocess.run(
+        [sys.executable, "-c", _SERVER_IMPORTS], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "SERVER_IMPORTS_OK" in proc.stdout
+
+
+def test_server_main_without_a_card_exits_non_zero():
+    """`python -m oramacore_tpu_torch.server` defaults to the card and has
+    no CPU fallback: without one it exits non-zero, naming CUDA."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has CUDA; the guard is for hosts without it")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    proc = subprocess.run(
+        [sys.executable, "-m", "oramacore_tpu_torch.server", "--config",
+         "config.example.yaml"], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode != 0
+    assert "CUDA" in proc.stderr or "cuda" in proc.stderr, proc.stderr
+    assert "listening" not in proc.stdout
 
 
 def test_cuda_executor_without_cuda_raises():
@@ -499,20 +556,23 @@ class _FakeProfile:
             self.ready(type("Prof", (), dict(key_averages=lambda s: [event]))())
 
 
-@pytest.mark.parametrize("readings,ok", [([1], True), ([0], False),
-                                         ([2], False)])
+@pytest.mark.parametrize("readings,ok", [
+    ([1], True), ([0, 0, 0], False), ([2, 2, 2], False),
+    ([0, 1], True), ([2, 0, 1], True)])
 def test_profile_once_holds_each_reading_to_the_launches(monkeypatch, readings,
                                                          ok):
-    """One reading, whose kernel count must equal the wrappers' LAUNCHES
-    for the profiled call, or the phase fails; the call starts
-    PROFILE_EDGE_S after the window opens and the window closes
-    PROFILE_EDGE_S after it."""
+    """Each reading's kernel count must equal the wrappers' LAUNCHES for
+    the profiled call: one that does not is taken again, and the phase
+    fails when PROFILE_TRIES readings all miss; the kept reading is a
+    matching one. The call starts PROFILE_EDGE_S after the window opens
+    and the window closes PROFILE_EDGE_S after it."""
     import chip_smoke
     from oramacore_tpu_torch.ops import attention as at
 
-    left, log = list(readings), []
+    left, log, schedules = list(readings), [], []
     monkeypatch.setattr(torch.profiler, "profile",
-                        lambda **kw: _FakeProfile(left, log, **kw))
+                        lambda **kw: schedules.append(kw["schedule"])
+                        or _FakeProfile(left, log, **kw))
     monkeypatch.setattr(torch.cuda, "synchronize", lambda: log.append("sync"))
     monkeypatch.setattr(chip_smoke.time, "sleep",
                         lambda s: log.append(("sleep", s)))
@@ -529,6 +589,12 @@ def test_profile_once_holds_each_reading_to_the_launches(monkeypatch, readings,
             with pytest.raises(chip_smoke.SmokeFailure, match="missed"):
                 chip_smoke.profile_once("fake", call, "CPU")
         assert not left
+        assert ok or len(readings) == chip_smoke.PROFILE_TRIES
+        assert log.count("step") == 2 * len(readings)
+        # one cycle: the step that closes the window starts no new trace
+        act = torch.profiler.ProfilerAction
+        assert [[sched(i) for i in range(3)] for sched in schedules] == [
+            [act.WARMUP, act.RECORD_AND_SAVE, act.NONE]] * len(readings)
         edge = ("sleep", chip_smoke.PROFILE_EDGE_S)
         assert chip_smoke.PROFILE_EDGE_S > 0
         assert log[-8:] == ["call", "sync", "step", edge, "call", "sync",

@@ -216,34 +216,57 @@ def test_build_orama_without_a_device_needs_cuda(tmp_path):
 
 
 def test_unported_features_raise(tmp_path):
+    """Of what build_orama once refused, only the mesh is left (it is
+    switched off here, with fewer devices than shards, as the JAX read
+    side does). JWT providers, a secrets provider, hook settings and the
+    tcp-stream op log are built and attached."""
+    from oramacore_tpu_torch.ai.hooks import HooksRuntime
+    from oramacore_tpu_torch.auth import JwtManager
     from oramacore_tpu_torch.config import (
         HooksConfig,
         JwtProviderConfig,
         ReaderSideConfig,
         SecretsConfig,
     )
+    from oramacore_tpu_torch.utils.secrets import SecretsService
 
     cases = [
         (dict(reader_side=ReaderSideConfig(sharded_shards=1 << 20)), None),
         ({}, "jwt"),
         (dict(secrets=SecretsConfig(provider="local", path="x")), "secrets"),
-        (dict(hooks=HooksConfig(allow_js=True)), "hooks"),
+        (dict(hooks=HooksConfig(allow_js=True, execution_timeout_ms=1500,
+                                deny_domains=["a.example"])), "hooks"),
     ]
     for sections, what in cases:
         cfg = _cfg(tmp_path / (what or "mesh"), **sections)
         if what == "jwt":
             cfg.auth.jwt_providers = [JwtProviderConfig(issuer="i")]
-        if what is None:
-            # more shards than this host has devices: switched off with a
-            # warning, as the JAX read side does
-            o = build_orama(cfg, device="cpu", start_consumer=False)
-            assert o.read_side.sharded_mesh is None
+        o = build_orama(cfg, device="cpu", start_consumer=False)
+        try:
+            if what is None:
+                # more shards than this host has devices: switched off
+                # with a warning, as the JAX read side does
+                assert o.read_side.sharded_mesh is None
+            if what == "jwt":
+                assert isinstance(o.read_side.jwt_manager, JwtManager)
+                assert o.write_side.jwt_manager is o.read_side.jwt_manager
+            if what == "secrets":
+                assert isinstance(o.read_side.secrets_service, SecretsService)
+            rt = o.read_side.hooks_runtime
+            assert isinstance(rt, HooksRuntime)
+            assert o.write_side.hooks_runtime is rt
+            if what == "hooks":
+                assert (rt.allow_js, rt.execution_timeout_s,
+                        rt.deny_domains) == (True, 1.5, ["a.example"])
+        finally:
             o.stop()
-            continue
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build_orama(cfg, device="cpu", start_consumer=False)
-    with pytest.raises(NotImplementedError, match="tcp-stream"):
-        channel_creator({"type": "tcp-stream", "port": 1})
+    sender, _ = channel_creator({"type": "tcp-stream", "path": str(
+        tmp_path / "ops"), "host": "127.0.0.1", "port": 0})
+    assert sender.tcp_server.port > 0
+    sender.tcp_server.close()
+    sender.close()
+    _, factory = channel_creator({"type": "tcp-stream", "port": 1})
+    assert callable(factory)
     with pytest.raises(ValueError):
         channel_creator({"type": "carrier-pigeon"})
 
@@ -268,14 +291,35 @@ def test_enough_devices_for_the_mesh_raise(tmp_path, monkeypatch):
 
 
 def test_set_hook_raises_and_stores_nothing(tmp_path):
-    o = build_orama(_cfg(tmp_path), device="cpu", start_consumer=False)
+    """set_hook (once refused) stores the hook, sends it on the op log and
+    the read side runs it; a bad write key is still refused and stores
+    nothing."""
+    from oramacore_tpu_torch.types import SearchParams
+    from oramacore_tpu_torch.write import WriteError
+
+    o = build_orama(_cfg(tmp_path), device="cpu", sync_embeddings=True,
+                    start_consumer=False)
     c = o.write_side.create_collection("m", "c")
+    o.write_side.create_index("c", c.write_api_key, "i")
+    o.write_side.insert_documents("c", "i", c.write_api_key,
+                                  [{"id": "1", "t": "alpha"}])
     n_before = o.write_side.op_sender.offset
-    with pytest.raises(NotImplementedError, match="hooks"):
-        o.write_side.set_hook("c", c.write_api_key, "BeforeSearch", "x")
+    with pytest.raises(WriteError):
+        o.write_side.set_hook("c", "bad key", "BeforeSearch", "x")
     assert o.write_side.op_sender.offset == n_before
-    assert o.write_side.list_hooks("c", c.write_api_key) == {}
-    assert o.read_side.hooks_runtime is None
+    code = ("def TransformDocumentAfterSearch(doc):\n"
+            "    doc['hooked'] = True\n    return doc\n")
+    o.write_side.set_hook("c", c.write_api_key,
+                          "TransformDocumentAfterSearch", code)
+    assert o.write_side.op_sender.offset == n_before + 1
+    assert o.write_side.list_hooks("c", c.write_api_key) == {
+        "TransformDocumentAfterSearch": code}
+    o.read_side.pump()
+    assert o.read_side.collections["c"].hooks == {
+        "TransformDocumentAfterSearch": code}
+    r = o.read_side.search("c", c.read_api_key,
+                           SearchParams.from_json({"term": "alpha"}))
+    assert r.hits[0].document == {"id": "1", "t": "alpha", "hooked": True}
     o.stop()
 
 
@@ -299,3 +343,40 @@ def test_snapshot_files_carry_no_msgpack(tmp_path):
     assert not [n for n in names if "msgpack" in n], names
     assert "string.meta.json" in names and "filters.meta.json" in names
     assert "index.json" in names and "kv.json" in names
+
+
+def test_commit_while_inserts_land(tmp_path):
+    """The server's maintenance thread commits while requests insert:
+    WriteSide.commit never fails on a doc-id map that grows under it, and
+    the map on disk holds every document once the inserts are done."""
+    import threading
+
+    from oramacore_tpu_torch.storage.files import read_packed
+
+    o = build_orama(_cfg(tmp_path), device="cpu", start_consumer=False)
+    ws = o.write_side
+    c = ws.create_collection("m", "c")
+    ws.create_index("c", c.write_api_key, "i")
+    errors, done = [], threading.Event()
+
+    def commits():
+        while not done.is_set():
+            try:
+                ws.commit()
+            except Exception as e:  # noqa: BLE001 — collected and asserted
+                errors.append(e)
+
+    t = threading.Thread(target=commits)
+    t.start()
+    try:
+        for b in range(20):
+            ws.insert_documents("c", "i", c.write_api_key, [
+                {"id": f"{b}-{i}", "n": i} for i in range(500)])
+    finally:
+        done.set()
+        t.join()
+    ws.commit()
+    assert not errors, errors[:3]
+    on_disk = read_packed(ws._doc_map_path("c", "i"), default=None)
+    assert len(on_disk) == 10_000
+    o.stop()
