@@ -112,15 +112,27 @@ launch counts set to 0 just before it and read just after:
   and B=256 QPS over HTTP beside in-process, HS256 and RS256 customer
   tokens (the key pair `oramacore_tpu_torch/benches/rs256_smoke_key.json`)
   and bad keys, a BeforeSearch and a TransformDocumentAfterSearch hook
-  set over HTTP, 16,384 documents over `/insert` and the repo's
+  set over HTTP, 8,192 documents over `/insert` and the repo's
   `tests/hurl/api-test.hurl` and `search-paths.hurl`; then `python -m
   oramacore_tpu_torch.server` as three processes: on
   `config.example.yaml`, and as a writer and a reader node (YAML configs
   written under `build/server_nodes/`, the tcp-stream op log, the reader
-  on the card) with 16,384 documents sent to the writer over HTTP, the
+  on the card) with 8,192 documents sent to the writer over HTTP, the
   reader held to an in-process CPU runtime fed the same documents,
   killed with SIGKILL, restarted and caught up, and every node stopped
-  with SIGTERM (exit 0).
+  with SIGTERM (exit 0);
+- RAG answers: that runtime served with the port's AI service
+  (`ai/service.AIService`) and a scripted OpenAI-compatible LLM
+  (`oramacore_tpu_torch/benches/llm_mock.py`, no weights: the repository
+  has none) on a socket: 32 `/answer` calls in each of full-text and
+  hybrid on the games and vector on the SemanticBase passages (each
+  answer's `search_results` held to `ReadSide.search` with the machine's
+  parameters, the LLM request to those documents, the streamed tokens to
+  the script; wall and time to the first token), planned answers, NLP
+  queries (constraints injected on price and genre), OpenAI chat,
+  MCP searches held to `/search`, suggestions, titles, tools, system
+  prompts, training sets, a BeforeAnswer hook seen on the hook-log SSE,
+  mode "auto" searches and the repo's `tests/hurl/kv-actions-test.hurl`.
 
 Each `torch.profiler` reading is held to the wrappers' launch counts of
 the same call (`profile_once`): a profile that misses a launch gives no
@@ -263,15 +275,28 @@ RS_KEYS = {"games": ("games-read", "games-write"),
            "passages": ("passages-read", "passages-write")}
 
 # phase 18: the API server
-SRV_INGEST = 16_384       # documents inserted over HTTP into the served runtime
+SRV_INGEST = 8_192        # documents inserted over HTTP into the served
+                          # runtime (16,384 before phase 19, cut for time)
 SRV_LATENCY_N = 32        # single calls timed over HTTP and in-process a mode
 SRV_HOOK_DOCS = 64        # documents of the hooked collection
-NODE_DOCS = 16_384        # documents sent to the writer node over HTTP
+NODE_DOCS = 8_192         # documents sent to the writer node over HTTP
+                          # (16,384 before phase 19, cut for time)
 NODE_FULLTEXT = 16        # full-text searches held reader node to CPU
 NODE_KIND = 2             # searches of each other kind held reader node to CPU
 NODE_DIR = os.path.join(ROOT, "build", "server_nodes")
 NODE_WAIT_S = 600.0       # the longest wait for a node (start, catch-up)
 JWT_ISSUER, JWT_AUDIENCE, JWT_HS256 = "smoke", "oramacore", "smoke-hs256"
+# phase 19: RAG answers from phase 17's runtime
+AI_ANSWERS = 32           # /answer calls of each mode
+AI_PLANNED = 8            # /planned_answer calls
+AI_CHAT = 8               # OpenAI chat calls, half of them streamed
+AI_NLP = 8                # /generate/nlp_query calls
+AI_MCP = 8                # MCP tools/call searches
+AI_AUTO = 4               # mode "auto" searches
+AI_MAX_DOCS = 5           # documents an answer retrieves
+AI_ANSWER = ("The closest matches are listed above with their prices and "
+             "genres; the first one fits the question best.")
+AI_SELECTED = ["name"]    # the properties the mock picks to embed
 
 # Every ported kernel entry point: its wrapper module, the CUDA source, the
 # TPU kernel (or, with jitted=True, the jitted JAX function) it replaces,
@@ -2164,7 +2189,52 @@ def attention_checks(device, card):
                 library_ms=lib_ms)
     del flush
     out["encoder_attention"]["max_abs_err"] = max(errs)
+    width_checks(device, card)
     return out
+
+
+def width_checks(device, card):
+    """Head widths the kernel does not take, through the wrapper on the
+    card: hd 48 zero-padded to 64 (one launch, within ATTN_TOL of the f64
+    plain version) and hd 160 refused before any launch (ValueError, no
+    plain version run)."""
+    import torch
+
+    from oramacore_tpu_torch.benches.encoder_bench import (
+        WIDTH_CASES,
+        attention_inputs,
+        attention_reference,
+    )
+    from oramacore_tpu_torch.ops import attention as at
+
+    for i, (label, case) in enumerate(WIDTH_CASES.items()):
+        H, hd = case["H"], case["hd"]
+        qkv, mask = attention_inputs(case, 150 + i, device)
+        launches = at.LAUNCHES["encoder_attention"]
+        plain = at.PLAIN_WIDTH_CALLS["encoder_attention_plain"]
+        how = at.route(hd)
+        if how == "refused":
+            try:
+                at.encoder_attention(qkv, mask, H)
+                refused = False
+            except ValueError:
+                refused = True
+            check(refused and at.LAUNCHES["encoder_attention"] == launches
+                  and at.PLAIN_WIDTH_CALLS["encoder_attention_plain"]
+                  == plain, f"encoder_attention [{label}]: refused before "
+                  f"any launch [{card}]")
+            continue
+        got = at.encoder_attention(qkv, mask, H)
+        sync(device)
+        launched = at.LAUNCHES["encoder_attention"] - launches
+        err = float((got.double() - attention_reference(qkv, mask, H))
+                    .abs().max())
+        check(launched == 1 and bool(torch.isfinite(got).all())
+              and err <= ATTN_TOL,
+              f"encoder_attention [{label}]: route {how} "
+              f"(width {at.padded_width(hd)}), {launched} kernel "
+              f"launch(es), max abs err {err:.3g} against the f64 plain "
+              f"version [{card}]")
 
 
 def device_ms(fn):
@@ -3580,6 +3650,14 @@ def phase_read_side(device, card):
 # the API server over a socket (phase 18)
 # ---------------------------------------------------------------------------
 
+def hits_of(hs):
+    """SearchResultHits from hits' JSON (a served result's, an answer's
+    `search_results`)."""
+    from oramacore_tpu_torch.types import SearchResultHit
+
+    return [SearchResultHit(h["id"], h["score"], h["document"]) for h in hs]
+
+
 def result_of_json(d):
     """A SearchResult of the port's types from its JSON (what the server
     sends), for rs_result_errors."""
@@ -3587,19 +3665,14 @@ def result_of_json(d):
         FacetResult,
         GroupedResult,
         SearchResult,
-        SearchResultHit,
     )
-
-    def hits(hs):
-        return [SearchResultHit(h["id"], h["score"], h["document"])
-                for h in hs]
 
     facets = None if "facets" not in d else {
         k: FacetResult(v["count"], v["values"])
         for k, v in d["facets"].items()}
     groups = None if "groups" not in d else [
-        GroupedResult(g["values"], hits(g["result"])) for g in d["groups"]]
-    return SearchResult(hits(d["hits"]), d["count"], facets, groups,
+        GroupedResult(g["values"], hits_of(g["result"])) for g in d["groups"]]
+    return SearchResult(hits_of(d["hits"]), d["count"], facets, groups,
                         bool(d.get("count_estimated", False)))
 
 
@@ -3627,17 +3700,17 @@ def http_answers(client, singles, batches, only=None):
     return out
 
 
-def serve_in_thread(config, orama):
-    """The port's ApiServer for `orama` on 127.0.0.1:0, on an event loop
-    of its own thread (the search handlers run in its default executor);
-    returns (base url, stop function)."""
+def serve_in_thread(config, orama, ai_service=None):
+    """The port's ApiServer for `orama` (and `ai_service`, if any) on
+    127.0.0.1:0, on an event loop of its own thread (the search handlers
+    run in its default executor); returns (base url, stop function)."""
     import asyncio
     import threading
 
     from oramacore_tpu_torch.server import ApiServer
 
     config.http.host, config.http.port = "127.0.0.1", 0
-    server = ApiServer(config, orama.write_side, orama.read_side)
+    server = ApiServer(config, orama.write_side, orama.read_side, ai_service)
     loop = asyncio.new_event_loop()
     thread = threading.Thread(target=loop.run_forever, name="api-server",
                               daemon=True)
@@ -3646,10 +3719,31 @@ def serve_in_thread(config, orama):
 
     def stop():
         asyncio.run_coroutine_threadsafe(server.stop(), loop).result(60)
-        loop.call_soon_threadsafe(loop.stop)
-        thread.join(timeout=60)
+        stop_loop(loop, thread, "the API server's")
 
     return f"http://127.0.0.1:{server.port}", stop
+
+
+def stop_loop(loop, thread, whose):
+    """Cancel and await every task left on `loop` (run by `thread`), then
+    stop the loop, join the thread and close the loop, so that nothing is
+    pending when the interpreter exits."""
+    import asyncio
+
+    async def drain():
+        tasks = [t for t in asyncio.all_tasks() if t is not
+                 asyncio.current_task()]
+        for t in tasks:
+            t.cancel()
+        await asyncio.gather(*tasks, return_exceptions=True)
+        await loop.shutdown_asyncgens()
+
+    asyncio.run_coroutine_threadsafe(drain(), loop).result(60)
+    loop.call_soon_threadsafe(loop.stop)
+    thread.join(timeout=60)
+    check(not thread.is_alive(), f"{whose} event loop stopped, no task "
+          f"left on it")
+    loop.close()
 
 
 def http_latency(client, rs, singles, card):
@@ -4213,6 +4307,545 @@ def phase_in_process_server(served, card):
     return out
 
 
+# ---------------------------------------------------------------------------
+# RAG answers over the served runtime (phase 19)
+# ---------------------------------------------------------------------------
+
+def ai_mock_script(served):
+    """The scripted LLM of phase 19 (benches/llm_mock.py): (substring of
+    the prompt, reply). A prompt no entry names gets "" (the answer
+    machine then searches with the user's own query). The autoquery
+    replies plan two searches on the games: the first one's text states
+    a price cap and a genre, which the constraint extractor injects."""
+    from oramacore_tpu_torch.benches import ingest_bench as ib
+
+    q = served["qtexts"]
+    genre = ib.GENRES[-2]
+    first = f"{q[0]} {genre} games under $40"
+    tool_call = json.dumps([{"id": "call_1", "type": "function", "function": {
+        "name": "stock", "arguments": json.dumps({"sku": "g7"})}}])
+    return [
+        ("You route a user message", '{"strategy": "simple"}'),
+        ("independent search intents",
+         json.dumps({"queries": [first, q[1]]})),
+        ("choose which collection properties", json.dumps({"selections": [
+            {"query": first, "properties": ["title", "price", "genre"]},
+            {"query": q[1], "properties": ["title"]}]})),
+        ("compose executable search parameters", json.dumps({"searches": [
+            {"term": q[0], "limit": AI_MAX_DOCS},
+            {"term": q[1], "limit": AI_MAX_DOCS}]})),
+        ("classify a search query", '{"mode": "hybrid"}'),
+        ("should feed semantic embeddings",
+         json.dumps({"properties": AI_SELECTED})),
+        ("check the stock", "TOOL_CALL " + tool_call),
+        ("suggested queries", json.dumps([q[2], q[3]])),
+        ("title for a conversation", "Games under forty"),
+        ("used as training data", json.dumps([q[4], q[5], q[6]])),
+        ("grounded question-answering assistant", AI_ANSWER),
+    ], genre
+
+
+class MockLLMThread:
+    """benches/llm_mock.py's MockLLMServer on 127.0.0.1:0, on an event
+    loop of its own thread."""
+
+    def __init__(self, script):
+        import asyncio
+        import threading
+
+        from oramacore_tpu_torch.benches.llm_mock import MockLLMServer
+
+        self.mock = MockLLMServer(script, default="")
+        self.loop = asyncio.new_event_loop()
+        self.thread = threading.Thread(target=self.loop.run_forever,
+                                       name="llm-mock", daemon=True)
+        self.thread.start()
+        asyncio.run_coroutine_threadsafe(self.mock.start(),
+                                         self.loop).result(60)
+
+    def stop(self):
+        import asyncio
+
+        asyncio.run_coroutine_threadsafe(self.mock.stop(),
+                                         self.loop).result(60)
+        stop_loop(self.loop, self.thread, "the LLM mock's")
+
+
+def ai_call(port, path, body, key):
+    """One POST to the AI server: (status, content type, SSE events or the
+    JSON body, seconds to the first answer token or None, seconds in
+    all). An SSE answer is read line by line as it streams and must end
+    with data: [DONE]."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    t0 = time.perf_counter()
+    conn.request("POST", path, body=json.dumps(body), headers={
+        "Authorization": f"Bearer {key}",
+        "Content-Type": "application/json"})
+    resp = conn.getresponse()
+    ctype = resp.getheader("content-type", "")
+    first = None
+    if ctype.startswith("text/event-stream"):
+        out, done = [], False
+        while True:
+            line = resp.readline()
+            if not line:
+                break
+            if not line.startswith(b"data: "):
+                continue
+            payload = line[len(b"data: "):].strip()
+            if payload == b"[DONE]":
+                done = True
+                continue
+            ev = json.loads(payload)
+            if first is None and (ev.get("type") == "answer_token" or (
+                    ev.get("object") == "chat.completion.chunk"
+                    and ev["choices"] and ev["choices"][0]["delta"].get(
+                        "content"))):
+                first = time.perf_counter() - t0
+            out.append(ev)
+        if resp.status == 200 and not done:
+            raise SmokeFailure(f"{path}: the SSE answer did not end with "
+                               f"data: [DONE]")
+    else:
+        raw = resp.read()
+        out = json.loads(raw) if "json" in ctype else raw.decode()
+    wall = time.perf_counter() - t0
+    conn.close()
+    return resp.status, ctype, out, first, wall
+
+
+def answer_checks(rs, coll, events, mock_requests, label):
+    """One /answer's events held to what the machine did: the search it
+    made (the optimizing_query event's query, the mode, the similarity
+    and the limit it was given) repeated in-process equals its
+    search_results by rs_hits_errors' rules; the mock's GenerateAnswer
+    request carries those documents' JSON; the streamed tokens join to
+    the scripted answer. Returns (errors, in-process ms, hits)."""
+    from oramacore_tpu_torch.types import SearchParams
+
+    types_ = [e["type"] for e in events]
+    errs = []
+    for t in ("acknowledged", "selected_llm", "optimizing_query",
+              "search_results", "answer_token"):
+        if t not in types_:
+            errs.append(f"{label['name']}: no {t} event ({types_})")
+    if errs:
+        return errs, 0.0, 0
+    if events[-1].get("state") != "completed":
+        errs.append(f"{label['name']}: ends with {events[-1]}")
+    opt = next(e for e in events if e["type"] == "optimizing_query")
+    params = {"term": opt["optimized_query"], "mode": label["mode"],
+              "similarity": label["similarity"], "limit": AI_MAX_DOCS}
+    t = time.perf_counter()
+    ref = rs.search(coll, RS_KEYS[coll][0], SearchParams.from_json(params))
+    ms = (time.perf_counter() - t) * 1e3
+    ref = result_of_json(json.loads(json.dumps(ref.to_json())))
+    got = next(e for e in events if e["type"] == "search_results")["results"]
+    errs += rs_hits_errors(ref.hits, hits_of(got), label["name"])
+    context = json.dumps([h["document"] for h in got], ensure_ascii=False)
+    asks = [r for r in mock_requests if "grounded question-answering"
+            in json.dumps(r["messages"])]
+    if len(asks) != 1 or context not in asks[0]["messages"][-1]["content"]:
+        errs.append(f"{label['name']}: the GenerateAnswer request does not "
+                    f"carry the search_results documents")
+    tokens = "".join(e["token"] for e in events if e["type"] == "answer_token")
+    if tokens.strip() != AI_ANSWER:
+        errs.append(f"{label['name']}: streamed {tokens!r}")
+    return errs, ms, len(got)
+
+
+def pctl(xs, q):
+    return float(np.percentile(np.asarray(xs, np.float64), q))
+
+
+def answer_calls(port, mock, cases):
+    """Every case (label dict, collection, interaction body) through
+    POST /answer: (label, collection, status, content type, events,
+    seconds to the first token, seconds in all, the LLM requests the
+    answer made) each."""
+    out = []
+    for label, coll, body in cases:
+        n0 = len(mock.requests)
+        st, ctype, events, first, wall = ai_call(
+            port, f"/v1/collections/{coll}/answer", body, RS_KEYS[coll][0])
+        out.append((label, coll, st, ctype, events, first, wall,
+                    mock.requests[n0:]))
+    return out
+
+
+def ai_answers(rs, calls, card):
+    """The /answer calls of one mode held by answer_checks; prints wall
+    and time to the first answer token p50 / p99 beside the in-process
+    search p50."""
+    bad, walls, firsts, local, n_llm, answered = [], [], [], [], [], 0
+    for label, coll, st, ctype, events, first, wall, asked in calls:
+        if st != 200 or not ctype.startswith("text/event-stream"):
+            bad.append(f"{label['name']}: HTTP {st} {ctype} {events!r:.200}")
+            continue
+        errs, ms, n_hits = answer_checks(rs, coll, events, asked, label)
+        bad += errs
+        answered += n_hits > 0
+        walls.append(wall * 1e3)
+        firsts.append((first or wall) * 1e3)
+        local.append(ms)
+        n_llm.append(len(asked))
+    mode, coll = calls[0][0]["mode"], calls[0][1]
+    if not answered:
+        bad.append(f"no {mode} answer found a document")
+    report_check(bad, f"{len(calls)} /answer calls ({mode}, {coll}): "
+                      f"search_results equal ReadSide.search with the "
+                      f"machine's parameters, the GenerateAnswer request "
+                      f"carries their documents, the tokens join to the "
+                      f"scripted answer; {answered} of them with hits")
+    out = {"wall": (pctl(walls, 50), pctl(walls, 99)),
+           "first_token": (pctl(firsts, 50), pctl(firsts, 99)),
+           "search_p50": pctl(local, 50),
+           "llm_calls": sorted(set(n_llm))}
+    print(f"  /answer, {mode} on {coll}: {len(calls)} calls, wall p50 "
+          f"{out['wall'][0]:.2f} ms, p99 {out['wall'][1]:.2f} ms; first "
+          f"answer_token p50 {out['first_token'][0]:.2f} ms, p99 "
+          f"{out['first_token'][1]:.2f} ms; in-process ReadSide.search on "
+          f"the same parameters p50 {out['search_p50']:.3f} ms; LLM calls "
+          f"an answer {out['llm_calls']} [{card}, host clock]", flush=True)
+    return out
+
+
+def llm_client_ms(url, card, n=32):
+    """The port's LLM client alone against the mock, in one event loop:
+    p50 of a chat call and of a streamed answer to its last token
+    (`AI_ANSWER`, word by word)."""
+    import asyncio
+
+    from oramacore_tpu_torch.ai.llms import LLMProviderConfig, LLMService
+
+    svc = LLMService(LLMProviderConfig("mock", url, "mock-llm"))
+    msgs = [{"role": "system", "content": "You are a grounded "
+             "question-answering assistant."},
+            {"role": "user", "content": "which game?"}]
+
+    async def run():
+        chat, stream, answers = [], [], set()
+        for _ in range(n):
+            t = time.perf_counter()
+            msg = await svc.chat(msgs)
+            chat.append((time.perf_counter() - t) * 1e3)
+            t = time.perf_counter()
+            toks = [tok async for tok in svc.chat_stream(msgs)]
+            stream.append((time.perf_counter() - t) * 1e3)
+            answers.add((msg["content"], "".join(toks).strip()))
+        return chat, stream, answers
+
+    chat, stream, answers = asyncio.run(run())
+    check(answers == {(AI_ANSWER, AI_ANSWER)},
+          f"the LLM client read the mock's answer, whole and streamed, in "
+          f"{n} calls of each")
+    out = {"chat_p50": pctl(chat, 50), "stream_p50": pctl(stream, 50)}
+    print(f"  the LLM client alone against the mock: chat p50 "
+          f"{out['chat_p50']:.3f} ms, a streamed answer "
+          f"({len(AI_ANSWER.split())} chunks) p50 {out['stream_p50']:.3f} "
+          f"ms [{card}, host clock]", flush=True)
+    return out
+
+
+def autoquery_checks(rs, events, prefix, label):
+    """The searches an autoquery run planned (its tracked_queries_generated
+    state) repeated in-process equal its search_results, search by
+    search, by rs_hits_errors' rules."""
+    from oramacore_tpu_torch.types import SearchParams
+
+    tracked = next(e for e in events if e["type"] == prefix + "state_changed"
+                   and e["state"] == "tracked_queries_generated")
+    got = hits_of(next(e for e in events
+                       if e["type"] == prefix + "search_results")["results"])
+    errs, at = [], 0
+    for i, sp in enumerate(tracked["data"]["searches"]):
+        ref = rs.search("games", RS_KEYS["games"][0],
+                        SearchParams.from_json(sp))
+        ref = result_of_json(json.loads(json.dumps(ref.to_json()))).hits
+        errs += rs_hits_errors(ref, got[at:at + len(ref)], f"{label}[{i}]")
+        at += len(ref)
+    if at != len(got) or not got:
+        errs.append(f"{label}: {len(got)} hits for {at} planned")
+    return errs, tracked["data"]["searches"]
+
+
+def hook_log_stream(port, coll, key):
+    """A raw socket on GET /logs, read past its head."""
+    import socket
+
+    sock = socket.create_connection(("127.0.0.1", port), timeout=60)
+    sock.sendall(f"GET /v1/collections/{coll}/logs?api-key={key} HTTP/1.1\r\n"
+                 f"Host: smoke\r\n\r\n".encode())
+    buf = b""
+    while b"\r\n\r\n" not in buf:
+        buf += sock.recv(4096)
+    check(b"text/event-stream" in buf, "the hook-log SSE answers")
+    return sock, buf.split(b"\r\n\r\n", 1)[1]
+
+
+def phase_ai(served, device, card):
+    """Phase 19: phase 17's runtime served with the port's AIService and
+    a scripted LLM (benches/llm_mock.py) on a socket: /answer in three
+    modes, planned answers, OpenAI chat, NLP queries, MCP, suggestions,
+    titles, tools, system prompts, training sets, a BeforeAnswer hook on
+    the hook-log SSE, mode "auto" searches and kv-actions-test.hurl."""
+    from oramacore_tpu_torch.ai.service import AIService
+    from oramacore_tpu_torch.client import OramaCoreTPU
+    from oramacore_tpu_torch.types import SearchParams
+    from oramacore_tpu_torch.utils.hurl import run_hurl_file
+
+    t_phase = time.perf_counter()
+    orama = served["orama"]
+    rs, ws = orama.read_side, orama.write_side
+    qtexts = served["qtexts"]
+    ptexts = [p["term"] for p in served["batches"][
+        f"passages batch vector B={RS_VEC_B}"][1]]
+    script, genre = ai_mock_script(served)
+    llm = MockLLMThread(script)
+    mock = llm.mock
+    cfg = orama.config
+    cfg.ai.remote_llms = [{"name": "mock", "url": mock.url,
+                           "model": "mock-llm"}]
+    ai = AIService(cfg, ws, rs)
+    check(rs.hooks_runtime is ai.hooks_runtime
+          and ws.hooks_runtime is ai.hooks_runtime
+          and rs.llm_resolve_mode is not None,
+          "the AIService attached its hooks runtime to both sides and the "
+          "auto-mode resolver to the read side")
+    base, stop = serve_in_thread(cfg, orama, ai)
+    port = int(base.rsplit(":", 1)[1])
+    client = OramaCoreTPU(base, RS_MASTER, timeout=600)
+    out = {}
+    try:
+        # /answer in three modes; each mode's calls counted
+        modes = (("fulltext", "games", qtexts, 0.5),
+                 ("hybrid", "games", qtexts[AI_ANSWERS:], RS_SIM),
+                 ("vector", "passages", ptexts, RS_PASSAGE_SIM))
+        for mode, coll, texts, sim in modes:
+            cases = [({"name": f"answer {mode} {i}", "mode": mode,
+                       "similarity": sim}, coll,
+                      {"interactionID": f"{mode}-{i}",
+                       "query": texts[i % len(texts)], "searchMode": mode,
+                       "min_similarity": sim, "max_documents": AI_MAX_DOCS})
+                     for i in range(AI_ANSWERS)]
+            calls, launches = counted(
+                f"/answer, {mode} on {coll}",
+                lambda cases=cases: answer_calls(port, mock, cases))
+            want = "encoder_attention" if mode == "vector" else \
+                "score_ranges_accumulate"
+            check(launches[want] > 0, f"the {mode} answers launched {want} "
+                                      f"{launches[want]} times")
+            out[mode] = ai_answers(rs, calls, card)
+            out[mode]["launches"] = launches
+            profile_once(f"one /answer, {mode} on {coll}",
+                         lambda coll=coll, body=cases[0][2]: ai_call(
+                             port, f"/v1/collections/{coll}/answer", body,
+                             RS_KEYS[coll][0]), card)
+
+        out["llm_client"] = llm_client_ms(mock.url, card)
+
+        # planned answers and NLP queries: the autoquery machine
+        rk = RS_KEYS["games"][0]
+        planned_ms, nlp_ms, bad = [], [], []
+        for i in range(AI_PLANNED):
+            st, _, events, _, wall = ai_call(
+                port, "/v1/collections/games/planned_answer",
+                {"interactionID": f"planned-{i}",
+                 "query": f"{qtexts[i]} and something cheap"}, rk)
+            planned_ms.append(wall * 1e3)
+            errs, searches = autoquery_checks(rs, events,
+                                              "advanced_autoquery_",
+                                              f"planned {i}")
+            bad += errs
+            toks = "".join(e["token"] for e in events
+                           if e["type"] == "answer_token")
+            if st != 200 or toks.strip() != AI_ANSWER:
+                bad.append(f"planned {i}: HTTP {st}, tokens {toks!r}")
+        for i in range(AI_NLP):
+            st, _, events, _, wall = ai_call(
+                port, "/v1/collections/games/generate/nlp_query",
+                {"query": f"{qtexts[i]} under $40"}, rk)
+            nlp_ms.append(wall * 1e3)
+            errs, searches = autoquery_checks(rs, events, "", f"nlp {i}")
+            bad += errs if st == 200 else [f"nlp {i}: HTTP {st}"]
+        first = searches[0].get("where", {})
+        check(first.get("price") == {"lte": 40.0}
+              and first.get("genre") == genre,
+              f"the constraint extractor injected price <= 40 and genre "
+              f"{genre!r} into the planned search ({first})")
+        report_check(bad, f"{AI_PLANNED} planned answers and {AI_NLP} NLP "
+                          f"queries: each planned search's hits equal "
+                          f"ReadSide.search in-process")
+        out["planned_p50"], out["nlp_p50"] = pctl(planned_ms, 50), \
+            pctl(nlp_ms, 50)
+
+        # OpenAI-compatible chat, half of it streamed
+        chat_ms, bad = [], []
+        for i in range(AI_CHAT):
+            stream = bool(i % 2)
+            st, _, body, _, wall = ai_call(
+                port, "/v1/games/openai/chat/completions",
+                {"model": "mock/mock-llm", "stream": stream, "messages": [
+                    {"role": "system", "content": "Be brief."},
+                    {"role": "user", "content": qtexts[i]}]}, rk)
+            chat_ms.append(wall * 1e3)
+            text = "".join(c["choices"][0]["delta"].get("content") or ""
+                           for c in body if c["choices"]) if stream else \
+                body["choices"][0]["message"]["content"]
+            if st != 200 or text.strip() != AI_ANSWER:
+                bad.append(f"chat {i}: HTTP {st}, {text!r}")
+        report_check(bad, f"{AI_CHAT} OpenAI chat calls ({AI_CHAT // 2} "
+                          f"streamed) answer the scripted text")
+        out["chat_p50"] = pctl(chat_ms, 50)
+
+        # MCP: the handshake, then searches held to /search over HTTP
+        def rpc(body):
+            return client._http.post("/v1/collections/games/mcp", body,
+                                     api_key=rk)
+
+        init = rpc({"jsonrpc": "2.0", "id": 0, "method": "initialize"})
+        tools = rpc({"jsonrpc": "2.0", "id": 1, "method": "tools/list"})
+        check(init["result"]["protocolVersion"] and {"search", "nlp_search"}
+              <= {t["name"] for t in tools["result"]["tools"]},
+              "MCP initialize and tools/list")
+        bad = []
+        for i in range(AI_MCP):
+            args = {"term": qtexts[40 + i], "limit": 10}
+            got = rpc({"jsonrpc": "2.0", "id": 2 + i, "method": "tools/call",
+                       "params": {"name": "search", "arguments": args}})
+            got = json.loads(got["result"]["content"][0]["text"])
+            want = client.collection("games", read_api_key=rk).search(args)
+            bad += rs_result_errors(result_of_json(want), result_of_json(got),
+                                    f"mcp {i}")
+        report_check(bad, f"{AI_MCP} MCP tools/call searches equal /search "
+                          f"over HTTP")
+
+        # suggestions, title, tools, system prompts, training sets
+        conv = {"messages": [{"role": "user", "content": qtexts[0]}]}
+        sug = client._http.post("/v1/collections/games/suggestions", conv,
+                                api_key=rk)
+        title = client._http.post("/v1/collections/games/title", conv,
+                                  api_key=rk)
+        check(sug["suggestions"] == [qtexts[2], qtexts[3]]
+              and title["title"] == "Games under forty",
+              "suggestions and title answer the scripted replies")
+        wk = RS_KEYS["games"][1]
+        client._http.post("/v1/collections/games/tools/insert", {
+            "id": "stock", "description": "Check the stock of a game",
+            "parameters": {"type": "object", "properties": {
+                "sku": {"type": "string"}}},
+            "code": "def stock(args):\n    return {'sku': args['sku'], "
+                    "'in_stock': 7}\n"}, api_key=wk)
+        ran = client._http.post("/v1/collections/games/tools/run", {
+            "messages": [{"role": "user",
+                          "content": "check the stock of g7"}]}, api_key=rk)
+        check(ran["results"] == [{"tool": "stock", "arguments": {"sku": "g7"},
+                                  "result": {"sku": "g7", "in_stock": 7}}],
+              f"tools/run: the mock's tool call ran the tool's code "
+              f"({ran['results']})")
+        client._http.post("/v1/collections/games/system_prompts/insert", {
+            "id": "smoke", "prompt": "Answer in one line.",
+            "usage_mode": "manual"}, api_key=wk)
+        got = client._http.post("/v1/collections/games/system_prompts/get",
+                                {"id": "smoke"}, api_key=rk)
+        check(got["system_prompt"]["prompt"] == "Answer in one line.",
+              "system_prompts insert and get")
+        n0 = len(mock.requests)
+        gen = client._http.post(
+            "/v1/collections/games/training_sets/queries_generator/generate",
+            {"count": 3}, api_key=wk)
+        asked = json.dumps(mock.requests[n0:])
+        idx = rs.collections["games"].indexes["main"]
+        uids = [idx.doc_user_ids[d] for d in list(idx.doc_user_ids)[:2]]
+        sample = rs.batch_get_documents("games", rk, uids)
+        check(gen["data"] == [qtexts[4], qtexts[5], qtexts[6]]
+              and len(sample) == 2
+              and all(d["title"] in asked for d in sample.values()),
+              "training_sets generate: the LLM request carries sampled "
+              "games documents, and the set is the scripted one")
+
+        # a BeforeAnswer hook: its print arrives on the hook-log SSE and
+        # its output (one document) is what the answer prompt carries
+        sock, logs = hook_log_stream(port, "games", rk)
+        try:
+            client.collection("games", write_api_key=wk).set_hook(
+                "BeforeAnswer",
+                "def BeforeAnswer(payload):\n"
+                "    print('before answer', len(payload['results']))\n"
+                "    return {'results': payload['results'][:1]}\n")
+            t0 = time.perf_counter()
+            while not rs.collections["games"].hooks.get("BeforeAnswer"):
+                check(time.perf_counter() - t0 < 60, "the hook is applied")
+                time.sleep(0.01)
+            n0 = len(mock.requests)
+            st, _, events, _, _ = ai_call(
+                port, "/v1/collections/games/answer",
+                {"interactionID": "hooked", "query": qtexts[0],
+                 "searchMode": "fulltext", "max_documents": AI_MAX_DOCS}, rk)
+            res = next(e for e in events if e["type"] == "search_results")
+            ask = next(r for r in mock.requests[n0:]
+                       if "grounded question-answering"
+                       in json.dumps(r["messages"]))
+            one = json.dumps([res["results"][0]["document"]],
+                             ensure_ascii=False)
+            check(st == 200 and len(res["results"]) > 1
+                  and one in ask["messages"][-1]["content"],
+                  f"BeforeAnswer cut the {len(res['results'])} results to "
+                  f"one in the answer prompt")
+            t0 = time.perf_counter()
+            want = f"before answer {len(res['results'])}".encode()
+            while want not in logs:
+                check(time.perf_counter() - t0 < 60,
+                      "the hook's print reaches the hook-log SSE")
+                logs += sock.recv(4096)
+            print(f"  hook-log SSE: {want.decode()!r} arrived", flush=True)
+        finally:
+            sock.close()
+        client._http.post("/v1/collections/games/hooks/delete",
+                          {"name": "BeforeAnswer"}, api_key=wk)
+
+        # mode "auto": the mock picks hybrid
+        bad = []
+        for i in range(AI_AUTO):
+            n0 = len(mock.requests)
+            p = {"term": qtexts[60 + i], "mode": "auto"}
+            got = client.collection("games", read_api_key=rk).search(p)
+            asked = [r for r in mock.requests[n0:]
+                     if "classify a search query" in json.dumps(r)]
+            want = rs.search("games", rk, SearchParams.from_json(
+                dict(p, mode="hybrid")))
+            bad += rs_result_errors(result_of_json(json.loads(json.dumps(
+                want.to_json()))), result_of_json(got), f"auto {i}")
+            if len(asked) != 1:
+                bad.append(f"auto {i}: {len(asked)} mode requests")
+        report_check(bad, f"{AI_AUTO} mode auto searches asked the LLM once "
+                          f"each and equal the hybrid search it chose (at "
+                          f"hybrid's default similarity, as auto resolves)")
+
+        # the repo's kv-actions script, whole
+        t0 = time.perf_counter()
+        run_hurl_file(os.path.join(ROOT, "tests", "hurl",
+                                   "kv-actions-test.hurl"),
+                      {"base_url": base, "master_key": RS_MASTER},
+                      timeout_s=120)
+        kv_idx = ws.collections["hurl-kv"].indexes["main"]
+        check(kv_idx.embedding_fields == AI_SELECTED,
+              f"tests/hurl/kv-actions-test.hurl passed in "
+              f"{time.perf_counter() - t0:.2f} s; its insert asked the LLM "
+              f"which properties to embed ({kv_idx.embedding_fields})")
+    finally:
+        stop()
+        llm.stop()
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"  OpenAI chat p50 {out['chat_p50']:.2f} ms, planned answer p50 "
+          f"{out['planned_p50']:.2f} ms, nlp_query p50 {out['nlp_p50']:.2f} "
+          f"ms; {len(mock.requests)} LLM requests in all; the phase "
+          f"{out['seconds']:.1f} s [{card}, host clock]", flush=True)
+    return out
+
+
 def sync(device):
     import torch
 
@@ -4221,6 +4854,7 @@ def sync(device):
 
 
 def main() -> int:
+    t_script = time.perf_counter()
     sys.path.insert(0, ROOT)
     import torch
 
@@ -4413,9 +5047,19 @@ def main() -> int:
     t_phase = time.perf_counter()
     try:
         phase_server(served, device, card)
+        print(f"  phase 18: {time.perf_counter() - t_phase:.1f} s",
+              flush=True)
+        print("[19] RAG answers: phase 17's runtime served with the port's "
+              "AIService and a scripted LLM (benches/llm_mock.py): /answer "
+              "in three modes, planned answers, OpenAI chat, NLP queries, "
+              "MCP, tools, system prompts, training sets, a hook on the "
+              "hook-log SSE", flush=True)
+        t_phase = time.perf_counter()
+        phase_ai(served, device, card)
+        print(f"  phase 19: {time.perf_counter() - t_phase:.1f} s",
+              flush=True)
     finally:
         served["orama"].stop()
-    print(f"  phase 18: {time.perf_counter() - t_phase:.1f} s", flush=True)
 
     kernels = {"kernels": [{
         "name": k["name"],
@@ -4430,6 +5074,8 @@ def main() -> int:
         "bound_by": timings[k["name"]]["bound_by"],
         "library_ms": timings[k["name"]]["library_ms"],
     } for k in KERNELS]}
+    print(f"  the whole script: {time.perf_counter() - t_script:.1f} s",
+          flush=True)
     print(f"card: {card}")
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {

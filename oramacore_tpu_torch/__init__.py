@@ -18,7 +18,11 @@ tcp-stream), with `config.py` (YAML through `utils/yaml_subset.py`),
 auth (`auth.py`), secrets (`utils/secrets.py`) and the sandboxed hooks
 runtime (`ai/hooks.py`). The HTTP server (`server/`: `python -m
 oramacore_tpu_torch.server --config <yaml>`) serves it, and `client.py`
-and `utils/hurl.py` talk to the server.
+and `utils/hurl.py` talk to the server. The AI service (`ai/`: RAG
+answers and planned answers over SSE, NLP queries, the OpenAI-compatible
+chat, MCP, tools, system prompts and training sets) answers the server's
+AI routes through an OpenAI-compatible LLM, reached by its own HTTP
+client (`ai/llms.py`).
 
 It mirrors the layout of `oramacore_tpu` (so
 `oramacore_tpu_torch/ops/bm25.py` is the counterpart of

@@ -228,6 +228,13 @@ def _resolves_to_private(host: str) -> bool:
     return any(private_ip(info[4][0]) for info in infos)
 
 
+def _put_log(q: asyncio.Queue, entry: Dict[str, Any]) -> None:
+    try:
+        q.put_nowait(entry)
+    except asyncio.QueueFull:
+        pass  # a subscriber that does not read loses entries
+
+
 class HooksRuntime:
     """Executes hook code in sandboxed subprocesses; streams logs."""
 
@@ -248,7 +255,7 @@ class HooksRuntime:
         # (config hooks.allow_js).
         self.allow_js = allow_js
         self._node = shutil.which("node")
-        self._log_subs: Dict[str, List[asyncio.Queue]] = {}
+        self._log_subs: Dict[str, List[tuple]] = {}  # (queue, its loop)
         self._log_lock = threading.Lock()
 
     # -- HTTP broker (domain allow/deny, js-pool lib.rs:75-139) -----------
@@ -324,25 +331,28 @@ class HooksRuntime:
     # -- log streaming ----------------------------------------------------
 
     def subscribe_logs(self, collection_id: str) -> asyncio.Queue:
+        """A queue of the collection's log entries, on the caller's event
+        loop (hooks run on executor threads too: an entry reaches the
+        queue through its loop)."""
         q: asyncio.Queue = asyncio.Queue(maxsize=1000)
+        loop = asyncio.get_running_loop()
         with self._log_lock:
-            self._log_subs.setdefault(collection_id, []).append(q)
+            self._log_subs.setdefault(collection_id, []).append((q, loop))
         return q
 
     def unsubscribe_logs(self, collection_id: str, q: asyncio.Queue) -> None:
         with self._log_lock:
             subs = self._log_subs.get(collection_id, [])
-            if q in subs:
-                subs.remove(q)
+            subs[:] = [s for s in subs if s[0] is not q]
 
     def _emit_log(self, collection_id: str, entry: Dict[str, Any]) -> None:
         with self._log_lock:
             subs = list(self._log_subs.get(collection_id, []))
-        for q in subs:
+        for q, loop in subs:
             try:
-                q.put_nowait(entry)
-            except asyncio.QueueFull:
-                pass
+                loop.call_soon_threadsafe(_put_log, q, entry)
+            except RuntimeError:
+                pass  # the subscriber's loop has closed
 
     # -- execution ----------------------------------------------------------
 

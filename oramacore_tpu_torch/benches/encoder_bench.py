@@ -9,6 +9,9 @@ cases and the ingest corpus of `chip_smoke.py` phase 14.
   L=512, the registry's head width 32 at full length), head widths 16
   and 128 (which no registry model has), and the edge cases: batch rows
   whose mask is all zero (a power-of-two batch's padding) and L=1.
+- `WIDTH_CASES`: head widths the kernel does not take, which its wrapper
+  routes by shape: 48 (zero-padded to 64 and launched) and 160 (above
+  128: refused on the card before any launch).
 - `attention_inputs`: seeded f32 qkv and an int32 key mask for a case;
   every row attends a prefix of its keys, of a length drawn in [1, L],
   and the case's last `padded` rows attend nothing.
@@ -44,6 +47,12 @@ ATTENTION_CASES = {
                                                 padded=3),
     "hd 128 B=64 L=32 H=8, 2 padded rows": dict(B=64, L=32, H=8, hd=128,
                                                 padded=2),
+}
+
+WIDTH_CASES = {
+    "hd 48 B=64 L=64 H=4, 2 padded rows (padded to 64)": dict(
+        B=64, L=64, H=4, hd=48, padded=2),
+    "hd 160 B=8 L=64 H=2 (refused)": dict(B=8, L=64, H=2, hd=160, padded=0),
 }
 
 

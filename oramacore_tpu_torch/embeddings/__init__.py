@@ -231,11 +231,18 @@ def hash_encode(text: str, dim: int) -> np.ndarray:
 
 Backend = Callable[[Sequence[str], ModelInfo], List[np.ndarray]]
 
-_BACKENDS: Dict[str, Backend] = {}
+# by (name, str(device)), or (name, None) for a backend bound to no
+# device (the hash encoder), in the order of registration (a rebinding
+# moves to the end)
+_BACKENDS: Dict[Tuple[str, Optional[str]], Backend] = {}
 
 
-def register_backend(name: str, fn: Backend) -> None:
-    _BACKENDS[name] = fn
+def register_backend(name: str, fn: Backend, device=None) -> None:
+    """Bind `name` to `fn`: for the services of `device` (a text encoder
+    on that device), or with no device for every service."""
+    key = (name, None if device is None else str(device))
+    _BACKENDS.pop(key, None)
+    _BACKENDS[key] = fn
 
 
 def _hash_backend(texts: Sequence[str], info: ModelInfo) -> List[np.ndarray]:
@@ -273,8 +280,18 @@ class EmbeddingsService:
     Reference bridge: python/embeddings.rs:164 `calculate_embeddings`.
     """
 
-    def __init__(self, default_model: str = DEFAULT_MODEL):
+    def __init__(self, default_model: str = DEFAULT_MODEL, device=None):
         self.default_model = default_model
+        # a runtime's service takes only the backends bound to its device
+        # or to none; a service of no device takes the last binding
+        self.device = None if device is None else str(device)
+
+    def _backend(self, name: str) -> Optional[Backend]:
+        if self.device is not None:
+            return (_BACKENDS.get((name, self.device))
+                    or _BACKENDS.get((name, None)))
+        return next((fn for (n, _), fn in reversed(_BACKENDS.items())
+                     if n == name), None)
 
     def model_info(self, model: Optional[str]) -> ModelInfo:
         name = model or self.default_model
@@ -293,9 +310,9 @@ class EmbeddingsService:
         # per-model checkpoint binding wins over the shared backend
         # (reference keeps a per-model registry, embeddings/models.py)
         backend = (
-            _BACKENDS.get(f"{info.backend}:{info.name}")
-            or _BACKENDS.get(info.backend)
-            or _BACKENDS["hash"]
+            self._backend(f"{info.backend}:{info.name}")
+            or self._backend(info.backend)
+            or _BACKENDS[("hash", None)]
         )
 
         all_chunks: List[str] = []

@@ -6,10 +6,10 @@ oramacore_tpu/embeddings/flax_encoder.py).
 embeddings, LayerNorm (biased variance, eps 1e-12), then per layer the
 fused Q/K/V projection, the attention (`ops/attention.py`'s
 `EncoderAttention`: the hand-written kernels, forward and backward, on
-the card, their plain versions on the CPU, where any head width runs; on
-the card a head width outside {16, 32, 64, 128} raises, as the kernels'
-wrappers do), the output projection
-and LayerNorm, a tanh-approximated GELU feed-forward (JAX's default,
+the card, their plain versions on the CPU, where any head width runs;
+on the card a width under 128 outside {16, 32, 64, 128} is zero-padded
+to a kernel width by the wrappers, and one above 128 raises), the
+output projection and LayerNorm, a tanh-approximated GELU feed-forward (JAX's default,
 where HF BERT uses the exact erf) and LayerNorm; then the mean over the
 attended tokens (denominator clamped at 1e-9) and the L2 norm (clamped at
 1e-9). The products are f32 `torch.matmul` with TF32 off
@@ -47,11 +47,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .. import resolve_device
-from ..ops.attention import (
-    HEAD_DIMS,
-    EncoderAttention,
-    encoder_attention_plain,
-)
+from ..ops.attention import EncoderAttention
 from ..ops.bm25 import round_up_pow2
 from . import safetensors_io
 from .wordpiece import WordPieceTokenizer
@@ -63,10 +59,6 @@ MAX_SEQ = 512
 # the checkpoints bundled in the repository, bound by registry name
 BUNDLED = (("SemanticBase", "semantic-base"), ("SemanticMini", "semantic-mini"))
 MODELS_DIR = Path(__file__).resolve().parents[2] / "models"
-# forward layers on CPU tensors whose head width the attention kernel
-# does not take (outside HEAD_DIMS), sent to encoder_attention_plain; on
-# the card such a width goes to the kernel's wrapper, which raises
-PLAIN_WIDTH_CALLS = {"encoder_attention_plain": 0}
 
 # a layer's tensors in the JAX parameter dict, after the fused q/k/v
 _LAYER = ("o_w", "o_b", "attn_ln_g", "attn_ln_b", "ffn_w1", "ffn_b1",
@@ -226,14 +218,9 @@ class BertEncoder(nn.Module):
              + self.type_emb[0][None, None, :])
         x = self._ln(x, self.emb_ln_g, self.emb_ln_b)
         mask32 = attention_mask.to(torch.int32).contiguous()
-        plain_width = (x.device.type == "cpu"
-                       and x.shape[-1] // self.n_heads not in HEAD_DIMS)
-        attend = encoder_attention_plain if plain_width else self.attention
         for layer in self.layers:
             qkv = torch.matmul(x, layer.qkv_w) + layer.qkv_b
-            if plain_width:
-                PLAIN_WIDTH_CALLS["encoder_attention_plain"] += 1
-            ctx = attend(qkv, mask32, self.n_heads)
+            ctx = self.attention(qkv, mask32, self.n_heads)
             x = self._ln(x + torch.matmul(ctx, layer.o_w) + layer.o_b,
                          layer.attn_ln_g, layer.attn_ln_b)
             ffn = F.gelu(torch.matmul(x, layer.ffn_w1) + layer.ffn_b1,
@@ -330,14 +317,14 @@ def register_torch_backend(model_path: str, model_name: Optional[str] = None,
         return enc.encode(list(texts))
 
     if model_name is None:
-        register_backend("flax", backend)
+        register_backend("flax", backend, device=device)
         return True
     info = MODELS.get(model_name)
     if info is not None and info.dim != enc.dim:
         logger.warning("checkpoint %s has hidden size %s but model %s "
                        "expects %s-d vectors; registering anyway",
                        model_path, enc.dim, model_name, info.dim)
-    register_backend(f"flax:{model_name}", backend)
+    register_backend(f"flax:{model_name}", backend, device=device)
     return True
 
 
@@ -355,7 +342,7 @@ def register_torch_backend_lazy(model_path: str, model_name: str, *,
             return _hash_backend(texts, info)
         return enc.encode(list(texts))
 
-    register_backend(f"flax:{model_name}", backend)
+    register_backend(f"flax:{model_name}", backend, device=device)
 
 
 def register_bundled_checkpoints(device) -> List[str]:

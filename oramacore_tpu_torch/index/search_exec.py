@@ -32,7 +32,9 @@ the pruned hybrid over the int8 IVF layout.
 The read side (`read/__init__.py`, `ReadSide.search` and `search_batch`)
 builds these executors on its device and drives them as the JAX read side
 drives the JAX ones: `HybridSearchTopK` per index, one
-`SharedBatchExecutor` for batches.
+`SharedBatchExecutor` for batches. The AI service's answer, autoquery and
+MCP machines (`ai/`) reach them through `ReadSide.search`, so a RAG
+answer's retrieval runs these executors on the card.
 
 The vectors these executors search come from the port's text encoder
 (`embeddings/encoder.py`), which the port also trains

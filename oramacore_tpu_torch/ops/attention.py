@@ -15,12 +15,18 @@ each) and the key mask int32[B, L], and returns ctx f32[B, L, D].
 `encoder_attention_plain` is the same math step by step in PyTorch, in
 the dtype it is given (the card's check runs it in f64).
 
-- Supported: 1 <= L <= 512 and head width hd in {16, 32, 64, 128} (the
-  registry's models have 32 and 64); anything else raises ValueError, on
-  every device. Nothing gives way to the plain version on the card. The
-  plain version takes any head width: `embeddings/encoder.BertEncoder`
-  calls it for the others (such as 8 or 96) on CPU tensors, as JAX's
-  `bert_forward` serves any width; on the card those widths raise.
+- Supported: 1 <= L <= 512 and, on the card, head widths up to 128;
+  anything else raises ValueError. The kernels take head widths in
+  {16, 32, 64, 128} (the registry's models have 32 and 64). The
+  wrappers choose a route by shape, before any launch (`route`): a
+  kernel width launches as it is; a width under 128 (8, 48, 96, ...) is
+  zero-padded to the next kernel width (`padded_width`), launched with
+  the divisor f32(sqrt(hd)) of the true width, and sliced back (zero
+  columns leave Q K^T and dP = dO V^T unchanged, and the padded columns
+  of O, dQ, dK and dV are zero); a width above 128, which no kernel
+  takes, is refused on the card (ValueError, no launch), while a CPU
+  tensor runs the plain version at any width, as JAX's `bert_forward`
+  serves any width (forward calls counted in `PLAIN_WIDTH_CALLS`).
 - A batch row whose mask is all zero (the padding rows of a power-of-two
   batch) gets the mean of V in every query row, as in JAX: -1e9 is added
   to every score, and at 1e9 the f32 ulp is 64, so all its scores round
@@ -43,8 +49,10 @@ and dV from those), both with their products on the tensor cores in
 `encoder_attention_backward_plain` is the vjp step by step. `EncoderAttention` is the autograd Function around both directions,
 which `BertEncoder` calls: under `inference_mode` only its forward runs.
 
-A CPU tensor runs the plain version. A CUDA tensor launches the kernel or
-raises; it never falls back.
+A CPU tensor runs the plain version. A CUDA tensor takes its route by
+shape before any launch (above): a kernel launch, which raises on
+failure and never falls back, or, for a head width above 128, a
+ValueError.
 """
 
 from __future__ import annotations
@@ -61,6 +69,11 @@ from .score_windows import _device_of, _raise_on
 MAX_LEN = 512
 HEAD_DIMS = (16, 32, 64, 128)
 MASKED = -1e9
+
+# Forward calls on CPU tensors whose head width no kernel takes, even
+# padded (above 128: refused on the card), run by encoder_attention_plain
+# in `encoder_attention`.
+PLAIN_WIDTH_CALLS = {"encoder_attention_plain": 0}
 
 # Kernel launches, counted only where the kernel is enqueued (never for
 # the plain version). Reset with reset_launch_counts.
@@ -276,29 +289,84 @@ def attention_work(B: int, L: int, n_heads: int, hd: int) -> tuple:
     return 4 * B * L * D * 4 + B * L * 4, 4 * B * n_heads * L * L * hd
 
 
+def padded_width(hd: int):
+    """The kernel width a head width runs at: hd itself in HEAD_DIMS, the
+    next one above it under 128, None above 128."""
+    return next((w for w in HEAD_DIMS if w >= hd), None)
+
+
+def route(hd: int) -> str:
+    """How the wrappers run a head width on the card: "kernel" (a kernel
+    width), "padded" (zero-padded to `padded_width`) or "refused" (above
+    128: ValueError before any launch)."""
+    w = padded_width(hd)
+    return "refused" if w is None else "kernel" if w == hd else "padded"
+
+
+def _refuse(hd: int) -> None:
+    raise ValueError(f"head width {hd} is above {HEAD_DIMS[-1]}, the "
+                     f"widest the attention kernels take on the card")
+
+
+def pad_heads(t: torch.Tensor, n_heads: int, hd: int,
+              width: int) -> torch.Tensor:
+    """(B, L, P * n_heads * hd) with each head's columns zero-padded to
+    `width`: (B, L, P * n_heads * width), contiguous (P = 3 for qkv, 1 for
+    ctx or dctx)."""
+    B, L, C = t.shape
+    parts = C // (n_heads * hd)
+    out = t.new_zeros((B, L, parts, n_heads, width))
+    out[..., :hd] = t.reshape(B, L, parts, n_heads, hd)
+    return out.reshape(B, L, parts * n_heads * width)
+
+
+def unpad_heads(t: torch.Tensor, n_heads: int, hd: int,
+                width: int) -> torch.Tensor:
+    """The inverse of `pad_heads`: each head's first hd columns."""
+    B, L, C = t.shape
+    parts = C // (n_heads * width)
+    return t.reshape(B, L, parts, n_heads, width)[..., :hd].reshape(
+        B, L, parts * n_heads * hd)
+
+
 def encoder_attention_plain(qkv: torch.Tensor, mask: torch.Tensor,
-                            n_heads: int) -> torch.Tensor:
+                            n_heads: int, div_hd=None) -> torch.Tensor:
     """Plain PyTorch version: the JAX code step by step, in qkv's dtype,
-    at any head width (`BertEncoder` sends it, on CPU tensors, the widths
-    the kernel refuses)."""
+    at any head width; the scores are divided by sqrt(div_hd) (the head
+    width when None; a padded call's check passes the true one)."""
     B, L, D, _ = plain_shapes(qkv, mask, n_heads)
-    _, _, v, att, _ = attention_probs(qkv, mask, n_heads)
+    _, _, v, att, _ = attention_probs(qkv, mask, n_heads, div_hd)
     return torch.einsum("bhqk,bkhd->bqhd", att, v).reshape(B, L, D)
 
 
 def encoder_attention(qkv: torch.Tensor, mask: torch.Tensor,
                       n_heads: int) -> torch.Tensor:
-    """ctx f32[B, L, D] of the attention; see the module doc."""
-    B, L, D, hd = check_shapes(qkv, mask, n_heads)
-    dev = _device_of((qkv, mask))
-    if dev.type == "cpu":
+    """ctx f32[B, L, D] of the attention; see the module doc. A CPU
+    tensor runs the plain version at any head width (above 128 counted in
+    PLAIN_WIDTH_CALLS). On the card the route is chosen by the head width
+    before any launch (`route`): the kernel, the kernel on zero-padded
+    heads, or, above 128, ValueError."""
+    B, L, D, hd = plain_shapes(qkv, mask, n_heads)
+    how = route(hd)
+    if _device_of((qkv, mask)).type == "cpu":
+        if how == "refused":
+            PLAIN_WIDTH_CALLS["encoder_attention_plain"] += 1
         return encoder_attention_plain(qkv, mask, n_heads)
+    if how == "refused":
+        _refuse(hd)
+    if how == "padded":
+        w = padded_width(hd)
+        ctx = launch(pad_heads(qkv, n_heads, hd, w), mask, n_heads,
+                     div_hd=hd)
+        return unpad_heads(ctx, n_heads, hd, w)
     return launch(qkv, mask, n_heads)
 
 
 def launch(qkv: torch.Tensor, mask: torch.Tensor, n_heads: int,
-           mode: int = 0) -> torch.Tensor:
-    """One launch of the kernel on CUDA tensors. mode 0 is the attention;
+           mode: int = 0, div_hd=None) -> torch.Tensor:
+    """One launch of the kernel on CUDA tensors of a kernel head width;
+    the scores are divided by f32(sqrt(div_hd)) (the head width when None;
+    a padded call passes its true width). mode 0 is the attention;
     1 (the bytes only: Q, K, V in, ctx out, no math), 2 (the math only:
     nothing read from device memory) and 3 (the mma.sync sequence only)
     are the bench's limit cases, whose output is no attention."""
@@ -322,7 +390,7 @@ def launch(qkv: torch.Tensor, mask: torch.Tensor, n_heads: int,
         err = lib.encoder_attention_launch(
             qkv.data_ptr(), mask.data_ptr(), ctx.data_ptr(), B, L, n_heads,
             hd, tiles.warps, tiles.key_tile, tiles.stages,
-            float(np.float32(np.sqrt(hd))), mode, stream)
+            float(np.float32(np.sqrt(div_hd or hd))), mode, stream)
     _raise_on(err, "encoder_attention")
     LAUNCHES["encoder_attention"] += 1
     return ctx
@@ -333,14 +401,16 @@ def launch(qkv: torch.Tensor, mask: torch.Tensor, n_heads: int,
 # ---------------------------------------------------------------------------
 
 def attention_probs(qkv: torch.Tensor, mask: torch.Tensor,
-                    n_heads: int) -> tuple:
+                    n_heads: int, div_hd=None) -> tuple:
     """(q, k, v as (B, L, H, hd) views, P f[B, H, L, L], the 0-d divisor)
-    of the plain version, in qkv's dtype: P = softmax(QK^T / div + neg)."""
+    of the plain version, in qkv's dtype: P = softmax(QK^T / div + neg),
+    div = sqrt(div_hd), the head width when None."""
     B, L, D, hd = plain_shapes(qkv, mask, n_heads)
     q, k, v = (t.reshape(B, L, n_heads, hd) for t in qkv.split(D, dim=-1))
     # a 0-d tensor divisor divides (a Python scalar would multiply by the
     # reciprocal on the card); f32(sqrt(hd)) as JAX rounds np.sqrt(hd)
-    div = torch.tensor(np.sqrt(hd), dtype=qkv.dtype, device=qkv.device)
+    div = torch.tensor(np.sqrt(div_hd or hd), dtype=qkv.dtype,
+                       device=qkv.device)
     att = torch.einsum("bqhd,bkhd->bhqk", q, k) / div
     zero = torch.zeros((), dtype=qkv.dtype, device=qkv.device)
     neg = torch.where(mask[:, None, None, :] > 0, zero, zero + MASKED)
@@ -367,41 +437,54 @@ def attention_backward_from_probs(q: torch.Tensor, k: torch.Tensor,
 
 
 def encoder_attention_backward_plain(qkv: torch.Tensor, mask: torch.Tensor,
-                                     dctx: torch.Tensor,
-                                     n_heads: int) -> torch.Tensor:
+                                     dctx: torch.Tensor, n_heads: int,
+                                     div_hd=None) -> torch.Tensor:
     """Plain PyTorch version of the gradient: the vjp of the JAX attention
     lines, step by step in qkv's dtype (f64 for the card's check), at any
-    head width: P recomputed, then `attention_backward_from_probs`."""
+    head width: P recomputed, then `attention_backward_from_probs`
+    (divisor sqrt(div_hd), the head width when None)."""
     B, L, D, _ = plain_shapes(qkv, mask, n_heads)
     if tuple(dctx.shape) != (B, L, D):
         raise ValueError(f"dctx must be ({B}, {L}, {D}), got "
                          f"{tuple(dctx.shape)}")
-    q, k, v, P, div = attention_probs(qkv, mask, n_heads)
+    q, k, v, P, div = attention_probs(qkv, mask, n_heads, div_hd)
     return attention_backward_from_probs(q, k, v, P, dctx.to(qkv.dtype), div)
 
 
 def encoder_attention_backward(qkv: torch.Tensor, mask: torch.Tensor,
                                dctx: torch.Tensor,
                                n_heads: int) -> torch.Tensor:
-    """dqkv f32[B, L, 3D] of the attention given dctx f32[B, L, D]; see
-    the module doc."""
-    B, L, D, hd = check_shapes(qkv, mask, n_heads)
+    """dqkv f32[B, L, 3D] of the attention given dctx f32[B, L, D], by
+    the forward's route (`route`): on the card the kernels, the kernels
+    on zero-padded heads (dctx padded, dqkv sliced), or above 128
+    ValueError; the plain version on CPU tensors. See the module doc."""
+    B, L, D, hd = plain_shapes(qkv, mask, n_heads)
     if tuple(dctx.shape) != (B, L, D):
         raise ValueError(f"dctx must be ({B}, {L}, {D}), got "
                          f"{tuple(dctx.shape)}")
-    dev = _device_of((qkv, mask, dctx))
-    if dev.type == "cpu":
+    how = route(hd)
+    if _device_of((qkv, mask, dctx)).type == "cpu":
         return encoder_attention_backward_plain(qkv, mask, dctx, n_heads)
+    if how == "refused":
+        _refuse(hd)
+    if how == "padded":
+        w = padded_width(hd)
+        dqkv = launch_backward(pad_heads(qkv, n_heads, hd, w), mask,
+                               pad_heads(dctx, n_heads, hd, w), n_heads,
+                               div_hd=hd)[0]
+        return unpad_heads(dqkv, n_heads, hd, w)
     return launch_backward(qkv, mask, dctx, n_heads)[0]
 
 
 def launch_backward(qkv: torch.Tensor, mask: torch.Tensor,
                     dctx: torch.Tensor, n_heads: int,
-                    parts=("dq", "dkv"), dqkv=None, stats=None) -> tuple:
-    """The backward kernels, in stream order, on CUDA tensors: (dqkv,
-    stats). The main path launches both parts; a bench times one: ("dq",)
-    fills dQ and the stats, ("dkv",) takes the `dqkv` and `stats` of an
-    earlier dq launch and fills dK and dV."""
+                    parts=("dq", "dkv"), dqkv=None, stats=None,
+                    div_hd=None) -> tuple:
+    """The backward kernels, in stream order, on CUDA tensors of a kernel
+    head width: (dqkv, stats); divisor f32(sqrt(div_hd)), the head width
+    when None. The main path launches both parts; a bench times one:
+    ("dq",) fills dQ and the stats, ("dkv",) takes the `dqkv` and `stats`
+    of an earlier dq launch and fills dK and dV."""
     B, L, D, hd = check_shapes(qkv, mask, n_heads)
     dev = _device_of((qkv, mask, dctx))
     if dev.type != "cuda":
@@ -428,7 +511,7 @@ def launch_backward(qkv: torch.Tensor, mask: torch.Tensor,
                             device=dev)
     if dqkv.shape != (B, L, 3 * D) or stats.shape != (B * n_heads * L, 4):
         raise ValueError("dqkv or stats of another call")
-    div = float(np.float32(np.sqrt(hd)))
+    div = float(np.float32(np.sqrt(div_hd or hd)))
     tiles = backward_tiles_for(B, n_heads, L, hd)
     dq, dkv = tiles["dq"], tiles["dkv"]
     with torch.cuda.device(dev):

@@ -14,7 +14,9 @@
 //   s_j = (q_i . k_j) / div + bias_j,  div = f32(sqrt(hd)), the correctly
 //         rounded quotient as JAX divides (see div_rn; at hd 16 and 64,
 //         div = 4 and 8 are powers of two and the product by 0.25 or
-//         0.125 is that quotient);
+//         0.125 is that quotient, the kExactDiv instances); a caller that
+//         zero-pads narrower heads to hd passes its true width's divisor,
+//         which takes div_rn at every hd;
 //         bias_j = 0 where mask[b, j] > 0, else -1e9 added (never
 //         skipped, never -inf)
 //   ctx_i = sum_j softmax(s)_j v_j
@@ -122,7 +124,7 @@ constexpr int min_blocks() {
   return HD == 128 ? 2 : 3;
 }
 
-template <int HD, int W, int KT>
+template <int HD, int W, int KT, bool kExactDiv>
 __global__ void __launch_bounds__(kThreads, min_blocks<HD>())
 encoder_attention_kernel(const float* __restrict__ qkv,     // [B, L, 3D]
                          const int32_t* __restrict__ mask,  // [B, L]
@@ -131,6 +133,7 @@ encoder_attention_kernel(const float* __restrict__ qkv,     // [B, L, 3D]
                          float div, int mode) {
   static_assert(HD % 16 == 0 && KT % 16 == 0, "whole fragments");
   static_assert(kWarps % W == 0, "whole (b, h) groups a block");
+  static_assert(!kExactDiv || HD == 16 || HD == 64, "a power-of-two div");
   using T = Tile<HD, KT>;
   constexpr int G = kWarps / W;          // (b, h) pairs a block
   constexpr int kRows = 16 * W;          // query rows of a (b, h) a block
@@ -158,10 +161,9 @@ encoder_attention_kernel(const float* __restrict__ qkv,     // [B, L, 3D]
   float* sv = sk + T::kSplitV;
   float* sbias = sk + T::kBias;
   const int n_tiles = (L + KT - 1) / KT;
-  // hd 16 and 64: div = 4 or 8, whose reciprocal is exact, so the
-  // product by it is the quotient; else RN(1 / div) for div_rn
-  constexpr bool kExactDiv = HD == 16 || HD == 64;
-  const float rdiv = HD == 16 ? 0.25f : HD == 64 ? 0.125f : __frcp_rn(div);
+  // kExactDiv (hd 16 and 64 at div = 4 or 8): the reciprocal is exact,
+  // so the product by it is the quotient; else RN(1 / div) for div_rn
+  const float rdiv = !kExactDiv ? __frcp_rn(div) : HD == 16 ? 0.25f : 0.125f;
   // hd <= 64 keeps Q split (hi and lo) in registers for the whole call; at
   // hd 128 that would take 128 registers a thread beside O's 64, so Q stays
   // raw there (in qh) and is split again at each use
@@ -434,7 +436,7 @@ encoder_attention_kernel(const float* __restrict__ qkv,     // [B, L, 3D]
   }
 }
 
-template <int HD, int W, int KT>
+template <int HD, int W, int KT, bool EXACT>
 int launch(const float* qkv, const int32_t* mask, float* ctx, int B, int L,
            int H, int stages, float div, int mode, cudaStream_t stream) {
   constexpr int G = kWarps / W;
@@ -450,29 +452,31 @@ int launch(const float* qkv, const int32_t* mask, float* ctx, int B, int L,
   if (!attr_set) {
     // W < 4 tiles cover L with one key tile, so they run one stage
     const cudaError_t err = cudaFuncSetAttribute(
-        encoder_attention_kernel<HD, W, KT>,
+        encoder_attention_kernel<HD, W, KT, EXACT>,
         cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)(G * Tile<HD, KT>::floats(W == 4 ? 2 : 1) * sizeof(float)));
     if (err != cudaSuccess) return (int)err;
     attr_set = true;
   }
-  encoder_attention_kernel<HD, W, KT><<<(unsigned)blocks, kThreads, smem,
-                                        stream>>>(
+  encoder_attention_kernel<HD, W, KT, EXACT><<<(unsigned)blocks, kThreads,
+                                               smem, stream>>>(
       qkv, mask, ctx, (int)BH, L, H, q_tiles, stages, div, mode);
   return (int)cudaGetLastError();
 }
 
-template <int HD, int KT_LONG>
+template <int HD, int KT_LONG, bool EXACT>
 int launch_hd(int W, int KT, const float* qkv, const int32_t* mask,
               float* ctx, int B, int L, int H, int stages, float div,
               int mode, cudaStream_t stream) {
   if (W == 1 && KT == 16)
-    return launch<HD, 1, 16>(qkv, mask, ctx, B, L, H, stages, div, mode, stream);
+    return launch<HD, 1, 16, EXACT>(qkv, mask, ctx, B, L, H, stages, div,
+                                    mode, stream);
   if (W == 2 && KT == 32)
-    return launch<HD, 2, 32>(qkv, mask, ctx, B, L, H, stages, div, mode, stream);
+    return launch<HD, 2, 32, EXACT>(qkv, mask, ctx, B, L, H, stages, div,
+                                    mode, stream);
   if (W == 4 && KT == KT_LONG)
-    return launch<HD, 4, KT_LONG>(qkv, mask, ctx, B, L, H, stages, div, mode,
-                                  stream);
+    return launch<HD, 4, KT_LONG, EXACT>(qkv, mask, ctx, B, L, H, stages,
+                                         div, mode, stream);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -482,7 +486,8 @@ int launch_hd(int W, int KT, const float* qkv, const int32_t* mask,
 // refused launch never runs, so the caller must check it. The caller
 // guarantees contiguous f32 qkv [B, L, 3 * H * hd] and ctx [B, L, H * hd],
 // both 16-byte aligned, int32 mask [B, L], 1 <= L, hd in {16, 32, 64, 128}
-// with div = f32(sqrt(hd)), the tiling (warps a (b, h) W, key tile KT) in
+// with div = f32(sqrt(hd)), or f32(sqrt(w)) for heads of a true width
+// w < hd zero-padded to hd (any positive finite div is taken), the tiling (warps a (b, h) W, key tile KT) in
 // {(1, 16), (2, 32), (4, 64 at hd 16 and 32, 32 at hd 64, 16 at hd 128)}
 // with 16 W >= L unless W = 4, and stages in {1, 2} (1 only when one key
 // tile covers L, so always 1 when W < 4).
@@ -496,25 +501,37 @@ extern "C" int encoder_attention_launch(const void* qkv, const void* mask,
                                         void* stream) {
   if (B <= 0 || L <= 0) return 0;
   if (L > 2147483647LL || B > 2147483647LL || stages < 1 || stages > 2 ||
-      mode < 0 || mode > 3 || (hd == 16 && div != 4.f) ||
-      (hd == 64 && div != 8.f) || (W < 4 && stages != 1)) {
+      mode < 0 || mode > 3 || !(div > 0.f && div < INFINITY) ||
+      (W < 4 && stages != 1)) {
     return (int)cudaErrorInvalidValue;
   }
   const float* q = (const float*)qkv;
   const int32_t* mk = (const int32_t*)mask;
   float* out = (float*)ctx;
   cudaStream_t st = (cudaStream_t)stream;
+  if (hd == 16 && div == 4.f)
+    return launch_hd<16, 64, true>((int)W, (int)KT, q, mk, out, (int)B,
+                                   (int)L, (int)H, (int)stages, div,
+                                   (int)mode, st);
   if (hd == 16)
-    return launch_hd<16, 64>((int)W, (int)KT, q, mk, out, (int)B, (int)L,
-                             (int)H, (int)stages, div, (int)mode, st);
+    return launch_hd<16, 64, false>((int)W, (int)KT, q, mk, out, (int)B,
+                                    (int)L, (int)H, (int)stages, div,
+                                    (int)mode, st);
   if (hd == 32)
-    return launch_hd<32, 64>((int)W, (int)KT, q, mk, out, (int)B, (int)L,
-                             (int)H, (int)stages, div, (int)mode, st);
+    return launch_hd<32, 64, false>((int)W, (int)KT, q, mk, out, (int)B,
+                                    (int)L, (int)H, (int)stages, div,
+                                    (int)mode, st);
+  if (hd == 64 && div == 8.f)
+    return launch_hd<64, 32, true>((int)W, (int)KT, q, mk, out, (int)B,
+                                   (int)L, (int)H, (int)stages, div,
+                                   (int)mode, st);
   if (hd == 64)
-    return launch_hd<64, 32>((int)W, (int)KT, q, mk, out, (int)B, (int)L,
-                             (int)H, (int)stages, div, (int)mode, st);
+    return launch_hd<64, 32, false>((int)W, (int)KT, q, mk, out, (int)B,
+                                    (int)L, (int)H, (int)stages, div,
+                                    (int)mode, st);
   if (hd == 128)
-    return launch_hd<128, 16>((int)W, (int)KT, q, mk, out, (int)B, (int)L,
-                              (int)H, (int)stages, div, (int)mode, st);
+    return launch_hd<128, 16, false>((int)W, (int)KT, q, mk, out, (int)B,
+                                     (int)L, (int)H, (int)stages, div,
+                                     (int)mode, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -242,12 +242,21 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(kAll, x, 2);
 }
 
-// x / div, the IEEE quotient, from r = RN(1 / div): at hd 16 and 64 div
-// is 4 or 8, whose reciprocal is exact, so the product by it is the
-// quotient; else div_rn
-template <int HD>
+// x / div, the IEEE quotient, from r = RN(1 / div): where div is 4 or 8
+// (hd 16 and 64 at their own width: the kExactDiv instances) the
+// reciprocal is exact, so the product by it is the quotient; else div_rn
+// (every other hd, and heads zero-padded to hd with their true width's
+// divisor)
+template <bool kExactDiv>
 __device__ __forceinline__ float by_div(float x, float div, float r) {
-  return (HD == 16 || HD == 64) ? x * r : div_rn(x, div, r);
+  return kExactDiv ? x * r : div_rn(x, div, r);
+}
+
+// the reciprocal of div by_div takes
+template <int HD, bool kExactDiv>
+__device__ __forceinline__ float recip_div(float div) {
+  static_assert(!kExactDiv || HD == 16 || HD == 64, "a power-of-two div");
+  return !kExactDiv ? __frcp_rn(div) : HD == 16 ? 0.25f : 0.125f;
 }
 
 // rows a warp holds in registers stay split up to hd 32
@@ -287,7 +296,7 @@ struct DkvTile {
   }
 };
 
-template <int HD, int W, int G, int T>
+template <int HD, int W, int G, int T, bool kExactDiv>
 __global__ void __launch_bounds__(32 * W * G, 2)
 attention_dq_kernel(const float* __restrict__ qkv,     // [B, L, 3D]
                     const int32_t* __restrict__ mask,  // [B, L]
@@ -321,7 +330,7 @@ attention_dq_kernel(const float* __restrict__ qkv,     // [B, L, 3D]
   float* raw = smem + grp * S::floats(stages);
   float* sp = raw + stages * S::kRaw;    // the split stage
   const int n_tiles = (L + T - 1) / T;
-  const float rdiv = HD == 16 ? 0.25f : HD == 64 ? 0.125f : __frcp_rn(div);
+  const float rdiv = recip_div<HD, kExactDiv>(div);
 
   auto load_tile = [&](int tile, int stage) {
     float* ks = raw + stage * S::kRaw;
@@ -418,7 +427,8 @@ attention_dq_kernel(const float* __restrict__ qkv,     // [B, L, 3D]
           *reinterpret_cast<const float2*>(sp + S::kBias + 8 * j + 2 * t);
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        sc[j][e] = by_div<HD>(sc[j][e], div, rdiv) + ((e & 1) ? bj.y : bj.x);
+        sc[j][e] = by_div<kExactDiv>(sc[j][e], div, rdiv) +
+                   ((e & 1) ? bj.y : bj.x);
       }
     }
 
@@ -462,7 +472,8 @@ attention_dq_kernel(const float* __restrict__ qkv,     // [B, L, 3D]
         const bool lo = e >= 2;
         const float p = div_rn(__expf(sc[j][e] - (lo ? m1 : m0)),
                                lo ? l1 : l0, lo ? rl1 : rl0);
-        ds[e] = by_div<HD>(p * (dp[j][e] - (lo ? dl1 : dl0)), div, rdiv);
+        ds[e] = by_div<kExactDiv>(p * (dp[j][e] - (lo ? dl1 : dl0)), div,
+                                  rdiv);
       }
       c_as_a(ds, sh[j], sl[j]);
     }
@@ -506,7 +517,7 @@ attention_dq_kernel(const float* __restrict__ qkv,     // [B, L, 3D]
 template <int HD>
 constexpr int kHalves = HD == 128 ? 2 : 1;
 
-template <int HD, int W, int G, int T>
+template <int HD, int W, int G, int T, bool kExactDiv>
 __global__ void __launch_bounds__(32 * W * G, 2)
 attention_dkv_kernel(const float* __restrict__ qkv,     // [B, L, 3D]
                      const int32_t* __restrict__ mask,  // [B, L]
@@ -542,7 +553,7 @@ attention_dkv_kernel(const float* __restrict__ qkv,     // [B, L, 3D]
   float* raw = smem + grp * S::floats(stages);
   float* sp = raw + stages * S::kRaw;
   const int n_tiles = (L + T - 1) / T;
-  const float rdiv = HD == 16 ? 0.25f : HD == 64 ? 0.125f : __frcp_rn(div);
+  const float rdiv = recip_div<HD, kExactDiv>(div);
 
   auto load_tile = [&](int tile, int stage) {
     float* qs = raw + stage * S::kRaw;
@@ -639,9 +650,10 @@ attention_dkv_kernel(const float* __restrict__ qkv,     // [B, L, 3D]
         for (int e = 0; e < 4; ++e) {
           const float4& q = (e & 1) ? qb : qa;
           const float s =
-              by_div<HD>(sc[j][e], div, rdiv) + (e >= 2 ? bias1 : bias0);
+              by_div<kExactDiv>(sc[j][e], div, rdiv) +
+              (e >= 2 ? bias1 : bias0);
           p[e] = div_rn(__expf(s - q.x), q.y, q.w);
-          ds[e] = by_div<HD>(p[e] * (dp[j][e] - q.z), div, rdiv);
+          ds[e] = by_div<kExactDiv>(p[e] * (dp[j][e] - q.z), div, rdiv);
         }
         uint32_t ph[4], pl[4], dh[4], dl[4];
         c_as_a(p, ph, pl);
@@ -699,7 +711,7 @@ int allow_smem(Kernel kernel, int64_t smem, int64_t& allowed) {
   return (int)err;
 }
 
-template <int HD, int W, int G, int T>
+template <int HD, int W, int G, int T, bool EXACT>
 int launch_dq(const float* qkv, const int32_t* mask, const float* dctx,
               float* dqkv, float4* stats, int64_t B, int64_t L, int64_t H,
               int stages, int64_t row_tiles, int64_t grid, int64_t smem,
@@ -708,16 +720,17 @@ int launch_dq(const float* qkv, const int32_t* mask, const float* dctx,
     return (int)cudaErrorInvalidValue;
   }
   static int64_t allowed = 0;   // one attribute call per larger size
-  const int err = allow_smem(attention_dq_kernel<HD, W, G, T>, smem, allowed);
+  const int err =
+      allow_smem(attention_dq_kernel<HD, W, G, T, EXACT>, smem, allowed);
   if (err != (int)cudaSuccess) return err;
-  attention_dq_kernel<HD, W, G, T><<<(unsigned)grid, 32 * W * G, smem,
-                                     stream>>>(
+  attention_dq_kernel<HD, W, G, T, EXACT><<<(unsigned)grid, 32 * W * G, smem,
+                                            stream>>>(
       qkv, mask, dctx, dqkv, stats, (int)(B * H), (int)L, (int)H,
       (int)row_tiles, stages, div);
   return (int)cudaGetLastError();
 }
 
-template <int HD, int W, int G, int T>
+template <int HD, int W, int G, int T, bool EXACT>
 int launch_dkv(const float* qkv, const int32_t* mask, const float* dctx,
                const float4* stats, float* dqkv, int64_t B, int64_t L,
                int64_t H, int stages, int64_t row_tiles, int64_t grid,
@@ -728,10 +741,10 @@ int launch_dkv(const float* qkv, const int32_t* mask, const float* dctx,
   }
   static int64_t allowed = 0;
   const int err =
-      allow_smem(attention_dkv_kernel<HD, W, G, T>, smem, allowed);
+      allow_smem(attention_dkv_kernel<HD, W, G, T, EXACT>, smem, allowed);
   if (err != (int)cudaSuccess) return err;
-  attention_dkv_kernel<HD, W, G, T><<<(unsigned)grid, 32 * W * G, smem,
-                                      stream>>>(
+  attention_dkv_kernel<HD, W, G, T, EXACT><<<(unsigned)grid, 32 * W * G,
+                                             smem, stream>>>(
       qkv, mask, dctx, stats, dqkv, (int)(B * H), (int)L, (int)H,
       (int)row_tiles, stages, div);
   return (int)cudaGetLastError();
@@ -744,8 +757,14 @@ bool valid(int64_t B, int64_t L, int64_t H, int64_t hd, float div,
          B * H <= 2147483647LL && row_tiles >= 1 && grid >= 1 &&
          grid <= 2147483647LL &&
          (hd == 16 || hd == 32 || hd == 64 || hd == 128) &&
-         div == (float)sqrt((double)hd) && (W == 4 || 16 * W >= L) &&
+         div > 0.f && div < INFINITY && (W == 4 || 16 * W >= L) &&
          (stages == 2 || (stages == 1 && T >= L));
+}
+
+// hd 16 and 64 at their own width's divisor (4, 8): the kExactDiv
+// instances
+bool exact_div(int64_t hd, float div) {
+  return (hd == 16 && div == 4.f) || (hd == 64 && div == 8.f);
 }
 
 }  // namespace
@@ -755,22 +774,32 @@ bool valid(int64_t B, int64_t L, int64_t H, int64_t hd, float div,
 // holds the tiling to this list.
 #define DQ_INSTANCE(HD_, W_, G_, T_)                                       \
   if (hd == HD_ && W == W_ && G == G_ && T == T_)                          \
-    return launch_dq<HD_, W_, G_, T_>(q, mk, g, out, st, B, L, H,          \
-                                      (int)stages, row_tiles, grid, smem,  \
-                                      div, s);
+    return exact_div(hd, div)                                              \
+        ? launch_dq<HD_, W_, G_, T_, HD_ == 16 || HD_ == 64>(              \
+              q, mk, g, out, st, B, L, H, (int)stages, row_tiles, grid,    \
+              smem, div, s)                                                \
+        : launch_dq<HD_, W_, G_, T_, false>(q, mk, g, out, st, B, L, H,    \
+                                            (int)stages, row_tiles, grid,  \
+                                            smem, div, s);
 #define DKV_INSTANCE(HD_, W_, G_, T_)                                      \
   if (hd == HD_ && W == W_ && G == G_ && T == T_)                          \
-    return launch_dkv<HD_, W_, G_, T_>(q, mk, g, st, out, B, L, H,         \
-                                       (int)stages, row_tiles, grid, smem, \
-                                       div, s);
+    return exact_div(hd, div)                                              \
+        ? launch_dkv<HD_, W_, G_, T_, HD_ == 16 || HD_ == 64>(             \
+              q, mk, g, st, out, B, L, H, (int)stages, row_tiles, grid,    \
+              smem, div, s)                                                \
+        : launch_dkv<HD_, W_, G_, T_, false>(q, mk, g, st, out, B, L, H,   \
+                                             (int)stages, row_tiles, grid, \
+                                             smem, div, s);
 
 // Both enqueue on `stream` and return cudaGetLastError() (0 on success);
 // a refused launch never runs, so the caller must check it. The caller
 // guarantees contiguous f32 qkv and dqkv [B, L, 3 * H * hd] and dctx
 // [B, L, H * hd], all 16-byte aligned, int32 mask [B, L], f32 stats
 // [B * H * L * 4] 16-byte aligned, 1 <= L <= 512, hd in {16, 32, 64, 128},
-// div = f32(sqrt(hd)), and the tiling (W, G, T, stages, row_tiles, grid,
-// smem) of ops/attention.backward_tiles_for: an instance of the lists
+// div = f32(sqrt(hd)), or f32(sqrt(w)) for heads of a true width w < hd
+// zero-padded to hd (any positive finite div is taken), and the tiling
+// (W, G, T, stages, row_tiles, grid, smem) of
+// ops/attention.backward_tiles_for: an instance of the lists
 // below, 16 W >= L unless W = 4, stages 1 only where one tile covers L,
 // row_tiles * 16 W >= L, grid = ceil(B H / G) row_tiles, and smem the
 // instance's layout for `stages` (refused otherwise). dq writes

@@ -111,7 +111,7 @@ def build_orama(
         register_torch_backend,
     )
 
-    embeddings = EmbeddingsService(config.ai.embeddings_model)
+    embeddings = EmbeddingsService(config.ai.embeddings_model, device=device)
     # bundled in-image trained checkpoints: SemanticBase and SemanticMini
     # bind lazily (any collection can select `embedding_model:
     # SemanticBase` out of the box); explicit config paths bind after

@@ -13,9 +13,10 @@ handlers, statuses and bodies, served by the port's own HTTP/1.1 layer
 on asyncio streams (`transport.py`, which gives the handlers aiohttp's
 names) in place of `aiohttp.web`. `python -m oramacore_tpu_torch.server
 --config <yaml>` runs it on the card (`--device cpu` for tests; without
-a card the default exits non-zero). No AI service is ported yet, so
-`main()` builds none and the AI routes answer 503, as the JAX server
-does without one.
+a card the default exits non-zero). `main()` builds the AI service
+(`ai/service.AIService`: answers, chat, MCP, tools, system prompts,
+training sets) as the JAX server's does; an `ApiServer` made without one
+answers the AI routes 503, as the JAX server does.
 """
 
 from __future__ import annotations
@@ -597,7 +598,7 @@ class ApiServer:
                         )
                     except asyncio.TimeoutError:
                         await resp.write(b": keepalive\n\n")
-            except (ConnectionResetError, asyncio.CancelledError):
+            except (ConnectionError, asyncio.CancelledError):
                 pass
             finally:
                 self.ai.hooks_runtime.unsubscribe_logs(
@@ -933,7 +934,17 @@ def main(argv=None) -> int:
         print(f"oramacore_tpu_torch.server: {e}", file=sys.stderr)
         return 1
     orama.start_maintenance()
-    server = ApiServer(config, orama.write_side, orama.read_side)
+    # the JAX server drops a failure here silently; the port prints it,
+    # so that a broken AI module shows, and serves without AI as JAX does
+    ai_service = None
+    try:
+        from ..ai.service import AIService
+
+        ai_service = AIService(config, orama.write_side, orama.read_side)
+    except Exception as e:  # noqa: BLE001 — AI optional
+        print(f"oramacore_tpu_torch.server: no AI service: "
+              f"{type(e).__name__}: {e}", file=sys.stderr)
+    server = ApiServer(config, orama.write_side, orama.read_side, ai_service)
 
     async def run():
         await server.start()

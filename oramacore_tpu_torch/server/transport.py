@@ -299,6 +299,7 @@ class Site:
         self.app = app
         self._server: Optional[asyncio.base_events.Server] = None
         self._conns: set = set()
+        self._tasks: set = set()   # the connections' handler tasks
         self.port = None
 
     async def start(self, host: str, port: int) -> "Site":
@@ -309,11 +310,18 @@ class Site:
         return self
 
     async def close(self) -> None:
+        """Stop listening, close every connection and cancel and await its
+        handler (a stream that waits for events, as the hook-log SSE
+        does, would otherwise stay pending on the loop)."""
         if self._server is None:
             return
         self._server.close()
         for w in list(self._conns):
             w.close()
+        tasks = [t for t in self._tasks if t is not asyncio.current_task()]
+        for t in tasks:
+            t.cancel()
+        await asyncio.gather(*tasks, return_exceptions=True)
         await self._server.wait_closed()
         self._server = None
 
@@ -333,6 +341,7 @@ class Site:
     async def _serve_conn(self, reader: asyncio.StreamReader,
                           writer: asyncio.StreamWriter):
         self._conns.add(writer)
+        self._tasks.add(asyncio.current_task())
         try:
             while True:
                 try:
@@ -402,6 +411,7 @@ class Site:
             pass
         finally:
             self._conns.discard(writer)
+            self._tasks.discard(asyncio.current_task())
             try:
                 writer.close()
             except Exception:  # noqa: BLE001

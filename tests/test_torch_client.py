@@ -4,9 +4,11 @@ socket, on the CPU.
 
 - `tests/test_client_sdk.py`'s body with the port's client;
 - `tests/test_hurl_http.py`'s parser and runner units with the port's
-  runner, then `tests/hurl/api-test.hurl`, `search-paths.hurl` and
-  `kv-actions-test.hurl` up to its first `system_prompts` entry (the rest
-  needs the AI service, which is not ported yet: ROADMAP.md §1).
+  runner, then `tests/hurl/api-test.hurl`, `search-paths.hurl`, and
+  `kv-actions-test.hurl` twice: up to its first `system_prompts` entry on
+  a server without an AI service, and whole on one with the port's
+  `AIService` (no LLM configured, as `tests/test_hurl_http.py` serves it
+  on the JAX side).
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import pytest
 from oramacore_tpu_torch import client as port_client
 from oramacore_tpu_torch import config as port_config
 from oramacore_tpu_torch import server as port_server
+from oramacore_tpu_torch.ai.service import AIService
 from oramacore_tpu_torch.utils import hurl as port_hurl
 
 from . import test_client_sdk as sdk_suite
@@ -34,7 +37,7 @@ class LiveServer:
     """The port's ApiServer with a CPU engine on 127.0.0.1, served from an
     event loop on its own thread."""
 
-    def __init__(self, data_dir, master=MASTER):
+    def __init__(self, data_dir, master=MASTER, ai=False):
         cfg = port_config.OramacoreConfig()
         cfg.data_dir = str(data_dir)
         cfg.auth.master_api_key = master
@@ -43,8 +46,10 @@ class LiveServer:
         cfg.reader_side.insert_batch_commit_size = 10_000_000
         self.orama = cpu_build_orama(cfg, sync_embeddings=True,
                                      start_consumer=True)
+        ai_service = AIService(cfg, self.orama.write_side,
+                               self.orama.read_side) if ai else None
         self.server = port_server.ApiServer(cfg, self.orama.write_side,
-                                            self.orama.read_side)
+                                            self.orama.read_side, ai_service)
         self.loop = asyncio.new_event_loop()
         self.thread = threading.Thread(target=self.loop.run_forever,
                                        daemon=True)
@@ -132,3 +137,24 @@ def test_hurl_kv_actions_up_to_the_ai_routes_on_port(hurl_server):
     assert len(entries) > 10 and not any("system_prompts" in e.url
                                          for e in entries)
     port_hurl.run_hurl(text, {"base_url": hurl_server, "master_key": MASTER})
+
+
+@pytest.fixture(scope="module")
+def hurl_ai_server(tmp_path_factory):
+    srv = LiveServer(tmp_path_factory.mktemp("hurl-ai"), ai=True)
+    yield srv.url
+    srv.close()
+
+
+def test_hurl_kv_actions_whole_on_port(hurl_ai_server):
+    """kv-actions-test.hurl to its end: values, hooks, pin rules, shelves,
+    system prompts, tools and actions."""
+    with open(os.path.join(HURL_DIR, "kv-actions-test.hurl")) as fh:
+        entries = port_hurl.parse_hurl(fh.read())
+    assert any("/system_prompts/" in e.url for e in entries)
+    assert any("/tools/" in e.url for e in entries)
+    out = port_hurl.run_hurl_file(os.path.join(HURL_DIR,
+                                               "kv-actions-test.hurl"),
+                                  {"base_url": hurl_ai_server,
+                                   "master_key": MASTER})
+    assert out["base_url"] == hurl_ai_server

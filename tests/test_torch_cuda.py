@@ -1128,9 +1128,11 @@ def _bert_state(rng, D, n_layers, V=50):
 
 def test_encoder_refuses_other_head_widths_on_the_card(cuda):
     """A BertEncoder of head width 16 runs on the card through the
-    attention kernel (once a layer) and equals its CPU run; a head width
-    the kernel does not take (8) runs on the CPU through the plain
-    attention (counted) and on the card raises, with no launch."""
+    attention kernel (once a layer) and equals its CPU run; head width 8,
+    which the kernel does not take, runs on the card through the kernel
+    on heads zero-padded to 16 (once a layer) and equals its CPU run (the
+    plain attention); head width 160, above every kernel width, is
+    refused on the card before any launch (ValueError)."""
     from oramacore_tpu_torch.embeddings import encoder as enc
     from oramacore_tpu_torch.ops import attention as at
 
@@ -1140,25 +1142,72 @@ def test_encoder_refuses_other_head_widths_on_the_card(cuda):
     ids = torch.from_numpy(rng.integers(0, 50, (4, 16)))
     mask = (torch.arange(16)[None, :] < torch.tensor([[16], [9], [1], [0]])
             ).to(torch.int32)
-    with torch.inference_mode():
-        want = enc.BertEncoder.from_state(state, 4)(ids, mask)
-        launches = at.LAUNCHES["encoder_attention"]
-        got = enc.BertEncoder.from_state(state, 4).to(cuda)(ids.to(cuda),
-                                                            mask.to(cuda))
-        torch.cuda.synchronize()
-    assert at.LAUNCHES["encoder_attention"] == launches + n_layers
-    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-5)
-    plain = enc.PLAIN_WIDTH_CALLS["encoder_attention_plain"]
-    with torch.inference_mode():
-        want8 = enc.BertEncoder.from_state(state, 8)(ids, mask)
-    assert torch.isfinite(want8).all()
-    assert enc.PLAIN_WIDTH_CALLS["encoder_attention_plain"] == plain + n_layers
-    model = enc.BertEncoder.from_state(state, 8).to(cuda)
-    launches = at.LAUNCHES["encoder_attention"]
-    with torch.inference_mode(), pytest.raises(ValueError, match="head width"):
-        model(ids.to(cuda), mask.to(cuda))
-    assert at.LAUNCHES["encoder_attention"] == launches
-    assert enc.PLAIN_WIDTH_CALLS["encoder_attention_plain"] == plain + n_layers
+    plain = at.PLAIN_WIDTH_CALLS["encoder_attention_plain"]
+    for H in (4, 8):
+        with torch.inference_mode():
+            want = enc.BertEncoder.from_state(state, H)(ids, mask)
+            launches = at.LAUNCHES["encoder_attention"]
+            got = enc.BertEncoder.from_state(state, H).to(cuda)(
+                ids.to(cuda), mask.to(cuda))
+            torch.cuda.synchronize()
+        assert at.LAUNCHES["encoder_attention"] == launches + n_layers
+        assert torch.isfinite(got).all()
+        torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-5)
+    assert at.PLAIN_WIDTH_CALLS["encoder_attention_plain"] == plain
+    wide = enc.BertEncoder.from_state(_bert_state(rng, 320, 1), 2).to(cuda)
+    launches = dict(at.LAUNCHES)
+    with torch.inference_mode(), pytest.raises(ValueError,
+                                               match="head width 160"):
+        wide(ids.to(cuda), mask.to(cuda))
+    assert at.LAUNCHES == launches
+    assert at.PLAIN_WIDTH_CALLS["encoder_attention_plain"] == plain
+
+
+@pytest.mark.parametrize("hd", [8, 48, 96])
+def test_encoder_attention_padded_head_widths(cuda, hd):
+    """Head widths under 128 that the kernels do not take: zero-padded to
+    the next kernel width (16, 64, 128), launched with the true width's
+    divisor and sliced; forward within 1e-5 of the f64 reference, the
+    backward kernels within 5e-5 (BWD_TOL) of theirs, one launch each."""
+    from oramacore_tpu_torch.benches import train_bench as tb
+    from oramacore_tpu_torch.benches.encoder_bench import attention_reference
+    from oramacore_tpu_torch.ops import attention as at
+
+    case = dict(B=16, L=70, H=4, hd=hd, padded=2)
+    qkv, mask, dctx = tb.backward_inputs(case, 90 + hd, cuda)
+    before = dict(at.LAUNCHES)
+    plain = at.PLAIN_WIDTH_CALLS["encoder_attention_plain"]
+    got = at.encoder_attention(qkv, mask, 4)
+    dqkv = at.encoder_attention_backward(qkv, mask, dctx, 4)
+    torch.cuda.synchronize()
+    assert {k: at.LAUNCHES[k] - before[k] for k in before} == {
+        "encoder_attention": 1, "encoder_attention_backward_dq": 1,
+        "encoder_attention_backward_dkv": 1}
+    assert at.PLAIN_WIDTH_CALLS["encoder_attention_plain"] == plain
+    assert got.shape == (16, 70, 4 * hd) and dqkv.shape == qkv.shape
+    torch.testing.assert_close(got.double(), attention_reference(qkv, mask, 4),
+                               rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(dqkv.double(),
+                               tb.backward_reference(qkv, mask, dctx, 4),
+                               rtol=tb.BWD_TOL, atol=tb.BWD_TOL)
+
+
+def test_encoder_attention_above_128_is_refused_on_the_card(cuda):
+    """Head width 160: refused (ValueError) before any launch, forward and
+    backward; nothing runs the plain version on the card."""
+    from oramacore_tpu_torch.benches import train_bench as tb
+    from oramacore_tpu_torch.ops import attention as at
+
+    case = dict(B=4, L=33, H=2, hd=160, padded=1)
+    qkv, mask, dctx = tb.backward_inputs(case, 160, cuda)
+    before = dict(at.LAUNCHES)
+    plain = at.PLAIN_WIDTH_CALLS["encoder_attention_plain"]
+    with pytest.raises(ValueError, match="head width 160"):
+        at.encoder_attention(qkv, mask, 2)
+    with pytest.raises(ValueError, match="head width 160"):
+        at.encoder_attention_backward(qkv, mask, dctx, 2)
+    assert at.LAUNCHES == before
+    assert at.PLAIN_WIDTH_CALLS["encoder_attention_plain"] == plain
 
 
 def test_encoder_attention_refuses_what_it_cannot_run(cuda):
@@ -1170,8 +1219,8 @@ def test_encoder_attention_refuses_what_it_cannot_run(cuda):
         at.encoder_attention(qkv.double(), mask, 8)
     with pytest.raises(TypeError):
         at.encoder_attention(qkv, mask.long(), 8)
-    with pytest.raises(ValueError):
-        at.encoder_attention(qkv, mask, 32)          # hd 8
+    # hd 8 is no longer refused: the kernel runs on padded heads
+    assert at.encoder_attention(qkv, mask, 32).shape == (2, 16, 256)
     with pytest.raises(ValueError):
         at.encoder_attention(qkv[:, :, 1:-2], mask, 8)
     with pytest.raises(ValueError):
@@ -1266,8 +1315,9 @@ def test_encoder_attention_backward_refuses_what_it_cannot_run(cuda):
     dctx = torch.zeros((2, 16, 256), device=cuda)
     with pytest.raises(TypeError):
         at.encoder_attention_backward(qkv, mask, dctx.double(), 8)
-    with pytest.raises(ValueError):
-        at.encoder_attention_backward(qkv, mask, dctx, 32)     # hd 8
+    # hd 8 is no longer refused: the kernels run on padded heads
+    assert at.encoder_attention_backward(qkv, mask, dctx, 32).shape == \
+        qkv.shape
     with pytest.raises(ValueError):
         at.encoder_attention_backward(qkv, mask, dctx.transpose(0, 1)
                                       .contiguous().transpose(0, 1), 8)

@@ -126,20 +126,24 @@ def test_attention_plain_matches_jax(hd, L):
     ((16, 3 * 256), (16,), 8),           # not batched
 ])
 def test_attention_refuses_unsupported_shapes(shape, mask_shape, H):
-    """The kernel's wrapper refuses every case on every device; its plain
-    version takes head widths outside HEAD_DIMS (BertEncoder sends them
-    there) and refuses the rest."""
+    """The wrapper and its plain version refuse every malformed case on
+    every device; head widths outside HEAD_DIMS (8, 96) are no longer
+    refused: the wrapper takes them (zero-padded to a kernel width on the
+    card) and equals its plain version on the CPU."""
     qkv = torch.zeros(shape)
     mask = torch.ones(mask_shape, dtype=torch.int32)
-    with pytest.raises(ValueError):
-        at.encoder_attention(qkv, mask, H)
     D = shape[-1] // 3
     if len(shape) == 3 and shape[-1] % 3 == 0 and D % H == 0 \
             and D // H not in at.HEAD_DIMS and 1 <= shape[1] <= at.MAX_LEN \
             and mask_shape == shape[:2]:
-        assert at.encoder_attention_plain(qkv, mask, H).shape == (
-            *shape[:2], D)
+        assert at.route(D // H) == "padded"
+        want = at.encoder_attention_plain(qkv, mask, H)
+        assert want.shape == (*shape[:2], D)
+        torch.testing.assert_close(at.encoder_attention(qkv, mask, H), want,
+                                   rtol=0, atol=0)
     else:
+        with pytest.raises(ValueError):
+            at.encoder_attention(qkv, mask, H)
         with pytest.raises(ValueError):
             at.encoder_attention_plain(qkv, mask, H)
 
@@ -234,13 +238,14 @@ def _seeded_params(rng, vocab, D, F_, n_layers, max_pos=64):
 
 @pytest.mark.parametrize("D,H,n_layers", [(128, 4, 2), (128, 2, 1),
                                           (64, 2, 2), (64, 4, 2), (256, 2, 1),
-                                          (64, 8, 1), (192, 2, 1)])
+                                          (64, 8, 1), (192, 2, 1),
+                                          (320, 2, 1)])
 def test_forward_matches_bert_forward(D, H, n_layers):
     """Seeded numpy weights through params_from_jax against bert_forward,
     with padded tokens and a batch row with no token, at head widths 32,
-    64, 16 and 128 (the kernel's) and 8 and 96, which the kernel does not
-    take and which go to the plain attention, once a layer, on CPU
-    tensors."""
+    64, 16 and 128 (the kernel's), 8 and 96 (which the card runs
+    zero-padded) and 160 (above 128, which the card refuses: the plain
+    attention, counted once a layer in PLAIN_WIDTH_CALLS)."""
     rng = np.random.default_rng(D + H + n_layers)
     params = _seeded_params(rng, 50, D, 2 * D, n_layers)
     B, L = 4, 16
@@ -250,12 +255,12 @@ def test_forward_matches_bert_forward(D, H, n_layers):
     want = np.asarray(jax.jit(bert_forward, static_argnames="n_heads")(
         jax.tree_util.tree_map(jnp.asarray, params), ids, mask, n_heads=H))
     model = tenc.BertEncoder.from_state(tenc.params_from_jax(params), H)
-    before = tenc.PLAIN_WIDTH_CALLS["encoder_attention_plain"]
+    before = at.PLAIN_WIDTH_CALLS["encoder_attention_plain"]
     with torch.inference_mode():
         got = model(torch.from_numpy(ids).long(),
                     torch.from_numpy(mask)).numpy()
-    plain = D // H not in at.HEAD_DIMS
-    assert tenc.PLAIN_WIDTH_CALLS["encoder_attention_plain"] - before == \
+    plain = at.route(D // H) == "refused"
+    assert at.PLAIN_WIDTH_CALLS["encoder_attention_plain"] - before == \
         (n_layers if plain else 0)
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
     assert np.all(np.abs(np.linalg.norm(got[:3], axis=1) - 1) < 1e-5)
@@ -384,13 +389,13 @@ def test_service_embeds_through_the_bundled_checkpoints(registries, encoders):
 def test_register_torch_backend(registries, tmp_path):
     assert tenc.register_torch_backend(MODELS["SemanticMini"], "SemanticMini",
                                        device="cpu")
-    assert "flax:SemanticMini" in temb._BACKENDS
+    assert ("flax:SemanticMini", "cpu") in temb._BACKENDS
     assert tenc.register_torch_backend(MODELS["SemanticMini"], device="cpu")
-    assert "flax" in temb._BACKENDS
+    assert ("flax", "cpu") in temb._BACKENDS
     # a directory without the checkpoint's files: False, hash stays
     assert not tenc.register_torch_backend(str(tmp_path / "absent"),
                                            "BGESmall", device="cpu")
-    assert "flax:BGESmall" not in temb._BACKENDS
+    assert not any(n == "flax:BGESmall" for n, _ in temb._BACKENDS)
 
 
 def test_lazy_binding_falls_back_to_hash_only_for_missing_files(

@@ -333,6 +333,35 @@ def test_server_auth_hooks_and_client_import_nothing_banned():
     assert "SERVER_IMPORTS_OK" in proc.stdout
 
 
+_AI_IMPORTS = textwrap.dedent("""
+    import sys
+    import oramacore_tpu_torch.ai.service
+    import oramacore_tpu_torch.ai.answer
+    import oramacore_tpu_torch.ai.llms
+    import oramacore_tpu_torch.ai.accelerator
+    import oramacore_tpu_torch.benches.llm_mock
+    banned = ("jax", "oramacore_tpu", "aiohttp", "yaml", "cryptography",
+              "msgpack")
+    leaked = sorted(m for m in sys.modules if m.split(".")[0] in banned)
+    assert not leaked, leaked
+    print("AI_IMPORTS_OK")
+""")
+
+
+def test_ai_service_and_llm_mock_import_nothing_banned():
+    """The AI service, the answer machine, the LLM client and the LLM
+    mock leave no jax, JAX package, aiohttp, yaml, cryptography or
+    msgpack module in a fresh interpreter."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    proc = subprocess.run(
+        [sys.executable, "-c", _AI_IMPORTS], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "AI_IMPORTS_OK" in proc.stdout
+
+
 def test_server_main_without_a_card_exits_non_zero():
     """`python -m oramacore_tpu_torch.server` defaults to the card and has
     no CPU fallback: without one it exits non-zero, naming CUDA."""

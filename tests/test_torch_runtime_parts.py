@@ -380,3 +380,76 @@ def test_commit_while_inserts_land(tmp_path):
     on_disk = read_packed(ws._doc_map_path("c", "i"), default=None)
     assert len(on_disk) == 10_000
     o.stop()
+
+
+def test_a_runtime_keeps_its_devices_encoders(tmp_path):
+    """`build_orama` binds the bundled encoders for its device. A second
+    runtime built in the same process for another device (as a CPU
+    reference runtime beside the card's) binds the same names for the
+    CPU, but the first runtime's service keeps the backend bound to its
+    own device: its query embeddings stay where it runs."""
+    from oramacore_tpu_torch import embeddings as temb
+
+    saved = dict(temb._BACKENDS)
+    try:
+        calls = []
+
+        def on_the_card(texts, info):
+            calls.append(len(texts))
+            return [np.zeros(info.dim, np.float32) for _ in texts]
+
+        temb.register_backend("flax:SemanticBase", on_the_card,
+                              device=torch.device("cuda"))
+        card_side = temb.EmbeddingsService(device=torch.device("cuda"))
+        cpu = build_orama(_cfg(tmp_path), device="cpu",
+                          start_consumer=False)
+        try:
+            assert cpu.read_side.embeddings.device == "cpu"
+            on_cpu = temb._BACKENDS[("flax:SemanticBase", "cpu")]
+            assert on_cpu is not on_the_card
+            assert cpu.read_side.embeddings._backend(
+                "flax:SemanticBase") is on_cpu
+            card_side.calculate_embeddings(["a query"], temb.Intent.QUERY,
+                                           "SemanticBase")
+            assert calls == [1]
+            # a service of no device takes the last binding, as before
+            assert temb.EmbeddingsService()._backend(
+                "flax:SemanticBase") is on_cpu
+        finally:
+            cpu.stop()
+    finally:
+        temb._BACKENDS.clear()
+        temb._BACKENDS.update(saved)
+
+
+def test_a_card_service_never_takes_another_devices_binding(tmp_path):
+    """A CPU runtime binds a name (SemanticMini) that the card's runtime
+    never bound: the card's service does not take the CPU-bound encoder
+    for it. It takes only bindings of its own device or of none, so the
+    name falls through to the hash backend, as an unbound name does."""
+    from oramacore_tpu_torch import embeddings as temb
+
+    saved = dict(temb._BACKENDS)
+    try:
+        for key in [k for k in temb._BACKENDS if k[0].startswith("flax")]:
+            del temb._BACKENDS[key]
+        card_side = temb.EmbeddingsService(device=torch.device("cuda"))
+        cpu = build_orama(_cfg(tmp_path), device="cpu",
+                          start_consumer=False)
+        try:
+            assert ("flax:SemanticMini", "cpu") in temb._BACKENDS
+            assert card_side._backend("flax:SemanticMini") is None
+            assert card_side._backend("flax") is None
+            assert card_side._backend("hash") is temb._hash_backend
+            used = []
+            real = temb._BACKENDS[("hash", None)]
+            temb._BACKENDS[("hash", None)] = lambda texts, info: (
+                used.append(info.name) or real(texts, info))
+            out = card_side.calculate_embeddings(
+                ["a query"], temb.Intent.QUERY, "SemanticMini")
+            assert used == ["SemanticMini"] and len(out[0]) == 1
+        finally:
+            cpu.stop()
+    finally:
+        temb._BACKENDS.clear()
+        temb._BACKENDS.update(saved)
