@@ -70,7 +70,7 @@ launch counts set to 0 just before it and read just after:
   (`HybridSearchTopK.search_topk_hybrid` over a `StringIndex` of the same
   passages, indexed through the text parser's packed tokens) with
   embedded query texts;
-- the ingest text pipeline on 8,192 seeded JSON documents of the
+- the ingest text pipeline on 4,096 seeded JSON documents of the
   reference's games-bench shape (`oramacore_tpu_torch/benches/
   ingest_bench.py`): the native tokenizer, live accumulator and hash
   encoder against their Python routes on all of them (timed, held
@@ -86,8 +86,9 @@ launch counts set to 0 just before it and read just after:
   (timed beside the backward of `scaled_dot_product_attention`), then
   SemanticBase (4 layers, width 256, 8 heads of 32) trained through
   `oramacore_tpu_torch/train/semantic_encoder.py` at the defaults of
-  `scripts/train_semantic_encoder_v2.py` (1,500 steps of 64 pairs of 16
-  tokens, seed 0), the run's first steps held card against CPU, and the
+  `scripts/train_semantic_encoder_v2.py` (64 pairs of 16 tokens, seed 0;
+  500 of its 1,500 steps), the run's first steps held card against CPU,
+  and the
   trained checkpoint saved under `build/trained/`, loaded through
   `load_torch_encoder`, checked (probes, synonyms, phrases) and searched
   with;
@@ -117,7 +118,7 @@ launch counts set to 0 just before it and read just after:
   oramacore_tpu_torch.server` as three processes: on
   `config.example.yaml`, and as a writer and a reader node (YAML configs
   written under `build/server_nodes/`, the tcp-stream op log, the reader
-  on the card) with 8,192 documents sent to the writer over HTTP, the
+  on the card) with 4,096 documents sent to the writer over HTTP, the
   reader held to an in-process CPU runtime fed the same documents,
   killed with SIGKILL, restarted and caught up, and every node stopped
   with SIGTERM (exit 0);
@@ -132,7 +133,17 @@ launch counts set to 0 just before it and read just after:
   queries (constraints injected on price and genre), OpenAI chat,
   MCP searches held to `/search`, suggestions, titles, tools, system
   prompts, training sets, a BeforeAnswer hook seen on the hook-log SSE,
-  mode "auto" searches and the repo's `tests/hurl/kv-actions-test.hurl`.
+  mode "auto" searches and the repo's `tests/hurl/kv-actions-test.hurl`;
+- the doc-sharded mesh (`parallel/`), through the entry point a user
+  calls: a `ReadSide` with `reader_side.sharded_shards = 4` and
+  `mesh_devices=[cuda:0] * 4` (four shards on the one card) loaded from
+  the runtime's data dir, its own string indexes, vectors and int8 IVF
+  layout held equal to the runtime's, every dense, pruned and
+  int8-hybrid case and B=256 batches held to the runtime's single-device
+  read side, each kernel launched once a shard on each case (the query
+  encoder once a search); and the head widths 160, 256 and 320,
+  above the tensor-core attention kernels', through their f32
+  instances forward and backward (phase 14).
 
 Each `torch.profiler` reading is held to the wrappers' launch counts of
 the same call (`profile_once`): a profile that misses a launch gives no
@@ -158,6 +169,7 @@ import json
 import os
 import sys
 import time
+import warnings
 
 import numpy as np
 
@@ -196,7 +208,8 @@ N_HYBRID_CHECKED = 4
 NEG_INF = -1e30
 
 # phase 12: the pruned tier (benches/hybrid10m_bench.py's text side)
-PRUNED_STEADY = 3     # distinct steady batches after the checked one
+PRUNED_STEADY = 1     # distinct steady batches after the checked one
+                      # (3 until phase 20, cut for time)
 N_PRUNED_CHECKED = 4  # queries of each route held against numpy
 # routes whose first rescore call holds its kernel to the plain version
 # (True: also timed, for the kernels line)
@@ -236,12 +249,13 @@ ENC_PHRASE_T = ["automobile purchase", "rapid vessel voyage",
 
 # phase 15: the ingest text pipeline, from JSON documents to search
 # (oramacore_tpu_torch/benches/ingest_bench.py)
-INGEST_DOCS = 8_192       # documents of the games bench's shape (phase 17
-#                           takes 262,144 of them through the runtime)
+INGEST_DOCS = 4_096       # documents of the games bench's shape (phase 17
+#                           takes 262,144 of them through the runtime;
+#                           8,192 until phase 20, cut for time)
 INGEST_SEED = 15
 INGEST_VOCAB = 50_000     # English-like words, stems x suffixes
-INGEST_COMPARE = 8_192    # documents timed on the native and Python routes
-INGEST_PARITY = 4_096     # ASCII documents / texts held route against route
+INGEST_COMPARE = 4_096    # documents timed on the native and Python routes
+INGEST_PARITY = 2_048     # ASCII documents / texts held route against route
 INGEST_INSERT = 1_024     # documents an insert batch
 INGEST_QUERIES = 256      # query strings of 1-4 words (the BM25 batch)
 INGEST_VEC_B = 64         # embedded queries a flat / IVF batch
@@ -250,6 +264,9 @@ N_INGEST_CHECKED = 16     # BM25 queries held against the reference scorer
 
 # phase 16: training the text encoder (train/semantic_encoder.py)
 TRAIN_SEED = 16
+TRAIN_STEPS = 500         # of the script's 1,500 (all until phase 20, then
+                          # 750, cut for time; the pair accuracy reaches 1.0
+                          # by step 100)
 TRAIN_COMPARE = 10        # first steps of the run held card against CPU
 TRAIN_LOSS_TOL = 1e-4     # |loss| card against CPU at each of those steps
 TRAIN_PARAM_TOL = 1e-5    # |parameter| card against CPU after them
@@ -265,22 +282,34 @@ RS_KIND_QUERIES = 4       # queries of each other search kind
 RS_VEC_B = 64             # the vector and hybrid batches
 RS_SIM = 0.2              # vector similarity on the hash-model games
 RS_PASSAGE_SIM = 0.5      # vector similarity on SemanticBase passages
-RS_LATENCY_N = 32         # single calls timed for each other mode
-RS_CPU_FULLTEXT = 8       # single full-text searches held card to CPU
-RS_CPU_KIND = 2           # queries of each other kind held card to CPU
+RS_LATENCY_N = 16         # single calls timed for each other mode (32
+                          # until phase 20, cut for time)
+RS_CPU_FULLTEXT = 4       # single full-text searches held card to CPU
+                          # (8 until phase 20; cut for time)
+RS_CPU_KIND = 1           # queries of each other kind held card to CPU
+                          # (2 until phase 20; cut for time)
 N_RS_NUMPY = 16           # plain queries held to host_bm25_reference
 RS_DIR = os.path.join(ROOT, "build", "read_side")
 RS_MASTER = "smoke-master-key"
 RS_KEYS = {"games": ("games-read", "games-write"),
            "passages": ("passages-read", "passages-write")}
 
+# phase 20: the doc-sharded mesh over phase 17's data
+MESH_SHARDS = 4           # shards, all on the one card (mesh_devices)
+MESH_BATCH_CALLS = 2      # search_batch calls of each kind at B=RS_QUERIES
+MESH_ONCE_A_SEARCH = ("encoder_attention",)  # the query's embedding, made
+                          # once before the shards (each other mesh kernel
+                          # launches once a shard)
+
 # phase 18: the API server
 SRV_INGEST = 8_192        # documents inserted over HTTP into the served
                           # runtime (16,384 before phase 19, cut for time)
-SRV_LATENCY_N = 32        # single calls timed over HTTP and in-process a mode
+SRV_LATENCY_N = 16        # single calls timed over HTTP and in-process a mode
+                          # (32 until phase 20, cut for time)
 SRV_HOOK_DOCS = 64        # documents of the hooked collection
-NODE_DOCS = 8_192         # documents sent to the writer node over HTTP
-                          # (16,384 before phase 19, cut for time)
+NODE_DOCS = 4_096         # documents sent to the writer node over HTTP
+                          # (16,384 before phase 19, 8,192 before phase
+                          # 20, cut for time)
 NODE_FULLTEXT = 16        # full-text searches held reader node to CPU
 NODE_KIND = 2             # searches of each other kind held reader node to CPU
 NODE_DIR = os.path.join(ROOT, "build", "server_nodes")
@@ -300,58 +329,64 @@ AI_SELECTED = ["name"]    # the properties the mock picks to embed
 
 # Every ported kernel entry point: its wrapper module, the CUDA source, the
 # TPU kernel (or, with jitted=True, the jitted JAX function) it replaces,
-# and the path whose run gives its launch count.
+# the path whose run gives its launch count, and whether phase 20's mesh
+# path launches it (once a shard).
 KERNELS = (
     dict(name="score_windows",
          module="oramacore_tpu_torch.ops.score_windows", route="cuda",
          source="oramacore_tpu_torch/ops/csrc/score_windows.cu",
-         replaces="oramacore_tpu/ops/pallas_score.py:34", path="bench"),
+         replaces="oramacore_tpu/ops/pallas_score.py:34", path="bench",
+         mesh=False),
     dict(name="score_ranges_accumulate",
          module="oramacore_tpu_torch.ops.score_windows", route="cuda",
          source="oramacore_tpu_torch/ops/csrc/score_windows.cu",
-         replaces="oramacore_tpu/ops/pallas_score.py:34", path="main"),
+         replaces="oramacore_tpu/ops/pallas_score.py:34", path="main",
+         mesh=True),
     dict(name="gather_windows",
          module="oramacore_tpu_torch.ops.gather_windows", route="cuda",
          source="oramacore_tpu_torch/ops/csrc/gather_windows.cu",
-         replaces="oramacore_tpu/ops/pallas_gather.py:38", path="bench"),
+         replaces="oramacore_tpu/ops/pallas_gather.py:38", path="bench",
+         mesh=False),
     # kernels for jitted JAX code (XLA, no pallas_call)
     dict(name="rescore_bsearch",
          module="oramacore_tpu_torch.ops.pruned", route="cuda",
          source="oramacore_tpu_torch/ops/csrc/pruned_rescore.cu",
          replaces="oramacore_tpu/ops/pruned.py:764", jitted=True,
-         path="pruned"),
+         path="pruned", mesh=True),
     dict(name="rescore_worklist",
          module="oramacore_tpu_torch.ops.pruned", route="cuda",
          source="oramacore_tpu_torch/ops/csrc/pruned_rescore.cu",
          replaces="oramacore_tpu/ops/pruned.py:242", jitted=True,
-         path="pruned"),
+         path="pruned", mesh=True),
     dict(name="facet_hist",
          module="oramacore_tpu_torch.ops.facet_hist", route="cuda",
          source="oramacore_tpu_torch/ops/csrc/facet_hist.cu",
          replaces="oramacore_tpu/ops/pruned.py:1139", jitted=True,
-         path="facets"),
+         path="facets", mesh=True),
     dict(name="facet_hist_multi",
          module="oramacore_tpu_torch.ops.facet_hist", route="cuda",
          source="oramacore_tpu_torch/ops/csrc/facet_hist.cu",
          replaces="oramacore_tpu/ops/pruned.py:1198", jitted=True,
-         path="facets"),
+         path="facets", mesh=False),
+    # the attention and its gradient count their f32 instances for head
+    # widths above 128 (ops/csrc/attention_wide.cuh) under the same names
     dict(name="encoder_attention",
          module="oramacore_tpu_torch.ops.attention", route="cuda",
          source="oramacore_tpu_torch/ops/csrc/encoder_attention.cu",
          replaces="oramacore_tpu/embeddings/flax_encoder.py:69", jitted=True,
-         path="encoder"),
+         path="encoder", mesh=True),
     # the attention's gradient, which JAX's autodiff derives inside the
     # jitted training step
     dict(name="encoder_attention_backward_dq",
          module="oramacore_tpu_torch.ops.attention", route="cuda",
          source="oramacore_tpu_torch/ops/csrc/encoder_attention_backward.cu",
          replaces="scripts/train_semantic_encoder_v2.py:304", jitted=True,
-         path="train"),
+         path="train", mesh=False),
     dict(name="encoder_attention_backward_dkv",
          module="oramacore_tpu_torch.ops.attention", route="cuda",
          source="oramacore_tpu_torch/ops/csrc/encoder_attention_backward.cu",
          replaces="scripts/train_semantic_encoder_v2.py:304", jitted=True,
-         path="train"),
+         path="train", mesh=False),
 )
 
 
@@ -2194,47 +2229,105 @@ def attention_checks(device, card):
 
 
 def width_checks(device, card):
-    """Head widths the kernel does not take, through the wrapper on the
-    card: hd 48 zero-padded to 64 (one launch, within ATTN_TOL of the f64
-    plain version) and hd 160 refused before any launch (ValueError, no
-    plain version run)."""
+    """Head widths the tensor-core kernels do not take, through the
+    wrappers on the card: hd 48 zero-padded to 64 (one launch, within
+    ATTN_TOL of the f64 plain version), and hd 160, 256 and 320 on the
+    wide instances, forward within ATTN_TOL and backward within BWD_TOL
+    of their f64 references, one launch of each kernel a call, each timed
+    as CUDA-graph replays beside its bound (3xTF32 rate; FFMA rate in
+    brackets), the plain versions and scaled_dot_product_attention's
+    forward and backward. Returns {label: numbers} of the wide cases."""
     import torch
 
+    from oramacore_tpu_torch.benches import (
+        H100_F32_OPS_PER_S,
+        H100_TF32X3_OPS_PER_S,
+        bound_ms,
+        time_cuda,
+        time_graph,
+    )
     from oramacore_tpu_torch.benches.encoder_bench import (
         WIDTH_CASES,
         attention_inputs,
         attention_reference,
     )
+    from oramacore_tpu_torch.benches.train_bench import (
+        BWD_TOL,
+        SdpaBackward,
+        backward_inputs,
+        backward_reference,
+        backward_work,
+    )
     from oramacore_tpu_torch.ops import attention as at
 
+    names = ("encoder_attention", "encoder_attention_backward_dq",
+             "encoder_attention_backward_dkv")
+    out = {}
     for i, (label, case) in enumerate(WIDTH_CASES.items()):
-        H, hd = case["H"], case["hd"]
+        B, L, H, hd = case["B"], case["L"], case["H"], case["hd"]
         qkv, mask = attention_inputs(case, 150 + i, device)
         launches = at.LAUNCHES["encoder_attention"]
         plain = at.PLAIN_WIDTH_CALLS["encoder_attention_plain"]
         how = at.route(hd)
-        if how == "refused":
-            try:
-                at.encoder_attention(qkv, mask, H)
-                refused = False
-            except ValueError:
-                refused = True
-            check(refused and at.LAUNCHES["encoder_attention"] == launches
-                  and at.PLAIN_WIDTH_CALLS["encoder_attention_plain"]
-                  == plain, f"encoder_attention [{label}]: refused before "
-                  f"any launch [{card}]")
-            continue
         got = at.encoder_attention(qkv, mask, H)
         sync(device)
         launched = at.LAUNCHES["encoder_attention"] - launches
         err = float((got.double() - attention_reference(qkv, mask, H))
                     .abs().max())
         check(launched == 1 and bool(torch.isfinite(got).all())
-              and err <= ATTN_TOL,
-              f"encoder_attention [{label}]: route {how} "
-              f"(width {at.padded_width(hd)}), {launched} kernel "
+              and err <= ATTN_TOL
+              and at.PLAIN_WIDTH_CALLS["encoder_attention_plain"] == plain,
+              f"encoder_attention [{label}]: route {how}, {launched} kernel "
               f"launch(es), max abs err {err:.3g} against the f64 plain "
               f"version [{card}]")
+        if how != "wide":
+            continue
+        _, _, dctx = backward_inputs(case, 170 + i, device)
+        before = {n: at.LAUNCHES[n] for n in names}
+        dgot = at.encoder_attention_backward(qkv, mask, dctx, H)
+        sync(device)
+        d_launched = {n: at.LAUNCHES[n] - before[n] for n in names[1:]}
+        dref = backward_reference(qkv, mask, dctx, H)
+        derr = float((dgot.double() - dref).abs().max())
+        check(all(v == 1 for v in d_launched.values())
+              and bool(torch.isfinite(dgot).all())
+              and torch.allclose(dgot.double(), dref, rtol=BWD_TOL,
+                                 atol=BWD_TOL),
+              f"encoder_attention_backward [{label}]: route {how}, "
+              f"launches {d_launched}, dQ, dK, dV within rtol/atol "
+              f"{BWD_TOL} of the f64 reference (max abs err {derr:.3g}) "
+              f"[{card}]")
+        fwd_ms = time_graph(lambda: at.encoder_attention(qkv, mask, H), 10)
+        bwd_ms = time_graph(lambda: at.encoder_attention_backward(
+            qkv, mask, dctx, H), 5)
+        plain_ms = time_cuda(lambda: at.encoder_attention_plain(qkv, mask,
+                                                                H), 3)
+        bplain_ms = time_cuda(lambda: at.encoder_attention_backward_plain(
+            qkv, mask, dctx, H), 3)
+        lib_ms, _ = sdpa_ms(qkv, mask, H, 10)
+        flush = torch.empty(1 << 20, dtype=torch.uint8, device=device)
+        lib = SdpaBackward(qkv, mask, dctx, H, flush)
+        lib_bwd = time_cuda(lib.graph.replay, 5)
+        del lib, flush
+        f_bytes, f_ops = at.attention_work(B, L, H, hd)
+        f_bound = bound_ms(f_bytes, f_ops, H100_TF32X3_OPS_PER_S)
+        f_ffma = bound_ms(f_bytes, f_ops, H100_F32_OPS_PER_S)[0]
+        work = backward_work(B, L, H, hd)["total"]
+        b_bound = bound_ms(*work, H100_TF32X3_OPS_PER_S)
+        b_ffma = bound_ms(*work, H100_F32_OPS_PER_S)[0]
+        print(f"  wide [{label}]: forward {fwd_ms:.4f} ms (plain "
+              f"{plain_ms:.4f}, scaled_dot_product_attention {lib_ms:.4f}; "
+              f"bound {f_bound[0]:.4f} ms {f_bound[1]} at the 3xTF32 rate, "
+              f"{f_ffma:.4f} at the FFMA rate); backward {bwd_ms:.4f} ms "
+              f"(plain {bplain_ms:.4f}, SDPA's backward {lib_bwd:.4f}; "
+              f"bound {b_bound[0]:.4f} ms {b_bound[1]}, FFMA rate "
+              f"{b_ffma:.4f}); max abs err forward {err:.3g}, backward "
+              f"{derr:.3g}, warm [{card}]", flush=True)
+        out[label] = dict(fwd_ms=fwd_ms, bwd_ms=bwd_ms, plain_ms=plain_ms,
+                          bwd_plain_ms=bplain_ms, sdpa_ms=lib_ms,
+                          sdpa_bwd_ms=lib_bwd, fwd_bound=f_bound[0],
+                          bwd_bound=b_bound[0], err=err, bwd_err=derr)
+    return out
 
 
 def device_ms(fn):
@@ -2952,7 +3045,8 @@ def backward_checks(device, card):
 def phase_train(device, card):
     """Phase 16: the backward kernels against their plain version and
     timed; SemanticBase trained at the script's defaults through
-    train.semantic_encoder (1,500 steps, seed 0), launch counts checked,
+    train.semantic_encoder (seed 0; TRAIN_STEPS of the script's 1,500
+    steps), launch counts checked,
     steady step time, one profiled step, the validation probes; the first
     steps held card against CPU; the checkpoint saved under build/,
     loaded through load_torch_encoder, checked (probes, synonyms,
@@ -2974,8 +3068,9 @@ def phase_train(device, card):
 
     timings = backward_checks(device, card)
 
-    cfg = se.TrainConfig()
-    print(f"  training: {cfg} (the script's defaults)", flush=True)
+    cfg = se.TrainConfig(steps=TRAIN_STEPS)
+    print(f"  training: {cfg} (the script's defaults but the steps)",
+          flush=True)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     trainer = se.SemanticTrainer(cfg, device)
@@ -4846,6 +4941,374 @@ def phase_ai(served, device, card):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the doc-sharded mesh (phase 20)
+# ---------------------------------------------------------------------------
+
+def mesh_kinds(singles, qtexts):
+    """Phase 20's single searches: name -> (collection, params, pruning):
+    phase 17's full-text searches and 4 of each other kind (filters,
+    facets, sort, group-by, exact counts, vector, hybrid, the passages),
+    then with pruning "on" 4 pruned full-text (games and passages) and 4
+    pruned facet searches."""
+    dense = ("fulltext ", "price range ", "genre ", "price and genre ",
+             "facets ", "sort asc ", "sort desc ", "group by genre ",
+             "exact ", "pinned ", "vector ", "hybrid ", "passages ")
+    cases = {name: (coll, p, "auto") for name, (coll, p) in singles.items()
+             if name.startswith(dense)}
+    for i in range(RS_KIND_QUERIES):
+        q = qtexts[(7 * i + 3) % len(qtexts)]
+        cases[f"exact count {i}"] = ("games", {"term": q,
+                                               "exactCount": True}, "auto")
+        for kind in ("fulltext", "facets"):
+            coll, p = singles[f"{kind} {i}"]
+            cases[f"pruned {kind} {i}"] = (coll, p, "on")
+        coll, p = singles[f"passages fulltext {i}"]
+        cases[f"pruned passages fulltext {i}"] = (coll, p, "on")
+    return cases
+
+
+def mesh_compare(ref, got, what):
+    """rs_compare for the mesh: hits, facets and groups as phase 17's gate,
+    counts exact wherever either side reports an exact count. Where both
+    flag their count as estimated (the pruned tier without exactCount),
+    the estimate is floored by the verified candidates, and each of D
+    shards verifies its own top C (a pool D times the single device's),
+    so there the mesh's count must be flagged too and at least its hits;
+    the differences are printed."""
+    import copy
+
+    bad, n, moved = [], 0, []
+    for name, results in got.items():
+        for qi, (a, b) in enumerate(zip(ref[name], results)):
+            label = f"{name}[{qi}]"
+            if a.count_estimated and b.count_estimated:
+                if b.count != a.count:
+                    moved.append(f"{label} {a.count} -> {b.count}")
+                if b.count < len(b.hits):
+                    bad.append(f"{label}: estimated count {b.count} below "
+                               f"its {len(b.hits)} hits")
+                b = copy.copy(b)
+                b.count = a.count
+            bad += rs_result_errors(a, b, label)
+            n += 1
+    if moved:
+        print(f"  estimated counts, single device -> mesh: "
+              f"{'; '.join(moved)}", flush=True)
+    report_check(bad, f"{what}: {n} searches ({len(got)} cases) agree: ids "
+                      f"outside near-ties (1e-5), scores rtol 1e-4, exact "
+                      f"counts, facet counts, groups, hydrated documents")
+
+
+def launch_counts():
+    """Every wrapper's launch count as it stands."""
+    return {name: n for mod in wrapper_modules()
+            for name, n in mod.LAUNCHES.items()}
+
+
+def mesh_answers(rs, cases, lat=None, per_case=None):
+    """Every case through ReadSide.search with its pruning setting: name ->
+    [SearchResult]; `lat` gathers each call's ms by case kind, `per_case`
+    each case's launches."""
+    from oramacore_tpu_torch.types import SearchParams
+
+    out = {}
+    for name, (coll, p, pruning) in cases.items():
+        rs.config.reader_side.pruning = pruning
+        sp = SearchParams.from_json(p)
+        before = launch_counts()
+        t = time.perf_counter()
+        out[name] = [rs.search(coll, RS_KEYS[coll][0], sp)]
+        if lat is not None:
+            lat.setdefault(name.rsplit(" ", 1)[0], []).append(
+                (time.perf_counter() - t) * 1e3)
+        if per_case is not None:
+            per_case[name] = {k: n - before[k]
+                              for k, n in launch_counts().items()}
+    rs.config.reader_side.pruning = "auto"
+    return out
+
+
+def mesh_batches(rs, batches, per_case):
+    """name -> [SearchResult] of each batch through search_batch;
+    `per_case` gathers each batch's launches."""
+    from oramacore_tpu_torch.types import SearchParams
+
+    out = {}
+    for name, (coll, plist) in batches.items():
+        before = launch_counts()
+        out[name] = rs.search_batch(coll, RS_KEYS[coll][0],
+                                    [SearchParams.from_json(p) for p in plist])
+        per_case[name] = {k: n - before[k] for k, n in launch_counts().items()}
+    return out
+
+
+def mesh_launches_check(single, mesh, what):
+    """Each mesh kernel's launches on each case against the single
+    device's on it: MESH_SHARDS times (once a shard), or as many for the
+    query encoder (MESH_ONCE_A_SEARCH)."""
+    bad = []
+    for name, one in single.items():
+        for k in KERNELS:
+            n = k["name"]
+            if not k["mesh"]:
+                continue
+            want = one[n] * (1 if n in MESH_ONCE_A_SEARCH else MESH_SHARDS)
+            if mesh[name][n] != want:
+                bad.append(f"{name}: {n} {mesh[name][n]} on the mesh, "
+                           f"{one[n]} on one device")
+    report_check(bad, f"{what}: on each of {len(single)} cases each mesh "
+                      f"kernel launched {MESH_SHARDS} x the single device's "
+                      f"launches ({', '.join(MESH_ONCE_A_SEARCH)}: as many)")
+
+
+def phase_mesh(served, rs_out, device, card):
+    """Phase 20: a read side with sharded_shards=4 and mesh_devices=[cuda:0]
+    * 4 (four shards on the one card, the port's form of XLA's host device
+    count) loaded from phase 17's data dir (262,144 games documents,
+    16,384 SemanticBase passages; no ingest), held case by case to phase
+    17's single-device read side (the runtime phases 18 and 19 served,
+    which left those two collections as they were). Dense cases, then
+    pruned ones (pruning "on"), then B=256 batches; then the games'
+    vectors take an int8 IVF layout (each read side builds its own; the
+    two are held equal) for the pruned int8 hybrid and the int8 batch
+    tails. The mesh plans on its own string indexes, packed here and held
+    equal to the single device's, as are its loaded vectors. Each case's
+    launches are held to the single device's on it (each kernel once a
+    shard, the query encoder once a search). Prints the mesh's latency
+    by mode beside phase 17's, B=256 QPS, the pack and slab partition
+    times, one profiled batch and peak memory. A
+    read side with sharded_shards=4 and no mesh_devices, on an empty data
+    dir, shows that one card turns the mesh off with JAX's warning."""
+    import logging
+
+    import torch
+
+    from oramacore_tpu_torch.embeddings import EmbeddingsService
+    from oramacore_tpu_torch.oplog import InMemoryTransport
+    from oramacore_tpu_torch.read import ReadSide
+    from oramacore_tpu_torch.utils.tokenizer import NLPService
+
+    out = {}
+    single = served["orama"].read_side
+    emb = EmbeddingsService(device=device)
+
+    def cfg(data_dir):
+        c = rs_config(data_dir)
+        c.reader_side.sharded_shards = MESH_SHARDS
+        return c
+
+    class Warned(logging.Handler):
+        def __init__(self):
+            super().__init__()
+            self.lines = []
+
+        def emit(self, record):
+            self.lines.append(record.getMessage())
+
+    warned = Warned()
+    logger = logging.getLogger("oramacore_tpu.read")
+    logger.addHandler(warned)
+    try:
+        off = ReadSide(cfg(os.path.join(RS_DIR, "mesh_warning")),
+                       InMemoryTransport().receiver, emb, NLPService(),
+                       device=device)
+    finally:
+        logger.removeHandler(warned)
+    check(off.sharded_mesh is None and any(
+        f"sharded_shards={MESH_SHARDS} but only "
+        f"{torch.cuda.device_count()} devices" in w for w in warned.lines),
+        f"sharded_shards={MESH_SHARDS} without mesh_devices on "
+        f"{torch.cuda.device_count()} card: JAX's warning ({warned.lines}); "
+        f"no mesh, so every route takes the single-device executors")
+    del off
+    t0 = time.perf_counter()
+    mesh = ReadSide(cfg(RS_DIR), InMemoryTransport().receiver, emb,
+                    NLPService(), device=device,
+                    mesh_devices=[device] * MESH_SHARDS)
+    check(mesh.sharded_mesh is not None
+          and mesh.sharded_mesh.D == MESH_SHARDS,
+          f"the mesh read side holds {MESH_SHARDS} shards on {device}")
+    games = mesh.collections["games"].indexes["main"]
+    check(games.document_count() == single.collections["games"].indexes[
+        "main"].document_count() == RS_DOCS,
+        f"the mesh read side loaded phase 17's {RS_DOCS:,} games documents "
+        f"from {RS_DIR} in {time.perf_counter() - t0:.1f} s [host]")
+    # the mesh read side's own indexes, loaded from the snapshot: its
+    # string indexes packed here (the first search would pack them) and
+    # held, with its vectors, to the single device's
+    t0 = time.perf_counter()
+    for cid in ("games", "passages"):
+        mesh.collections[cid].indexes["main"].string.slab()
+    out["pack_s"] = time.perf_counter() - t0
+    bad = []
+    for cid in ("games", "passages"):
+        a = mesh.collections[cid].indexes["main"]
+        b = single.collections[cid].indexes["main"]
+        if not all(np.array_equal(x, y) for x, y in zip(a.string.slab(),
+                                                         b.string.slab())):
+            bad.append(f"{cid}: the slab arrays differ")
+        if (a.string._slab_ranges != b.string._slab_ranges
+                or a.string._slab_prefix_ranges
+                != b.string._slab_prefix_ranges):
+            bad.append(f"{cid}: the term or impact-prefix ranges differ")
+        if not (np.array_equal(a.vector._committed_matrix,
+                               b.vector._committed_matrix)
+                and np.array_equal(a.vector._committed_docs,
+                                   b.vector._committed_docs)):
+            bad.append(f"{cid}: the committed vectors differ")
+    report_check(bad, f"the mesh read side's own string indexes (packed in "
+                      f"{out['pack_s']:.1f} s of host) and vectors, loaded "
+                      f"from {RS_DIR}, equal the single device's: slab "
+                      f"arrays, term and impact-prefix ranges, committed "
+                      f"rows and their documents")
+
+    cases = mesh_kinds(served["singles"], served["qtexts"])
+    big = served["qtexts"][:RS_QUERIES]
+    g = __import__("oramacore_tpu_torch.benches.ingest_bench",
+                   fromlist=["GENRES"]).GENRES
+    flat_batches, int8_batches = {}, {}
+    for c in range(MESH_BATCH_CALLS):
+        qs = big if c == 0 else big[::-1]
+        flat_batches[f"batch fulltext B={len(qs)} #{c}"] = (
+            "games", [{"term": q} for q in qs])
+        flat_batches[f"batch genre B={len(qs)} #{c}"] = ("games", [
+            {"term": q, "where": {"genre": g[i % len(g)]}}
+            for i, q in enumerate(qs)])
+        flat_batches[f"batch hybrid flat B={len(qs)} #{c}"] = ("games", [
+            {"mode": "hybrid", "term": q, "similarity": RS_SIM} for q in qs])
+        int8_batches[f"batch hybrid int8 B={len(qs)} #{c}"] = ("games", [
+            {"mode": "hybrid", "term": q, "similarity": RS_SIM} for q in qs])
+
+    # the slab's partition, timed apart (the first full-text search
+    # would do it)
+    t0 = time.perf_counter()
+    ex = mesh._fused_executor(mesh.collections["games"], games)
+    ex.ensure_slab(games.string)
+    out["partition_s"] = ex.last_partition_s
+    print(f"  games slab partitioned over {MESH_SHARDS} shards (doc % "
+          f"{MESH_SHARDS}) in {out['partition_s']:.2f} s of host, on the "
+          f"card in {time.perf_counter() - t0:.2f} s in all", flush=True)
+
+    torch.cuda.reset_peak_memory_stats()
+    pc_single, pc_mesh = {}, {}
+    ref, _ = counted("phase 20, single device",
+                     lambda: mesh_answers(single, cases, per_case=pc_single))
+    got, mesh_l = counted("phase 20, the mesh",
+                          lambda: mesh_answers(mesh, cases,
+                                               per_case=pc_mesh))
+    mesh_compare(ref, got, f"mesh ({MESH_SHARDS} shards on one card) "
+                           f"against the single device, dense and pruned "
+                           f"searches")
+    rs_sanity(got, "mesh")
+
+    batches_ref, _ = counted("phase 20, batches, single device",
+                             lambda: mesh_batches(single, flat_batches,
+                                                  pc_single))
+    batches_got, b_mesh = counted("phase 20, batches, the mesh",
+                                  lambda: mesh_batches(mesh, flat_batches,
+                                                       pc_mesh))
+    mesh_compare(batches_ref, batches_got,
+                 f"mesh against the single device, {len(flat_batches)} "
+                 f"search_batch calls at B={RS_QUERIES}")
+
+    # the games' int8 IVF layout, built by each read side's own index
+    # (deterministic kernels: the k-means sums in a fixed order) and held
+    # layout to layout
+    t0 = time.perf_counter()
+    sv, mv = single.collections["games"].indexes["main"].vector, games.vector
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            sv._build_ivf()
+            mv._build_ivf()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    check(sv._ivf.keys() == mv._ivf.keys() and all(
+        np.array_equal(sv._ivf[k], mv._ivf[k]) for k in sv._ivf),
+        f"games vectors: the int8 IVF layouts the two read sides built "
+        f"({len(mv._ivf['unit_starts']):,} probe units of "
+        f"{mv._ivf['window']} rows, both in "
+        f"{time.perf_counter() - t0:.2f} s) are equal: rows, scales, "
+        f"documents, unit centroids and starts, permutation")
+    pruned_hy = {f"pruned int8 hybrid {i}": (
+        "games", served["singles"][f"hybrid {i}"][1], "on")
+        for i in range(RS_KIND_QUERIES)}
+    ref8, _ = counted("phase 20, int8, single device", lambda: (
+        mesh_answers(single, pruned_hy, per_case=pc_single),
+        mesh_batches(single, int8_batches, pc_single)))
+    got8, i8_mesh = counted("phase 20, int8, the mesh", lambda: (
+        mesh_answers(mesh, pruned_hy, per_case=pc_mesh),
+        mesh_batches(mesh, int8_batches, pc_mesh)))
+    mesh_compare(ref8[0], got8[0], "mesh against the single device, "
+                                   "pruned int8 hybrid searches")
+    mesh_compare(ref8[1], got8[1], f"mesh against the single device, "
+                                   f"{len(int8_batches)} int8 hybrid "
+                                   f"search_batch calls at B={RS_QUERIES}")
+    check(all(r.count_estimated for rr in got8[0].values() for r in rr
+              if r.hits), "the pruned int8 hybrid searches rode the pruned "
+                          "tier (estimated counts)")
+    mesh_launches_check(pc_single, pc_mesh, "the mesh's launches")
+    launches = {k: mesh_l[k] + b_mesh[k] + i8_mesh[k] for k in mesh_l}
+    for k in KERNELS:
+        if k["mesh"]:
+            check(launches[k["name"]] > 0,
+                  f"the mesh path launched {k['name']} "
+                  f"{launches[k['name']]} times")
+    singles_l = {k: sum(c[k] for c in pc_single.values()) for k in launches}
+    print(f"  mesh path launches (each kernel once a shard): {launches}; "
+          f"single device on the same dense and pruned cases and batches: "
+          f"{singles_l}", flush=True)
+    out["launches"] = launches
+
+    lat = {}   # a second pass, timed: the first one warmed every route
+    mesh_answers(mesh, cases, lat)
+    by_mode = {"fulltext": "fulltext", "price range": "price range",
+               "facets": "facets", "sort": "sort asc",
+               "group by": "group by genre", "vector": "vector",
+               "hybrid": "hybrid",
+               "passages hybrid (SemanticBase)": "passages hybrid",
+               "pruned fulltext": "pruned fulltext",
+               "pruned facets": "pruned facets"}
+    before = rs_out.get("latency", {})
+    for mode, kind in by_mode.items():
+        ms = lat.get(kind, [])
+        if not ms:
+            continue
+        p50, p99 = np.percentile(ms, 50), np.percentile(ms, 99)
+        prev = before.get(mode)
+        was = (f"; phase 17, one device: p50 {prev[0]:.3f} ms, p99 "
+               f"{prev[1]:.3f} ms" if prev else "")
+        print(f"  ReadSide.search on the mesh, {mode}: {len(ms)} calls, p50 "
+              f"{p50:.3f} ms, p99 {p99:.3f} ms{was} [{card}]", flush=True)
+    from oramacore_tpu_torch.types import SearchParams
+
+    plist = [SearchParams.from_json({"term": q}) for q in big]
+    for label, rs in (("mesh", mesh), ("single device", single)):
+        steady = [timed_ms(lambda: rs.search_batch(
+            "games", RS_KEYS["games"][0], plist))[1] for _ in range(3)]
+        qps = len(plist) / min(steady) * 1e3
+        out[f"qps {label}"] = qps
+        print(f"  ReadSide.search_batch full-text B={len(plist)}, {label}: "
+              f"{', '.join(f'{x:.2f}' for x in steady)} ms, {qps:,.1f} QPS "
+              f"(best of 3; phase 17: "
+              f"{rs_out.get(f'qps full-text B={len(plist)}', 0.0):,.1f}) "
+              f"[{card}]", flush=True)
+    out["device_ms"] = profile_once(
+        f"mesh ReadSide.search_batch full-text B={len(plist)}",
+        lambda: mesh.search_batch("games", RS_KEYS["games"][0], plist),
+        card)
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    print(f"  peak device memory {out['peak_gib']:.3f} GiB (both read "
+          f"sides) [{card}]", flush=True)
+    mesh.sharded_mesh.close()
+    del single, mesh
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def sync(device):
     import torch
 
@@ -5022,8 +5485,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    print("[16] training: SemanticBase at the script's defaults (1,500 steps "
-          "of B=64 pairs, L=16) through the attention kernels forward and "
+    print(f"[16] training: SemanticBase at the script's defaults "
+          f"({TRAIN_STEPS:,} of its 1,500 steps of B=64 pairs, L=16) "
+          "through the attention kernels forward and "
           "backward, then the trained checkpoint served", flush=True)
     t_phase = time.perf_counter()
     train_timings, path_launches["train"] = phase_train(device, card)
@@ -5038,7 +5502,7 @@ def main() -> int:
           f"op log, searches through ReadSide.search and search_batch",
           flush=True)
     t_phase = time.perf_counter()
-    _, served = phase_read_side(device, card)
+    rs_out, served = phase_read_side(device, card)
     print(f"  phase 17: {time.perf_counter() - t_phase:.1f} s", flush=True)
 
     print(f"[18] the API server: phase 17's runtime over a socket "
@@ -5058,6 +5522,14 @@ def main() -> int:
         phase_ai(served, device, card)
         print(f"  phase 19: {time.perf_counter() - t_phase:.1f} s",
               flush=True)
+        print(f"[20] the doc-sharded mesh: {MESH_SHARDS} shards on {device} "
+              f"(mesh_devices) over phase 17's data, held to phase 17's "
+              f"single-device read side", flush=True)
+        t_phase = time.perf_counter()
+        path_launches["mesh"] = phase_mesh(served, rs_out, device,
+                                           card)["launches"]
+        print(f"  phase 20: {time.perf_counter() - t_phase:.1f} s",
+              flush=True)
     finally:
         served["orama"].stop()
 
@@ -5074,6 +5546,9 @@ def main() -> int:
         "bound_by": timings[k["name"]]["bound_by"],
         "library_ms": timings[k["name"]]["library_ms"],
     } for k in KERNELS]}
+    print("  mesh launches (phase 20): " + ", ".join(
+        f"{k['name']} {path_launches['mesh'][k['name']]}" for k in KERNELS
+        if k["mesh"]), flush=True)
     print(f"  the whole script: {time.perf_counter() - t_script:.1f} s",
           flush=True)
     print(f"card: {card}")

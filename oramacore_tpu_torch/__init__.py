@@ -22,7 +22,12 @@ and `utils/hurl.py` talk to the server. The AI service (`ai/`: RAG
 answers and planned answers over SSE, NLP queries, the OpenAI-compatible
 chat, MCP, tools, system prompts and training sets) answers the server's
 AI routes through an OpenAI-compatible LLM, reached by its own HTTP
-client (`ai/llms.py`).
+client (`ai/llms.py`). With `reader_side.sharded_shards` > 1 the read
+side shards each index by doc id over a mesh of devices (`parallel/`:
+the mesh in one process, a shard a thread, psum / pmax / all_gather at a
+barrier; the engine's dense, sorted, grouped, hybrid, batch, pruned,
+facet and pruned-hybrid steps); `mesh_devices=[cuda:0] * 4` runs four
+shards on one card.
 
 It mirrors the layout of `oramacore_tpu` (so
 `oramacore_tpu_torch/ops/bm25.py` is the counterpart of

@@ -9,9 +9,10 @@ cases and the ingest corpus of `chip_smoke.py` phase 14.
   L=512, the registry's head width 32 at full length), head widths 16
   and 128 (which no registry model has), and the edge cases: batch rows
   whose mask is all zero (a power-of-two batch's padding) and L=1.
-- `WIDTH_CASES`: head widths the kernel does not take, which its wrapper
-  routes by shape: 48 (zero-padded to 64 and launched) and 160 (above
-  128: refused on the card before any launch).
+- `WIDTH_CASES`: head widths the tensor-core kernels do not take, which
+  the wrappers route by shape: 48 (zero-padded to 64 and launched), and
+  160, 256 and 320 (above 128: the wide instances, forward and
+  backward).
 - `attention_inputs`: seeded f32 qkv and an int32 key mask for a case;
   every row attends a prefix of its keys, of a length drawn in [1, L],
   and the case's last `padded` rows attend nothing.
@@ -52,7 +53,10 @@ ATTENTION_CASES = {
 WIDTH_CASES = {
     "hd 48 B=64 L=64 H=4, 2 padded rows (padded to 64)": dict(
         B=64, L=64, H=4, hd=48, padded=2),
-    "hd 160 B=8 L=64 H=2 (refused)": dict(B=8, L=64, H=2, hd=160, padded=0),
+    "hd 160 B=8 L=64 H=2 (wide)": dict(B=8, L=64, H=2, hd=160, padded=0),
+    "hd 256 B=8 L=512 H=4, 1 padded row (wide)": dict(B=8, L=512, H=4,
+                                                      hd=256, padded=1),
+    "hd 320 B=4 L=128 H=3 (wide)": dict(B=4, L=128, H=3, hd=320, padded=0),
 }
 
 

@@ -36,6 +36,13 @@ drives the JAX ones: `HybridSearchTopK` per index, one
 MCP machines (`ai/`) reach them through `ReadSide.search`, so a RAG
 answer's retrieval runs these executors on the card.
 
+With `reader_side.sharded_shards` > 1 the read side runs the same
+searches through `parallel/engine.py` instead (`ShardedStringExec`,
+`ShardedBatchExec`): each index partitioned by doc id over a mesh, each
+shard running these ops (`ops/bm25.py`, `ops/pruned.py`,
+`ops/facet_hist.py`, with `axis=` for the df, count and histogram sums)
+on its slice, and one top-k merge.
+
 The vectors these executors search come from the port's text encoder
 (`embeddings/encoder.py`), which the port also trains
 (`train/semantic_encoder.py`: the contrastive loop of

@@ -752,11 +752,24 @@ class StringIndex:
                         tf_parts.append(cf.tf)
                         etf_parts.append(cf.exact_tf)
                         flen_parts.append(cf.flen)
-                    for tid, term in enumerate(cf.terms):
-                        ranges.setdefault((path, term), []).append(
-                            (offset + int(cf.starts[tid]), int(cf.lens[tid]))
-                        )
-                        tset.add(term)
+                    # one (start, len) a term, as Python ints: millions
+                    # of terms at 262,144 documents (bigrams included)
+                    sts = (np.asarray(cf.starts, np.int64) + offset).tolist()
+                    lns = np.asarray(cf.lens).tolist()
+                    if not tset:
+                        # the field's first segment: no key of it yet
+                        ranges.update(zip(
+                            [(path, t) for t in cf.terms],
+                            [[r] for r in zip(sts, lns)]))
+                    else:
+                        get = ranges.get
+                        for term, st, ln in zip(cf.terms, sts, lns):
+                            lst = get((path, term))
+                            if lst is None:
+                                ranges[(path, term)] = [(st, ln)]
+                            else:
+                                lst.append((st, ln))
+                    tset.update(cf.terms)
                     offset += n
                     # the impact-prefix side block rides the slab right
                     # after the segment's CSR region
@@ -914,12 +927,13 @@ class StringIndex:
         offset = 0
         for path, segs in self._committed.items():
             for cf in segs:
-                for tid, term in enumerate(cf.terms):
-                    ln = int(cf.lens[tid])
-                    if ln >= CHAMPION_MIN // max(len(segs), 1):
-                        by_term.setdefault((path, term), []).append(
-                            (offset + int(cf.starts[tid]), ln)
-                        )
+                lens = np.asarray(cf.lens)
+                heavy_tids = np.flatnonzero(
+                    lens >= CHAMPION_MIN // max(len(segs), 1))
+                for tid in heavy_tids.tolist():
+                    by_term.setdefault((path, cf.terms[tid]), []).append(
+                        (offset + int(cf.starts[tid]), int(lens[tid]))
+                    )
                 offset += len(cf.doc)
                 if cf.pdoc is not None:  # prefix block rides after the CSR
                     offset += len(cf.pdoc)

@@ -38,6 +38,14 @@ _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 # name -> (seconds spent in nvcc, 0.0 when loaded from the cache; nvcc output)
 BUILD_LOG: Dict[str, tuple] = {}
+_count_lock = threading.Lock()
+
+
+def count_launch(launches: Dict[str, int], name: str) -> None:
+    """launches[name] += 1 under a lock: the shards of a mesh
+    (parallel/mesh.py) launch from threads of their own."""
+    with _count_lock:
+        launches[name] += 1
 
 
 def _nvcc() -> str:

@@ -15,18 +15,21 @@ each) and the key mask int32[B, L], and returns ctx f32[B, L, D].
 `encoder_attention_plain` is the same math step by step in PyTorch, in
 the dtype it is given (the card's check runs it in f64).
 
-- Supported: 1 <= L <= 512 and, on the card, head widths up to 128;
-  anything else raises ValueError. The kernels take head widths in
-  {16, 32, 64, 128} (the registry's models have 32 and 64). The
-  wrappers choose a route by shape, before any launch (`route`): a
-  kernel width launches as it is; a width under 128 (8, 48, 96, ...) is
-  zero-padded to the next kernel width (`padded_width`), launched with
-  the divisor f32(sqrt(hd)) of the true width, and sliced back (zero
-  columns leave Q K^T and dP = dO V^T unchanged, and the padded columns
-  of O, dQ, dK and dV are zero); a width above 128, which no kernel
-  takes, is refused on the card (ValueError, no launch), while a CPU
-  tensor runs the plain version at any width, as JAX's `bert_forward`
-  serves any width (forward calls counted in `PLAIN_WIDTH_CALLS`).
+- Supported: 1 <= L <= 512 and any head width, as JAX's `bert_forward`
+  serves any width; a longer sequence raises ValueError. The
+  tensor-core kernels take head widths in {16, 32, 64, 128} (the
+  registry's models have 32 and 64). The wrappers choose a route by
+  shape, before any launch (`route`): a kernel width launches as it is;
+  a width under 128 (8, 48, 96, ...) is zero-padded to the next kernel
+  width (`padded_width`), launched with the divisor f32(sqrt(hd)) of the
+  true width, and sliced back (zero columns leave Q K^T and dP = dO V^T
+  unchanged, and the padded columns of O, dQ, dK and dV are zero); a
+  width above 128 takes the "wide" instances (`launch_wide`,
+  `launch_backward_wide`: csrc/attention_wide.cuh, f32 on the CUDA
+  cores, the head's columns in chunks of 128, since a 16 x hd
+  accumulator a warp no longer fits in registers). A CPU tensor runs the
+  plain version at any width (forward calls above 128 counted in
+  `PLAIN_WIDTH_CALLS`).
 - A batch row whose mask is all zero (the padding rows of a power-of-two
   batch) gets the mean of V in every query row, as in JAX: -1e9 is added
   to every score, and at 1e9 the f32 ulp is 64, so all its scores round
@@ -51,8 +54,7 @@ which `BertEncoder` calls: under `inference_mode` only its forward runs.
 
 A CPU tensor runs the plain version. A CUDA tensor takes its route by
 shape before any launch (above): a kernel launch, which raises on
-failure and never falls back, or, for a head width above 128, a
-ValueError.
+failure and never falls back.
 """
 
 from __future__ import annotations
@@ -70,9 +72,9 @@ MAX_LEN = 512
 HEAD_DIMS = (16, 32, 64, 128)
 MASKED = -1e9
 
-# Forward calls on CPU tensors whose head width no kernel takes, even
-# padded (above 128: refused on the card), run by encoder_attention_plain
-# in `encoder_attention`.
+# Forward calls on CPU tensors whose head width takes the wide route on
+# the card (above 128), run by encoder_attention_plain in
+# `encoder_attention`.
 PLAIN_WIDTH_CALLS = {"encoder_attention_plain": 0}
 
 # Kernel launches, counted only where the kernel is enqueued (never for
@@ -233,6 +235,9 @@ def load_kernels() -> ctypes.CDLL:
             ptr, ptr, ptr, i64, i64, i64, i64, i64, i64, i64, ctypes.c_float,
             i64, ptr]
         lib.encoder_attention_launch.restype = ctypes.c_int
+        lib.encoder_attention_wide_launch.argtypes = [
+            ptr, ptr, ptr, i64, i64, i64, i64, ctypes.c_float, ptr]
+        lib.encoder_attention_wide_launch.restype = ctypes.c_int
         _lib = lib
     return _lib
 
@@ -249,6 +254,13 @@ def load_backward_kernels() -> ctypes.CDLL:
             fn.argtypes = [ptr, ptr, ptr, ptr, ptr, i64, i64, i64, i64,
                            i64, i64, i64, i64, i64, i64, i64,
                            ctypes.c_float, ptr]
+            fn.restype = ctypes.c_int
+        lib.encoder_attention_backward_dq_wide_launch.argtypes = [
+            ptr, ptr, ptr, ptr, ptr, i64, i64, i64, i64, ctypes.c_float, ptr]
+        lib.encoder_attention_backward_dkv_wide_launch.argtypes = [
+            ptr, ptr, ptr, ptr, ptr, i64, i64, i64, i64, ctypes.c_float, ptr]
+        for fn in (lib.encoder_attention_backward_dq_wide_launch,
+                   lib.encoder_attention_backward_dkv_wide_launch):
             fn.restype = ctypes.c_int
         _bwd_lib = lib
     return _bwd_lib
@@ -291,21 +303,17 @@ def attention_work(B: int, L: int, n_heads: int, hd: int) -> tuple:
 
 def padded_width(hd: int):
     """The kernel width a head width runs at: hd itself in HEAD_DIMS, the
-    next one above it under 128, None above 128."""
+    next one above it under 128, None above 128 (the wide route)."""
     return next((w for w in HEAD_DIMS if w >= hd), None)
 
 
 def route(hd: int) -> str:
-    """How the wrappers run a head width on the card: "kernel" (a kernel
-    width), "padded" (zero-padded to `padded_width`) or "refused" (above
-    128: ValueError before any launch)."""
+    """How the wrappers run a head width on the card: "kernel" (a
+    tensor-core kernel width), "padded" (zero-padded to `padded_width`)
+    or "wide" (above 128: the f32 instances of `launch_wide` and
+    `launch_backward_wide`, at the true width)."""
     w = padded_width(hd)
-    return "refused" if w is None else "kernel" if w == hd else "padded"
-
-
-def _refuse(hd: int) -> None:
-    raise ValueError(f"head width {hd} is above {HEAD_DIMS[-1]}, the "
-                     f"widest the attention kernels take on the card")
+    return "wide" if w is None else "kernel" if w == hd else "padded"
 
 
 def pad_heads(t: torch.Tensor, n_heads: int, hd: int,
@@ -345,15 +353,15 @@ def encoder_attention(qkv: torch.Tensor, mask: torch.Tensor,
     tensor runs the plain version at any head width (above 128 counted in
     PLAIN_WIDTH_CALLS). On the card the route is chosen by the head width
     before any launch (`route`): the kernel, the kernel on zero-padded
-    heads, or, above 128, ValueError."""
+    heads, or, above 128, the wide kernel."""
     B, L, D, hd = plain_shapes(qkv, mask, n_heads)
     how = route(hd)
     if _device_of((qkv, mask)).type == "cpu":
-        if how == "refused":
+        if how == "wide":
             PLAIN_WIDTH_CALLS["encoder_attention_plain"] += 1
         return encoder_attention_plain(qkv, mask, n_heads)
-    if how == "refused":
-        _refuse(hd)
+    if how == "wide":
+        return launch_wide(qkv, mask, n_heads)
     if how == "padded":
         w = padded_width(hd)
         ctx = launch(pad_heads(qkv, n_heads, hd, w), mask, n_heads,
@@ -392,7 +400,44 @@ def launch(qkv: torch.Tensor, mask: torch.Tensor, n_heads: int,
             hd, tiles.warps, tiles.key_tile, tiles.stages,
             float(np.float32(np.sqrt(div_hd or hd))), mode, stream)
     _raise_on(err, "encoder_attention")
-    LAUNCHES["encoder_attention"] += 1
+    _build.count_launch(LAUNCHES, "encoder_attention")
+    return ctx
+
+
+def _check_wide(qkv, mask, dctx=None):
+    """The device of a wide launch's CUDA tensors, checked."""
+    tensors = (qkv, mask) if dctx is None else (qkv, mask, dctx)
+    dev = _device_of(tensors)
+    if dev.type != "cuda":
+        raise ValueError(f"the kernel runs on a CUDA device, not {dev}")
+    for name, t, dtype in (("qkv", qkv, torch.float32),
+                           ("mask", mask, torch.int32),
+                           ("dctx", dctx, torch.float32)):
+        if t is None:
+            continue
+        if t.dtype != dtype:
+            raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    return dev
+
+
+def launch_wide(qkv: torch.Tensor, mask: torch.Tensor,
+                n_heads: int) -> torch.Tensor:
+    """One launch of the wide forward instance (any head width; the
+    wrapper sends those above 128) on CUDA tensors: divisor f32(sqrt(hd)).
+    Counted as `encoder_attention`."""
+    B, L, D, hd = plain_shapes(qkv, mask, n_heads)
+    dev = _check_wide(qkv, mask)
+    lib = load_kernels()
+    ctx = torch.empty((B, L, D), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.encoder_attention_wide_launch(
+            qkv.data_ptr(), mask.data_ptr(), ctx.data_ptr(), B, L, n_heads,
+            hd, float(np.float32(np.sqrt(hd))), stream)
+    _raise_on(err, "encoder_attention")
+    _build.count_launch(LAUNCHES, "encoder_attention")
     return ctx
 
 
@@ -456,8 +501,8 @@ def encoder_attention_backward(qkv: torch.Tensor, mask: torch.Tensor,
                                n_heads: int) -> torch.Tensor:
     """dqkv f32[B, L, 3D] of the attention given dctx f32[B, L, D], by
     the forward's route (`route`): on the card the kernels, the kernels
-    on zero-padded heads (dctx padded, dqkv sliced), or above 128
-    ValueError; the plain version on CPU tensors. See the module doc."""
+    on zero-padded heads (dctx padded, dqkv sliced), or above 128 the
+    wide kernels; the plain version on CPU tensors. See the module doc."""
     B, L, D, hd = plain_shapes(qkv, mask, n_heads)
     if tuple(dctx.shape) != (B, L, D):
         raise ValueError(f"dctx must be ({B}, {L}, {D}), got "
@@ -465,8 +510,8 @@ def encoder_attention_backward(qkv: torch.Tensor, mask: torch.Tensor,
     how = route(hd)
     if _device_of((qkv, mask, dctx)).type == "cpu":
         return encoder_attention_backward_plain(qkv, mask, dctx, n_heads)
-    if how == "refused":
-        _refuse(hd)
+    if how == "wide":
+        return launch_backward_wide(qkv, mask, dctx, n_heads)
     if how == "padded":
         w = padded_width(hd)
         dqkv = launch_backward(pad_heads(qkv, n_heads, hd, w), mask,
@@ -525,7 +570,7 @@ def launch_backward(qkv: torch.Tensor, mask: torch.Tensor,
                 dq.warps, dq.pairs, dq.tile, dq.stages, dq.row_tiles,
                 dq.grid, dq.smem, div, stream)
             _raise_on(err, "encoder_attention_backward_dq")
-            LAUNCHES["encoder_attention_backward_dq"] += 1
+            _build.count_launch(LAUNCHES, "encoder_attention_backward_dq")
         if "dkv" in parts:
             err = lib.encoder_attention_backward_dkv_launch(
                 qkv.data_ptr(), mask.data_ptr(), dctx.data_ptr(),
@@ -533,8 +578,42 @@ def launch_backward(qkv: torch.Tensor, mask: torch.Tensor,
                 dkv.warps, dkv.pairs, dkv.tile, dkv.stages, dkv.row_tiles,
                 dkv.grid, dkv.smem, div, stream)
             _raise_on(err, "encoder_attention_backward_dkv")
-            LAUNCHES["encoder_attention_backward_dkv"] += 1
+            _build.count_launch(LAUNCHES, "encoder_attention_backward_dkv")
     return dqkv, stats
+
+
+def launch_backward_wide(qkv: torch.Tensor, mask: torch.Tensor,
+                         dctx: torch.Tensor, n_heads: int) -> torch.Tensor:
+    """The wide backward instances (any head width; the wrapper sends
+    those above 128), dq then dkv in stream order, on CUDA tensors:
+    dqkv f32[B, L, 3D], counted as `encoder_attention_backward_dq` and
+    `_dkv` (the stats between them are the wide kernels' own: each query
+    row's max, sum and delta)."""
+    B, L, D, hd = plain_shapes(qkv, mask, n_heads)
+    if tuple(dctx.shape) != (B, L, D):
+        raise ValueError(f"dctx must be ({B}, {L}, {D}), got "
+                         f"{tuple(dctx.shape)}")
+    dev = _check_wide(qkv, mask, dctx)
+    lib = load_backward_kernels()
+    dqkv = torch.empty((B, L, 3 * D), dtype=torch.float32, device=dev)
+    stats = torch.empty((B * n_heads * L, 4), dtype=torch.float32,
+                        device=dev)
+    div = float(np.float32(np.sqrt(hd)))
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.encoder_attention_backward_dq_wide_launch(
+            qkv.data_ptr(), mask.data_ptr(), dctx.data_ptr(),
+            dqkv.data_ptr(), stats.data_ptr(), B, L, n_heads, hd, div,
+            stream)
+        _raise_on(err, "encoder_attention_backward_dq")
+        _build.count_launch(LAUNCHES, "encoder_attention_backward_dq")
+        err = lib.encoder_attention_backward_dkv_wide_launch(
+            qkv.data_ptr(), mask.data_ptr(), dctx.data_ptr(),
+            stats.data_ptr(), dqkv.data_ptr(), B, L, n_heads, hd, div,
+            stream)
+        _raise_on(err, "encoder_attention_backward_dkv")
+        _build.count_launch(LAUNCHES, "encoder_attention_backward_dkv")
+    return dqkv
 
 
 class EncoderAttention(torch.autograd.Function):

@@ -135,8 +135,13 @@ def bm25_score_batch(
     exact: bool,
     cap: int,
     has_champ: bool = False,
+    axis=None,        # mesh axis for GLOBAL df under doc-id sharding
 ):
     """Score a batch of queries against one posting slab.
+
+    On a doc-sharded mesh (parallel/engine.py) pass the shard's `axis`:
+    each token's document frequency, hence its IDF, is then summed over
+    the shards (`axis.psum`), so the scores equal an unsharded run's.
 
     Returns (scores f32[B, cap], matched_tokens f32[B, cap])."""
     B, T, _NR = starts.shape
@@ -158,7 +163,10 @@ def bm25_score_batch(
         if doc_mask is not None:
             acc.masked_fill_(~doc_mask, 0.0)  # filtered-IDF semantics
         present = acc > 0.0
-        df = present.sum(dim=1, dtype=torch.float32).clamp(min=1.0)
+        df = present.sum(dim=1, dtype=torch.float32)
+        if axis is not None:
+            df = axis.psum(df)  # global df over doc shards
+        df = df.clamp(min=1.0)
         sat = _idf(n_docs, df)[:, None] * (K1 + 1.0) * acc / (K1 + acc)
         scores += sat.masked_fill_(~present, 0.0)
         matched += present
@@ -334,6 +342,7 @@ def bm25_shared_partial(
     matched_in,  # f32[B, cap], updated in place
     *,
     lr: int, cap: int, cu: int, exact: bool,
+    axis=None,   # mesh axis for GLOBAL df under doc-id sharding
 ):
     U = u_starts.shape[0]
     for ci in range(U // cu):
@@ -343,7 +352,10 @@ def bm25_shared_partial(
             u_field_b, u_avg, rows, lr=lr, cap=cap, exact=exact,
         )  # (cu, cap)
         present = (acc > 0.0).to(torch.float32)
-        df = present.sum(dim=1).clamp(min=1.0)
+        df = present.sum(dim=1)
+        if axis is not None:
+            df = axis.psum(df)  # global df over doc shards
+        df = df.clamp(min=1.0)
         sat = _idf(n_docs, df)[:, None] * (K1 + 1.0) * acc / (K1 + acc) * present
         uid = torch.arange(rows.start, rows.stop, device=token_map.device)
         A = _assignment(token_map, uid)                        # (B, cu)
@@ -361,6 +373,7 @@ def bm25_shared_partial_masked(
     scores_in, matched_in,
     *,
     lr: int, cap: int, cu: int, exact: bool,
+    axis=None,   # mesh axis for GLOBAL filtered df under doc sharding
 ):
     """Shared scoring WITH per-query filters, still exact: the
     per-(query, token) filtered df comes from one extra matmul per chunk
@@ -375,7 +388,10 @@ def bm25_shared_partial_masked(
         )
         present = (acc > 0.0).to(torch.float32)              # (cu, cap)
         g = (K1 + 1.0) * acc / (K1 + acc) * present            # no idf yet
-        df = (present @ mask_f.T).clamp(min=1.0)               # (cu, B)
+        df = present @ mask_f.T                                # (cu, B)
+        if axis is not None:
+            df = axis.psum(df)
+        df = df.clamp(min=1.0)
         uid = torch.arange(rows.start, rows.stop, device=token_map.device)
         A = _assignment(token_map, uid)                        # (B, cu)
         scores_in.addmm_(A * _idf(n_docs, df).T, g)

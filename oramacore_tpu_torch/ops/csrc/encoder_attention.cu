@@ -88,6 +88,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "attention_wide.cuh"
 #include "tf32_mma.cuh"
 
 namespace {
@@ -534,4 +535,106 @@ extern "C" int encoder_attention_launch(const void* qkv, const void* mask,
                                      (int)L, (int)H, (int)stages, div,
                                      (int)mode, st);
   return (int)cudaErrorInvalidValue;
+}
+
+// ---------------------------------------------------------------------------
+// Head widths above 128 (attention_wide.cuh): one block of 128 threads a
+// tile of 16 query rows of one (b, h). The block forms the 16 x L scores
+// tile by tile (dot_tile over the head's columns, a 128-column chunk at a
+// time), takes the softmax a warp a row, then O = P V, thread t owning
+// column c + t of each 128-column chunk c and reading V's rows once.
+// f32 FFMA throughout: the tensor-core instances above keep a warp's
+// 16 x hd accumulator in registers, which no width above 128 fits.
+// ---------------------------------------------------------------------------
+
+namespace {
+
+__global__ void __launch_bounds__(wide::kThreadsW)
+encoder_attention_kernel(wide::WideArgs a) {
+  using namespace wide;
+  extern __shared__ float wide_smem[];
+  const int Lp = padded_len(a.L);
+  float* S = wide_smem;                  // [16][Lp] scores, then P
+  float* As = S + kRowsA * Lp;
+  float* Bs = As + kRowsA * kChunk;
+  const int bh = blockIdx.x, b = bh / a.H, h = bh % a.H;
+  const int q0 = blockIdx.y * kRowsA;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int stride = 3 * a.H * a.hd;
+  const float* Q = q_of(a, b, h);
+  const float* K = k_of(a, b, h);
+  const float* V = v_of(a, b, h);
+  const int32_t* mk = a.mask + (size_t)b * a.L;
+  float acc[kPairs];
+  for (int k0 = 0; k0 < a.L; k0 += kRowsB) {
+    dot_tile(Q, q0, stride, K, k0, stride, a.L, a.hd, As, Bs, acc);
+    for (int p = 0; p < kPairs; ++p) {
+      const int e = tid + kThreadsW * p;
+      const int j = k0 + e % kRowsB;
+      if (j < a.L) S[(e / kRowsB) * Lp + j] = score_of(acc[p], a.div, mk[j]);
+    }
+  }
+  __syncthreads();
+  for (int r = warp; r < kRowsA; r += kThreadsW / 32) {
+    float* row = S + r * Lp;
+    float m = -INFINITY;
+    for (int j = lane; j < a.L; j += 32) m = fmaxf(m, row[j]);
+    m = warp_max(m);
+    float l = 0.f;
+    for (int j = lane; j < a.L; j += 32) {
+      const float e = expf(row[j] - m);
+      row[j] = e;
+      l += e;
+    }
+    l = warp_sum(l);
+    for (int j = lane; j < a.L; j += 32) row[j] = __fdiv_rn(row[j], l);
+  }
+  __syncthreads();
+  const int rows = min(kRowsA, a.L - q0);
+  for (int c0 = 0; c0 < a.hd; c0 += kChunk) {
+    const int col = c0 + tid;
+    if (col >= a.hd) break;
+    float o[kRowsA];
+    for (int r = 0; r < kRowsA; ++r) o[r] = 0.f;
+    for (int j = 0; j < a.L; ++j) {
+      const float v = V[(size_t)j * stride + col];
+      for (int r = 0; r < kRowsA; ++r) o[r] = fmaf(S[r * Lp + j], v, o[r]);
+    }
+    float* out = a.out + ((size_t)b * a.L + q0) * a.H * a.hd +
+                 (size_t)h * a.hd + col;
+    for (int r = 0; r < rows; ++r) out[(size_t)r * a.H * a.hd] = o[r];
+  }
+}
+
+}  // namespace
+
+// Any head width hd >= 1 (the wrapper sends those above 128), 1 <= L <=
+// 512, div = f32(sqrt(hd)); contiguous f32 qkv [B, L, 3 H hd], ctx [B, L,
+// H hd], int32 mask [B, L]. Enqueues on `stream`; returns
+// cudaGetLastError() (0 on success), a refused launch never running.
+extern "C" int encoder_attention_wide_launch(const void* qkv,
+                                             const void* mask, void* ctx,
+                                             int64_t B, int64_t L, int64_t H,
+                                             int64_t hd, float div,
+                                             void* stream) {
+  if (B <= 0 || L <= 0) return 0;
+  if (L > 512 || H <= 0 || hd <= 0 || B * H > 2147483647LL ||
+      B * L * 3 * H * hd > (int64_t)1 << 40 ||
+      !(div > 0.f && div < INFINITY)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  wide::WideArgs a{(const float*)qkv, (const int32_t*)mask, nullptr,
+                   (float*)ctx, nullptr, (int)B, (int)L, (int)H, (int)hd,
+                   div};
+  const size_t smem = (size_t)(wide::kRowsA * wide::padded_len((int)L) +
+                               wide::kStageFloats) * sizeof(float);
+  const cudaError_t err = cudaFuncSetAttribute(
+      static_cast<void (*)(wide::WideArgs)>(encoder_attention_kernel),
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((unsigned)(B * H),
+                  (unsigned)((L + wide::kRowsA - 1) / wide::kRowsA));
+  encoder_attention_kernel<<<grid, wide::kThreadsW, smem,
+                             (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
 }

@@ -95,6 +95,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "attention_wide.cuh"
 #include "tf32_mma.cuh"
 
 namespace {
@@ -861,4 +862,216 @@ extern "C" int encoder_attention_backward_dkv_launch(
   DKV_INSTANCE(128, 2, 1, 16)
   DKV_INSTANCE(128, 4, 1, 16)
   return (int)cudaErrorInvalidValue;
+}
+
+// ---------------------------------------------------------------------------
+// Head widths above 128 (attention_wide.cuh), f32 FFMA: the tensor-core
+// instances above keep 16 x hd accumulators a warp in registers, which no
+// width above 128 fits.
+// - attention_dq_kernel(WideArgs): a block of 128 threads a tile of 16
+//   query rows of one (b, h). It forms the rows' scores as the forward
+//   does, their softmax P (keeping each row's max and sum), dP = dO V^T
+//   tile by tile, delta = rowsum(P dP) and dS = P (dP - delta) / div, all
+//   16 x L in shared memory; writes (max, sum, delta) of each row to
+//   `stats`, then dQ = dS K, thread t owning column c + t of each
+//   128-column chunk c.
+// - attention_dkv_kernel(WideArgs): a block a tile of 16 keys. For each
+//   tile of 32 queries it forms the scores and dP of its keys (the same
+//   sums, in the same order, as the dq kernel: bit-identical), P from the
+//   dq kernel's stats and dS, all 16 x L in shared memory; then dV = P^T
+//   dO and dK = dS^T Q, thread t owning column c + t.
+// ---------------------------------------------------------------------------
+
+namespace {
+
+__global__ void __launch_bounds__(wide::kThreadsW)
+attention_dq_kernel(wide::WideArgs a) {
+  using namespace wide;
+  extern __shared__ float wide_smem[];
+  const int Lp = padded_len(a.L);
+  float* P = wide_smem;                  // [16][Lp] scores, then P
+  float* dS = P + kRowsA * Lp;           // [16][Lp] dP, then dS
+  float* As = dS + kRowsA * Lp;
+  float* Bs = As + kRowsA * kChunk;
+  const int bh = blockIdx.x, b = bh / a.H, h = bh % a.H;
+  const int q0 = blockIdx.y * kRowsA;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int stride = 3 * a.H * a.hd, dstride = a.H * a.hd;
+  const float* Q = q_of(a, b, h);
+  const float* K = k_of(a, b, h);
+  const float* V = v_of(a, b, h);
+  const float* dO = do_of(a, b, h);
+  const int32_t* mk = a.mask + (size_t)b * a.L;
+  float acc[kPairs];
+  for (int k0 = 0; k0 < a.L; k0 += kRowsB) {
+    dot_tile(Q, q0, stride, K, k0, stride, a.L, a.hd, As, Bs, acc);
+    for (int p = 0; p < kPairs; ++p) {
+      const int e = tid + kThreadsW * p;
+      const int j = k0 + e % kRowsB;
+      if (j < a.L) P[(e / kRowsB) * Lp + j] = score_of(acc[p], a.div, mk[j]);
+    }
+    dot_tile(dO, q0, dstride, V, k0, stride, a.L, a.hd, As, Bs, acc);
+    for (int p = 0; p < kPairs; ++p) {
+      const int e = tid + kThreadsW * p;
+      const int j = k0 + e % kRowsB;
+      if (j < a.L) dS[(e / kRowsB) * Lp + j] = acc[p];
+    }
+  }
+  __syncthreads();
+  for (int r = warp; r < kRowsA; r += kThreadsW / 32) {
+    float* prow = P + r * Lp;
+    float* drow = dS + r * Lp;
+    float m = -INFINITY;
+    for (int j = lane; j < a.L; j += 32) m = fmaxf(m, prow[j]);
+    m = warp_max(m);
+    float l = 0.f;
+    for (int j = lane; j < a.L; j += 32) l += expf(prow[j] - m);
+    l = warp_sum(l);
+    float delta = 0.f;
+    for (int j = lane; j < a.L; j += 32) {
+      const float pj = __fdiv_rn(expf(prow[j] - m), l);
+      prow[j] = pj;
+      delta = fmaf(pj, drow[j], delta);
+    }
+    delta = warp_sum(delta);
+    for (int j = lane; j < a.L; j += 32)
+      drow[j] = __fdiv_rn(prow[j] * (drow[j] - delta), a.div);
+    if (lane == 0 && q0 + r < a.L) {
+      float* st = a.stats + ((size_t)bh * a.L + q0 + r) * 4;
+      st[0] = m;
+      st[1] = l;
+      st[2] = delta;
+      st[3] = 0.f;
+    }
+  }
+  __syncthreads();
+  const int rows = min(kRowsA, a.L - q0);
+  for (int c0 = 0; c0 < a.hd; c0 += kChunk) {
+    const int col = c0 + tid;
+    if (col >= a.hd) break;
+    float o[kRowsA];
+    for (int r = 0; r < kRowsA; ++r) o[r] = 0.f;
+    for (int j = 0; j < a.L; ++j) {
+      const float k = K[(size_t)j * stride + col];
+      for (int r = 0; r < kRowsA; ++r) o[r] = fmaf(dS[r * Lp + j], k, o[r]);
+    }
+    float* out = a.out + ((size_t)b * a.L + q0) * stride +
+                 (size_t)h * a.hd + col;
+    for (int r = 0; r < rows; ++r) out[(size_t)r * stride] = o[r];
+  }
+}
+
+__global__ void __launch_bounds__(wide::kThreadsW)
+attention_dkv_kernel(wide::WideArgs a) {
+  using namespace wide;
+  extern __shared__ float wide_smem[];
+  const int Lp = padded_len(a.L);
+  float* Pt = wide_smem;                 // [16 keys][Lp queries] P
+  float* dSt = Pt + kRowsA * Lp;         // [16 keys][Lp queries] dS
+  float* As = dSt + kRowsA * Lp;
+  float* Bs = As + kRowsA * kChunk;
+  const int bh = blockIdx.x, b = bh / a.H, h = bh % a.H;
+  const int k0 = blockIdx.y * kRowsA;
+  const int tid = threadIdx.x;
+  const int stride = 3 * a.H * a.hd, dstride = a.H * a.hd;
+  const float* Q = q_of(a, b, h);
+  const float* K = k_of(a, b, h);
+  const float* V = v_of(a, b, h);
+  const float* dO = do_of(a, b, h);
+  const int32_t* mk = a.mask + (size_t)b * a.L;
+  float s[kPairs], dp[kPairs];
+  for (int i0 = 0; i0 < a.L; i0 += kRowsB) {
+    dot_tile(K, k0, stride, Q, i0, stride, a.L, a.hd, As, Bs, s);
+    dot_tile(V, k0, stride, dO, i0, dstride, a.L, a.hd, As, Bs, dp);
+    for (int p = 0; p < kPairs; ++p) {
+      const int e = tid + kThreadsW * p;
+      const int r = e / kRowsB, i = i0 + e % kRowsB, j = k0 + r;
+      if (i >= a.L || j >= a.L) continue;
+      const float* st = a.stats + ((size_t)bh * a.L + i) * 4;
+      const float pj =
+          __fdiv_rn(expf(score_of(s[p], a.div, mk[j]) - st[0]), st[1]);
+      Pt[r * Lp + i] = pj;
+      dSt[r * Lp + i] = __fdiv_rn(pj * (dp[p] - st[2]), a.div);
+    }
+  }
+  __syncthreads();
+  const int keys = min(kRowsA, a.L - k0);
+  for (int c0 = 0; c0 < a.hd; c0 += kChunk) {
+    const int col = c0 + tid;
+    if (col >= a.hd) break;
+    float dk[kRowsA], dv[kRowsA];
+    for (int r = 0; r < kRowsA; ++r) dk[r] = dv[r] = 0.f;
+    for (int i = 0; i < a.L; ++i) {
+      const float q = Q[(size_t)i * stride + col];
+      const float g = dO[(size_t)i * dstride + col];
+      // every row of the tile (a key past L reads a row never written
+      // and is never stored), so dk and dv stay in registers
+      for (int r = 0; r < kRowsA; ++r) {
+        dk[r] = fmaf(dSt[r * Lp + i], q, dk[r]);
+        dv[r] = fmaf(Pt[r * Lp + i], g, dv[r]);
+      }
+    }
+    float* out = a.out + ((size_t)b * a.L + k0) * stride +
+                 (size_t)h * a.hd + col;
+    for (int r = 0; r < keys; ++r) {
+      out[(size_t)r * stride + (size_t)a.H * a.hd] = dk[r];
+      out[(size_t)r * stride + 2 * (size_t)a.H * a.hd] = dv[r];
+    }
+  }
+}
+
+int wide_backward_launch(bool dq, const void* qkv, const void* mask,
+                         const void* dctx, void* dqkv, void* stats,
+                         int64_t B, int64_t L, int64_t H, int64_t hd,
+                         float div, void* stream) {
+  if (B <= 0 || L <= 0) return 0;
+  if (L > 512 || H <= 0 || hd <= 0 || B * H > 2147483647LL ||
+      B * L * 3 * H * hd > (int64_t)1 << 40 ||
+      !(div > 0.f && div < INFINITY)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  wide::WideArgs a{(const float*)qkv, (const int32_t*)mask,
+                   (const float*)dctx, (float*)dqkv, (float*)stats, (int)B,
+                   (int)L, (int)H, (int)hd, div};
+  const size_t smem = (size_t)(2 * wide::kRowsA * wide::padded_len((int)L) +
+                               wide::kStageFloats) * sizeof(float);
+  void (*kernel)(wide::WideArgs) =
+      dq ? static_cast<void (*)(wide::WideArgs)>(attention_dq_kernel)
+         : static_cast<void (*)(wide::WideArgs)>(attention_dkv_kernel);
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((unsigned)(B * H),
+                  (unsigned)((L + wide::kRowsA - 1) / wide::kRowsA));
+  if (dq) {
+    attention_dq_kernel<<<grid, wide::kThreadsW, smem,
+                          (cudaStream_t)stream>>>(a);
+  } else {
+    attention_dkv_kernel<<<grid, wide::kThreadsW, smem,
+                           (cudaStream_t)stream>>>(a);
+  }
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Head widths above 128 (any hd >= 1 is taken), 1 <= L <= 512, div =
+// f32(sqrt(hd)); contiguous f32 qkv [B, L, 3 H hd], dctx [B, L, H hd],
+// dqkv [B, L, 3 H hd], stats [B H L, 4], int32 mask [B, L]. The dq launch
+// fills dQ and stats; the dkv launch, after it in stream order, reads
+// stats and fills dK and dV. Each returns cudaGetLastError().
+extern "C" int encoder_attention_backward_dq_wide_launch(
+    const void* qkv, const void* mask, const void* dctx, void* dqkv,
+    void* stats, int64_t B, int64_t L, int64_t H, int64_t hd, float div,
+    void* stream) {
+  return wide_backward_launch(true, qkv, mask, dctx, dqkv, stats, B, L, H,
+                              hd, div, stream);
+}
+
+extern "C" int encoder_attention_backward_dkv_wide_launch(
+    const void* qkv, const void* mask, const void* dctx, const void* stats,
+    void* dqkv, int64_t B, int64_t L, int64_t H, int64_t hd, float div,
+    void* stream) {
+  return wide_backward_launch(false, qkv, mask, dctx, dqkv, (void*)stats, B,
+                              L, H, hd, div, stream);
 }

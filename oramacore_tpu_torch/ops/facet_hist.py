@@ -141,19 +141,23 @@ def facet_hist_plain(docs, rep, bucket, bounds, G: int, numeric: bool):
     return counts.to(torch.int32)
 
 
-def facet_hist(docs, rep, bucket, bounds, *, G: int, numeric: bool):
+def facet_hist(docs, rep, bucket, bounds, *, G: int, numeric: bool,
+               axis=None):
     """Distinct matched docs per bucket of a single-valued column: int32[G].
     `bucket` is int32[L] value ids (numeric=False) or f32[L] values
     (numeric=True), indexed by doc (docs clip to [0, L - 1], as JAX's
     gather does; only kept reps read it). One block holds at most
-    `max_buckets(numeric)` buckets: 58,112 ids or 19,370 ranges."""
+    `max_buckets(numeric)` buckets: 58,112 ids or 19,370 ranges. On a
+    doc-sharded mesh (`axis` given) each shard counts its own docs and
+    the counts are summed over the shards (`axis.psum`)."""
     _check_common(docs, rep, bounds, G, numeric)
     _check(bucket, "bucket", _values_dtype(numeric), 1)
     if bucket.shape[0] < 1:
         raise ValueError("bucket must not be empty")
     dev = _device_of([docs, rep, bucket, bounds])
     if dev.type == "cpu":
-        return facet_hist_plain(docs, rep, bucket, bounds, G, numeric)
+        out = facet_hist_plain(docs, rep, bucket, bounds, G, numeric)
+        return out if axis is None else axis.psum(out)
     out = torch.empty(G, dtype=torch.int32, device=dev)
     lib = load_kernels()
     with torch.cuda.device(dev):
@@ -163,8 +167,8 @@ def facet_hist(docs, rep, bucket, bounds, *, G: int, numeric: bool):
             G, int(numeric), out.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, "facet_hist")
-    LAUNCHES["facet_hist"] += 1
-    return out
+    _build.count_launch(LAUNCHES, "facet_hist")
+    return out if axis is None else axis.psum(out)
 
 
 def facet_hist_multi_plain(docs, rep, pair_docs, pair_vals, row_ptr, bounds,
@@ -201,14 +205,14 @@ def facet_hist_multi_plain(docs, rep, pair_docs, pair_vals, row_ptr, bounds,
 
 
 def facet_hist_multi(docs, rep, pair_docs, pair_vals, row_ptr, bounds, *,
-                     G: int, M: int, numeric: bool):
+                     G: int, M: int, numeric: bool, axis=None):
     """Distinct matched docs per bucket of a multi-valued column: int32[G].
     pair_docs int32[P] ascending, its last row a sentinel larger than any
     doc; pair_vals int32[P] value ids or f32[P] values; row_ptr int32[L +
     1] = row_ptr_table(pair_docs, L); M >= 1 bounds the rows of one doc.
     The warps' rings share the block with the counters, so it holds at
     most `max_buckets(numeric, multi=True)` buckets: 56,064 ids or 18,688
-    ranges."""
+    ranges. `axis`: the shards' counts summed, as in `facet_hist`."""
     _check_common(docs, rep, bounds, G, numeric, multi=True)
     _check(pair_docs, "pair_docs", torch.int32, 1)
     _check(pair_vals, "pair_vals", _values_dtype(numeric), 1)
@@ -223,8 +227,9 @@ def facet_hist_multi(docs, rep, pair_docs, pair_vals, row_ptr, bounds, *,
         raise ValueError(f"M must be positive, got {M}")
     dev = _device_of([docs, rep, pair_docs, pair_vals, row_ptr, bounds])
     if dev.type == "cpu":
-        return facet_hist_multi_plain(docs, rep, pair_docs, pair_vals,
-                                      row_ptr, bounds, G, M, numeric)
+        out = facet_hist_multi_plain(docs, rep, pair_docs, pair_vals,
+                                     row_ptr, bounds, G, M, numeric)
+        return out if axis is None else axis.psum(out)
     out = torch.empty(G, dtype=torch.int32, device=dev)
     lib = load_kernels()
     with torch.cuda.device(dev):
@@ -234,5 +239,5 @@ def facet_hist_multi(docs, rep, pair_docs, pair_vals, row_ptr, bounds, *,
             bounds.data_ptr(), G, M, int(numeric), out.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, "facet_hist_multi")
-    LAUNCHES["facet_hist_multi"] += 1
-    return out
+    _build.count_launch(LAUNCHES, "facet_hist_multi")
+    return out if axis is None else axis.psum(out)

@@ -100,5 +100,5 @@ def gather_windows(src: torch.Tensor, aligned_starts: torch.Tensor, *,
             out.data_ptr(), stream,
         )
     _raise_on(err, "gather_windows")
-    LAUNCHES["gather_windows"] += 1
+    _build.count_launch(LAUNCHES, "gather_windows")
     return out

@@ -454,7 +454,7 @@ def rescore_bsearch(
             scores.data_ptr(), matched.data_ptr(), _stream(dev),
         )
     _raise_on(err, "rescore_bsearch")
-    LAUNCHES["rescore_bsearch"] += 1
+    _build.count_launch(LAUNCHES, "rescore_bsearch")
     return scores, matched
 
 
@@ -540,11 +540,13 @@ def _worklist_tail(acc_bt, df_bt, cand, n_docs, T: int):
 
 def rescore_worklist_plain(p_doc, tf_src, p_flen, wl_i, wl_f, n_docs, cand,
                            wl_prev=None, fmask=None, *, lch: int, T: int,
-                           nre: int = 0, bs_steps: int = 0):
+                           nre: int = 0, bs_steps: int = 0, axis=None):
     """Plain PyTorch version of `rescore_worklist`."""
     acc, df = rescore_worklist_accumulate_plain(
         p_doc, tf_src, p_flen, wl_i, wl_f, cand, wl_prev, fmask,
         lch=lch, T=T, nre=nre, bs_steps=bs_steps)
+    if axis is not None:
+        df = axis.psum(df)  # global df over doc shards
     return _worklist_tail(acc, df, cand, n_docs, T)
 
 
@@ -559,12 +561,15 @@ def rescore_worklist(
     *,
     lch: int, T: int, nre: int = 0, bs_steps: int = 0,
     fbits=None,                # int32[ceil(L / 32)]: pack_mask_bits(fmask)
+    axis=None,                 # mesh axis for GLOBAL df under doc sharding
 ):
     """v3 phase 2: exact BM25F scores and matched-token counts of the
     candidates, streaming the worklist's postings; df (and so the idf) is
     counted on the device, under the filter and deduplicated across the
     token's spans. `fbits`, the filter's bitmap, is optional: the kernel
-    reads it in place of `fmask`, whose plain version it equals. Returns
+    reads it in place of `fmask`, whose plain version it equals. On a
+    doc-sharded mesh (`axis` given) the pass and the tail launch apart,
+    with the shards' df summed between them (`axis.psum`). Returns
     (scores f32[B, C], matched f32[B, C])."""
     _check(p_doc, "p_doc", torch.int32, 1)
     _check(tf_src, "tf_src", torch.float32, 1)
@@ -608,18 +613,24 @@ def rescore_worklist(
     if dev.type == "cpu":
         return rescore_worklist_plain(
             p_doc, tf_src, p_flen, wl_i, wl_f, n_docs, cand, wl_prev, fmask,
-            lch=lch, T=T, nre=nre, bs_steps=bs_steps)
+            lch=lch, T=T, nre=nre, bs_steps=bs_steps, axis=axis)
     scores = torch.empty((B, C), dtype=torch.float32, device=dev)
     matched = torch.empty((B, C), dtype=torch.float32, device=dev)
     if B * C == 0:
         return scores, matched
     # the pass's sums f32[B*T, C], then its df counts int32[B*T]
     work = torch.empty(B * T * C + B * T, dtype=torch.float32, device=dev)
-    _worklist_launch(
-        (p_doc, tf_src, p_flen, wl_i, wl_f, n_docs, cand, wl_prev, fmask,
-         fbits), (work, scores, matched), lch=lch, T=T, nre=nre,
-        bs_steps=bs_steps, parts=7)
-    LAUNCHES["rescore_worklist"] += 1
+    inputs = (p_doc, tf_src, p_flen, wl_i, wl_f, n_docs, cand, wl_prev,
+              fmask, fbits)
+    kw = dict(lch=lch, T=T, nre=nre, bs_steps=bs_steps)
+    if axis is None:
+        _worklist_launch(inputs, (work, scores, matched), parts=7, **kw)
+    else:
+        _worklist_launch(inputs, (work, scores, matched), parts=3, **kw)
+        df = work[B * T * C:].view(torch.int32)
+        df.copy_(axis.psum(df))
+        _worklist_launch(inputs, (work, scores, matched), parts=4, **kw)
+    _build.count_launch(LAUNCHES, "rescore_worklist")
     return scores, matched
 
 
@@ -771,10 +782,12 @@ def pruned_exact_counts(
 
 
 def _exact_counts_core(p_doc, tf_src, wl_i, thr_counts, fmask=None, *,
-                       lch: int, cap: int, T: int):
+                       lch: int, cap: int, T: int, axis=None):
     """The counting body of `pruned_exact_counts`. The JAX function's
     3-key sort on (b, doc, t) is one stable sort of int64 keys b << 39 |
-    doc << 8 | t; run boundaries and cumsum / cummax count exactly."""
+    doc << 8 | t; run boundaries and cumsum / cummax count exactly. On a
+    doc-sharded mesh a doc's postings all lie in its shard, so the
+    shards' counts are disjoint and `axis.psum` sums them exactly."""
     B = thr_counts.shape[0]
     assert T < 256 and B < (1 << 24), "exact-count key fields overflow"
     P = p_doc.shape[0]
@@ -806,7 +819,10 @@ def _exact_counts_core(p_doc, tf_src, wl_i, thr_counts, fmask=None, *,
     tokcnt = (s - prev_end).to(torch.float32)
     thr_b = thr_counts[bk.clamp(max=B - 1)]
     hit = is_end & (tokcnt >= torch.clamp(thr_b, min=1.0))
-    return torch.bincount(bk[hit], minlength=B)[:B].to(torch.int32)
+    counts = torch.bincount(bk[hit], minlength=B)[:B].to(torch.int32)
+    if axis is not None:
+        counts = axis.psum(counts)
+    return counts
 
 
 def estimate_match_count(n_docs: float, dfs) -> int:

@@ -134,7 +134,7 @@ def score_windows(p_doc, p_tf, p_flen, aligned_starts, params, *, w: int):
             docs.data_ptr(), ntf.data_ptr(), stream,
         )
     _raise_on(err, "score_windows")
-    LAUNCHES["score_windows"] += 1
+    _build.count_launch(LAUNCHES, "score_windows")
     return docs, ntf
 
 
@@ -280,5 +280,5 @@ def score_ranges_accumulate(
             acc.data_ptr(), acc.shape[1], work.data_ptr(), stream,
         )
     _raise_on(err, "score_ranges_accumulate")
-    LAUNCHES["score_ranges_accumulate"] += 1
+    _build.count_launch(LAUNCHES, "score_ranges_accumulate")
     return acc

@@ -13,10 +13,15 @@ device=...)`: `CollectionReader.executor` builds `HybridSearchTopK(device)`,
 the batch functions build one `SharedBatchExecutor(device)` for the read
 side, and each `ReadIndex` builds its `VectorIndex` on the device.
 
-Left out, named in ROADMAP.md §1: the doc-sharded mesh
-(`reader_side.sharded_shards > 1` raises when enough CUDA devices exist,
-and is switched off with a warning otherwise, as in the JAX read side).
-The BeforeSearch and TransformDocumentAfterSearch hooks run in the
+With `reader_side.sharded_shards` > 1 and as many devices, the read
+side builds a doc-sharded mesh (`parallel/`) and routes wherever the JAX
+read side does through it: `_fused_executor` gives a `ShardedStringExec`
+per index, and batches take one `ShardedBatchExec`. The mesh is built
+from the distinct CUDA devices (the CPU: one device), as JAX builds it
+from `jax.devices()`; with too few it is switched off with JAX's
+warning. `mesh_devices=` names the devices instead (a device may
+repeat, e.g. `[cuda:0] * 4` for four shards on one card), as tests and
+`chip_smoke.py` do. The BeforeSearch and TransformDocumentAfterSearch hooks run in the
 hooks runtime that `build_orama` attaches (`ai/hooks.py`).
 """
 
@@ -111,6 +116,7 @@ class CollectionReader:
         self.shelves: Dict[str, Dict[str, Any]] = {}
         self.values: Dict[str, str] = {}
         self._executors: Dict[str, StringSearchExecutor] = {}
+        self._sharded_executors: Dict[str, Any] = {}
         # op-log offset covered by this collection's persisted snapshots;
         # ops at or below it are replays and must be skipped (reference
         # read/mod.rs:511-517 dedup, here per-collection so that
@@ -154,6 +160,7 @@ class ReadSide:
         nlp: NLPService,
         llm_resolve_mode: Optional[ResolveModeFn] = None,
         device="cuda",
+        mesh_devices=None,
     ):
         self.config = config
         # every executor, vector slab and device cache of this read side
@@ -204,24 +211,28 @@ class ReadSide:
         )
         # sandboxed hook runtime, attached by build_orama
         self.hooks_runtime = None
-        # doc-id-sharded search over a device mesh (SURVEY §5.8) is not
-        # ported (ROADMAP.md §1.12): with enough devices for the
-        # configured shards it refuses rather than serve unsharded;
-        # with too few it is switched off with a warning, as in JAX
+        # doc-id-sharded search over a device mesh (SURVEY §5.8): the
+        # fused fulltext path runs one mesh step per query batch when a
+        # mesh is configured
         self.sharded_mesh = None
         n_sh = config.reader_side.sharded_shards
         if n_sh and n_sh > 1:
-            n_dev = (torch.cuda.device_count()
-                     if self.device.type == "cuda" else 1)
-            if n_dev >= n_sh:
-                raise NotImplementedError(
-                    f"reader_side.sharded_shards={n_sh}: the doc-sharded "
-                    "mesh is not ported yet (ROADMAP.md §1.12)"
+            if mesh_devices is not None:
+                devs = [torch.device(d) for d in mesh_devices]
+            elif self.device.type == "cuda":
+                devs = [torch.device("cuda", i)
+                        for i in range(torch.cuda.device_count())]
+            else:
+                devs = [self.device]
+            if len(devs) >= n_sh:
+                from ..parallel.engine import build_engine_mesh
+
+                self.sharded_mesh = build_engine_mesh(n_sh, devs)
+            else:
+                logging.getLogger("oramacore_tpu.read").warning(
+                    "sharded_shards=%d but only %d devices; sharded "
+                    "search disabled", n_sh, len(devs),
                 )
-            logging.getLogger("oramacore_tpu.read").warning(
-                "sharded_shards=%d but only %d devices; sharded "
-                "search disabled", n_sh, n_dev,
-            )
 
     # ------------------------------------------------------------------
     # Op consumption (SURVEY §3.3)
@@ -349,6 +360,7 @@ class ReadSide:
                 for d in dropped.doc_user_ids:
                     coll.doc_index.pop(d, None)
             coll._executors.pop(b["index"], None)
+            coll._sharded_executors.pop(b["index"], None)
             return
         if kind == "replace_index":
             # promote temp to runtime id, alias old temp id (index/mod.rs:864)
@@ -372,6 +384,8 @@ class ReadSide:
                 temp.dirty = True
                 coll._executors.pop(b["target"], None)
                 coll._executors.pop(b["temp"], None)
+                coll._sharded_executors.pop(b["target"], None)
+                coll._sharded_executors.pop(b["temp"], None)
             return
         if kind == "update_read_api_key":
             coll.read_api_key = b["read_api_key"]
@@ -608,6 +622,7 @@ class ReadSide:
             # Single-device (the mesh keeps the host dict flow).
             vector_ivf_facets = (
                 isinstance(mode, VectorMode)
+                and self.sharded_mesh is None
                 and idx.vector is not None
                 and idx.vector._ivf is not None
                 and not idx.vector._live_rows
@@ -639,7 +654,7 @@ class ReadSide:
                      or vector_ivf_facets)
                 and mode.term.strip()
                 and self._pruned_eligible(
-                    idx, None, 16, mode, params,
+                    idx, None, 16, mode, params, mesh_ok=True,
                     exact_counts=(
                         params.exact_count
                         and isinstance(mode, FulltextMode)
@@ -1026,7 +1041,13 @@ class ReadSide:
         # ONE eligibility decision drives both the plan shape
         # (with_prefix: uncoalesced ranges + field spans) and the
         # dispatch below — recomputing it could route a coalesced
-        # no-prefix plan into the pruned kernel.
+        # no-prefix plan into the pruned kernel. On the mesh, pruning
+        # applies exactly at the int8/IVF tier (the sharded pruned
+        # hybrid replaces the dense tail there; flat-mode sharded
+        # hybrid keeps the dense step + coalesced plan).
+        is_ivf = (
+            idx.vector._ivf is not None and not idx.vector._live_rows
+        )
         # the hybrid kernels have no exact-count dispatch — an
         # exactCount request keeps the dense exact path UNLESS the
         # small-filter cand-given path applies (its counts are exact)
@@ -1040,7 +1061,7 @@ class ReadSide:
         use_pruned = (
             not want_bitmap
             and self._pruned_eligible(
-                idx, mask, k, mode, params,
+                idx, mask, k, mode, params, mesh_ok=is_ivf,
                 mask_sel=mask_sel,
             )
             # exactCount: pruned needs an exact count source — the
@@ -1073,72 +1094,18 @@ class ReadSide:
         if mode.threshold is not None:
             thr = float(math.floor(len(tokens) * mode.threshold))
         omc_arr = idx.omc_array()
-        vec_rows = idx.vector.flat_device_rows()
-        ex = coll.executor(idx.index_id)
-        if vec_rows is not None:
-            out = ex.search_topk_hybrid(
-                idx.string, [plan], [idx.document_count()], cap, k,
-                vec_rows, q, [mode.similarity],
-                exact=mode.exact,
-                doc_masks=[mask] if mask is not None else None,
-                thresholds=[thr] if thr is not None else None,
-                omc=omc_arr, omc_key=(idx.uid, idx.omc_version),
-                rescale=idx.vector.config.score_rescale,
-                with_bitmap=want_bitmap,
-            )
-            if want_bitmap and out is not None:
-                self._tls.match_mask = out[3][0]
-                out = out[:3]
-        else:
-            # IVF-sized vector index: fused hybrid over the int8
-            # packed layout (candidate probe inside the dispatch);
-            # champion rows replace heavy terms' posting scans —
-            # at multi-million-doc caps the scatter aggregation is
-            # the bottleneck (~43M postings/s)
-            vec_int8 = idx.vector.int8_device_rows()
-            if vec_int8 is None:
-                return None
-            if use_pruned:
-                # pruned hybrid: candidate union + exact rescore, no
-                # dense doc-space accumulators (the 10M-tier path)
-                if not small_filter:
-                    self._tls.count_estimated = True
-                # hybrid pruned facets (search() device_facet_specs)
-                self._tls.pruned_plan = plan
-                self._tls.pruned_thr = thr
-                self._tls.hybrid_q = q
-                mask_kw = {}
-                if mask is not None:
-                    mask_kw = dict(
-                        mask=mask,
-                        mask_key=self._mask_cache_key(idx, params),
-                    )
-                from ..ops.bm25 import round_up_pow2
-
-                capb = round_up_pow2(cap, 128)
-                out = ex.search_topk_hybrid_int8_pruned(
-                    idx.string, [plan], [idx.document_count()], cap,
-                    k, vec_int8, idx.vector.int8_doc2row(capb), q,
-                    [mode.similarity],
-                    exact=mode.exact,
-                    thresholds=[thr] if thr is not None else None,
-                    omc=omc_arr, omc_key=(idx.uid, idx.omc_version),
-                    rescale=idx.vector.config.score_rescale,
-                    **mask_kw,
-                )
-            else:
-                # champion rows bake non-exact tf — skip for exact
-                # and for facet bitmaps (membership must match the
-                # plain scorer exactly)
-                if not mode.exact and not want_bitmap:
-                    champ_planned = self._plan_fulltext(
-                        idx, mode, params, use_champions=True
-                    )
-                    if champ_planned is not None:
-                        _, plan = champ_planned
-                out = ex.search_topk_hybrid_int8(
+        out = None
+        if self.sharded_mesh is not None:
+            out = self._hybrid_on_mesh(
+                coll, idx, params, mode, plan, q, thr, mask, cap, k,
+                omc_arr, use_pruned and is_ivf, small_filter, want_bitmap)
+        if out is None:
+            vec_rows = idx.vector.flat_device_rows()
+            ex = coll.executor(idx.index_id)
+            if vec_rows is not None:
+                out = ex.search_topk_hybrid(
                     idx.string, [plan], [idx.document_count()], cap, k,
-                    vec_int8, q, [mode.similarity],
+                    vec_rows, q, [mode.similarity],
                     exact=mode.exact,
                     doc_masks=[mask] if mask is not None else None,
                     thresholds=[thr] if thr is not None else None,
@@ -1149,6 +1116,66 @@ class ReadSide:
                 if want_bitmap and out is not None:
                     self._tls.match_mask = out[3][0]
                     out = out[:3]
+            else:
+                # IVF-sized vector index: fused hybrid over the int8
+                # packed layout (candidate probe inside the dispatch);
+                # champion rows replace heavy terms' posting scans —
+                # at multi-million-doc caps the scatter aggregation is
+                # the bottleneck (~43M postings/s)
+                vec_int8 = idx.vector.int8_device_rows()
+                if vec_int8 is None:
+                    return None
+                if use_pruned:
+                    # pruned hybrid: candidate union + exact rescore, no
+                    # dense doc-space accumulators (the 10M-tier path)
+                    if not small_filter:
+                        self._tls.count_estimated = True
+                    # hybrid pruned facets (search() device_facet_specs)
+                    self._tls.pruned_plan = plan
+                    self._tls.pruned_thr = thr
+                    self._tls.hybrid_q = q
+                    mask_kw = {}
+                    if mask is not None:
+                        mask_kw = dict(
+                            mask=mask,
+                            mask_key=self._mask_cache_key(idx, params),
+                        )
+                    from ..ops.bm25 import round_up_pow2
+
+                    capb = round_up_pow2(cap, 128)
+                    out = ex.search_topk_hybrid_int8_pruned(
+                        idx.string, [plan], [idx.document_count()], cap,
+                        k, vec_int8, idx.vector.int8_doc2row(capb), q,
+                        [mode.similarity],
+                        exact=mode.exact,
+                        thresholds=[thr] if thr is not None else None,
+                        omc=omc_arr, omc_key=(idx.uid, idx.omc_version),
+                        rescale=idx.vector.config.score_rescale,
+                        **mask_kw,
+                    )
+                else:
+                    # champion rows bake non-exact tf — skip for exact
+                    # and for facet bitmaps (membership must match the
+                    # plain scorer exactly)
+                    if not mode.exact and not want_bitmap:
+                        champ_planned = self._plan_fulltext(
+                            idx, mode, params, use_champions=True
+                        )
+                        if champ_planned is not None:
+                            _, plan = champ_planned
+                    out = ex.search_topk_hybrid_int8(
+                        idx.string, [plan], [idx.document_count()], cap, k,
+                        vec_int8, q, [mode.similarity],
+                        exact=mode.exact,
+                        doc_masks=[mask] if mask is not None else None,
+                        thresholds=[thr] if thr is not None else None,
+                        omc=omc_arr, omc_key=(idx.uid, idx.omc_version),
+                        rescale=idx.vector.config.score_rescale,
+                        with_bitmap=want_bitmap,
+                    )
+                    if want_bitmap and out is not None:
+                        self._tls.match_mask = out[3][0]
+                        out = out[:3]
         vals, ids, counts = out
         self._tls.fused_count = int(counts[0])
         self._tls.omc_applied = omc_arr is not None
@@ -1158,9 +1185,57 @@ class ReadSide:
             if v > float("-inf") and v > 0
         }
 
+    def _hybrid_on_mesh(self, coll, idx, params, mode, plan, q, thr, mask,
+                        cap, k, omc_arr, pruned, small_filter, want_bitmap):
+        """The doc-sharded fused hybrid over the mesh (SURVEY §5.8):
+        at the int8/IVF tier with pruning, the sharded pruned hybrid
+        (per-shard candidate union + exact rescore, no dense tail);
+        else the dense sharded step, which needs flat vectors (None
+        otherwise, so the caller falls back)."""
+        sharded = self._fused_executor(coll, idx)
+        if pruned:
+            mask_kw = {}
+            if mask is not None:
+                mask_kw = dict(
+                    mask=mask,
+                    mask_key=self._mask_cache_key(idx, params),
+                )
+            out = sharded.search_topk_hybrid_int8_pruned(
+                idx.string, [plan], [idx.document_count()], cap, k,
+                idx.vector, q, [mode.similarity],
+                exact=mode.exact,
+                thresholds=[thr] if thr is not None else None,
+                omc=omc_arr, omc_key=(idx.uid, idx.omc_version),
+                rescale=idx.vector.config.score_rescale,
+                **mask_kw,
+            )
+            if out is not None:
+                # hybrid pruned facets (search() device_facet_specs)
+                self._tls.pruned_plan = plan
+                self._tls.pruned_thr = thr
+                self._tls.hybrid_q = q
+                if not small_filter:
+                    self._tls.count_estimated = True
+            return out
+        out = sharded.search_topk_hybrid(
+            idx.string, [plan], [idx.document_count()], cap, k,
+            idx.vector, q, [mode.similarity],
+            exact=mode.exact,
+            doc_masks=[mask] if mask is not None else None,
+            thresholds=[thr] if thr is not None else None,
+            omc=omc_arr, omc_key=(idx.uid, idx.omc_version),
+            rescale=idx.vector.config.score_rescale,
+            with_bitmap=want_bitmap,
+        )
+        if want_bitmap and out is not None:
+            self._tls.match_mask = out[3][0]
+            out = out[:3]
+        return out
+
     def _pruned_eligible(self, idx: ReadIndex, mask, k: int,
                          mode=None, params=None,
                          exact_counts: bool = False,
+                         mesh_ok: bool = False,
                          mask_sel: Optional[int] = None) -> bool:
         """Pruned two-phase scoring (ops/pruned.py) eligibility: the
         dense path keeps impact_cap opt-ins and deep pagination beyond
@@ -1169,7 +1244,11 @@ class ReadSide:
         the mask gathers into nomination + rescore (exact filtered-df
         IDF, ops/bm25.py:22 semantics), and a filter selecting <=
         PRUNED_CANDIDATES docs becomes the candidate set itself (exact
-        results AND counts).
+        results AND counts). The sharded mesh runs the same filtered
+        pruned paths (parallel/engine passes the doc-sharded mask into
+        per-shard nomination + rescore; small filters shard the
+        cand-given set); callers whose route has no mesh counterpart
+        leave mesh_ok False.
         Additionally (the kernel's documented preconditions):
         - tolerance IS eligible: with_prefix plans keep fuzzy variant
           ranges uncoalesced (doc-sorted per range) and the rescore's
@@ -1186,6 +1265,8 @@ class ReadSide:
         if cfg.pruning == "off":
             return False
         if cfg.impact_cap:
+            return False
+        if self.sharded_mesh is not None and not mesh_ok:
             return False
         if k > 512:
             return False
@@ -1583,7 +1664,11 @@ class ReadSide:
         plan = idx.string.plan_query(
             plan_tokens, props, params.boost,
             tolerance=(0 if mode.exact else mode.tolerance) or None,
-            impact_cap=self.config.reader_side.impact_cap,
+            # impact_cap truncation points don't align to the sharded
+            # executor's boundary prefix (and the mesh doesn't need the
+            # knob: work is already 1/D a shard)
+            impact_cap=None if self.sharded_mesh is not None
+            else self.config.reader_side.impact_cap,
             field_params=fp,
             token_weights=token_weights,
             use_champions=use_champions,
@@ -1679,7 +1764,7 @@ class ReadSide:
             and self._pruned_eligible(
                 idx, mask, k, mode, params,
                 exact_counts=want_exact_counts,
-                mask_sel=mask_sel,
+                mesh_ok=True, mask_sel=mask_sel,
             )
         )
         # champion rows apply only on the single-device fused DENSE path
@@ -1688,7 +1773,7 @@ class ReadSide:
             idx, mode, params,
             use_champions=fused_ok and not use_pruned and not want_bitmap
             and sort_spec is None and group_spec is None
-            and not mode.exact,
+            and self.sharded_mesh is None and not mode.exact,
             with_prefix=use_pruned,
         )
         if planned is None:
@@ -1815,10 +1900,19 @@ class ReadSide:
         return {int(d): float(s[d]) for d in nz}
 
     def _fused_executor(self, coll: CollectionReader, idx: ReadIndex):
-        """Executor for the fused fulltext path (the JAX read side's
-        seam for the doc-sharded mesh executor; the port has only the
-        single-device one)."""
-        return coll.executor(idx.index_id)
+        """Executor for the fused fulltext path: the doc-sharded mesh
+        executor when a mesh is configured, the single-device one
+        otherwise. Both share the search_topk contract."""
+        if self.sharded_mesh is None:
+            return coll.executor(idx.index_id)
+        ex = coll._sharded_executors.get(idx.index_id)
+        if ex is None:
+            from ..parallel.engine import ShardedStringExec
+
+            ex = coll._sharded_executors[idx.index_id] = ShardedStringExec(
+                self.sharded_mesh
+            )
+        return ex
 
     def _vector_scores(
         self,
@@ -2299,6 +2393,8 @@ class ReadSide:
         if self._consumer:
             self._consumer.join(timeout=5)
         self.commit(force=True)
+        if self.sharded_mesh is not None:
+            self.sharded_mesh.close()
 
 
 # ---------------------------------------------------------------------------
@@ -2582,11 +2678,14 @@ def _search_batch_sorted(
                 if not p.where.is_empty() else None
             )
             doc_masks.append(idx.combined_mask(fm))
-    ex = getattr(self, "_shared_executor", None)
-    if ex is None:
-        from ..index.search_exec import SharedBatchExecutor
+    if self.sharded_mesh is not None:
+        ex = self._fused_executor(coll, idx)
+    else:
+        ex = getattr(self, "_shared_executor", None)
+        if ex is None:
+            from ..index.search_exec import SharedBatchExecutor
 
-        ex = self._shared_executor = SharedBatchExecutor(self.device)
+            ex = self._shared_executor = SharedBatchExecutor(self.device)
     col_ver = col.version  # read BEFORE the snapshot (stale-key safety)
     vals_h, present_h = col.dense_values(cap)
     max_k = max(p.limit + p.offset for p in params_list)
@@ -2765,6 +2864,7 @@ def _search_batch_index(
         and self._pruned_eligible(
             idx, shared_mask, max_k, mode=first.mode, params=first,
             exact_counts=want_exact_counts and not hybrid_pruned,
+            mesh_ok=True,
         )
         and (hybrid_pruned or want_exact_counts
              or all(p.mode.threshold is None for p in params_list))
@@ -2802,20 +2902,32 @@ def _search_batch_index(
             # mesh — the batch analog of the per-query int8 branch in
             # _hybrid_fused
             n_list = [idx.document_count()] * len(plans)
-            from ..ops.bm25 import round_up_pow2
+            if self.sharded_mesh is not None:
+                pex = self._fused_executor(coll, idx)
+                out = pex.search_topk_hybrid_int8_pruned(
+                    idx.string, plans, n_list, cap, max(max_k, 1),
+                    idx.vector, hybrid_args["queries"],
+                    hybrid_args["similarities"], exact=exact,
+                    omc=idx.omc_array(),
+                    omc_key=(idx.uid, idx.omc_version),
+                    rescale=hybrid_args["rescale"],
+                    **mask_kw,
+                )
+            else:
+                from ..ops.bm25 import round_up_pow2
 
-            pex = coll.executor(idx.index_id)
-            out = pex.search_topk_hybrid_int8_pruned(
-                idx.string, plans, n_list, cap, max(max_k, 1),
-                hybrid_args["vec_rows_int8"],
-                idx.vector.int8_doc2row(round_up_pow2(cap, 128)),
-                hybrid_args["queries"],
-                hybrid_args["similarities"], exact=exact,
-                omc=idx.omc_array(),
-                omc_key=(idx.uid, idx.omc_version),
-                rescale=hybrid_args["rescale"],
-                **mask_kw,
-            )
+                pex = coll.executor(idx.index_id)
+                out = pex.search_topk_hybrid_int8_pruned(
+                    idx.string, plans, n_list, cap, max(max_k, 1),
+                    hybrid_args["vec_rows_int8"],
+                    idx.vector.int8_doc2row(round_up_pow2(cap, 128)),
+                    hybrid_args["queries"],
+                    hybrid_args["similarities"], exact=exact,
+                    omc=idx.omc_array(),
+                    omc_key=(idx.uid, idx.omc_version),
+                    rescale=hybrid_args["rescale"],
+                    **mask_kw,
+                )
             if out is not None:
                 vals, ids, counts = out
                 pairs_per_query = [
@@ -2828,7 +2940,10 @@ def _search_batch_index(
                 ]
                 return pairs_per_query, counts, not small_shared
         elif plans:
-            pex = coll.executor(idx.index_id)
+            if self.sharded_mesh is not None:
+                pex = self._fused_executor(coll, idx)
+            else:
+                pex = coll.executor(idx.index_id)
             out = pex.search_topk_pruned(
                 idx.string, plans,
                 [idx.document_count()] * len(plans),
@@ -2856,20 +2971,51 @@ def _search_batch_index(
 
     # OMC multipliers apply on-device before top-k (ADVICE r1: applying
     # them to the post-top-k candidate set can drop boosted docs)
-    out = ex.search_topk_shared(
-        idx.string, token_lists, props, first.boost,
-        idx.document_count(), cap, max(max_k, 1),
-        thresholds=thresholds,
-        exact=exact,
-        tolerance=tolerance,
-        impact_cap=self.config.reader_side.impact_cap,
-        doc_masks=doc_masks,
-        field_params=fp,
-        omc=idx.omc_array(),
-        omc_key=(idx.uid, idx.omc_version),
-        token_weight_of=token_weight_of or None,
-        **hybrid_args,
-    )
+    out = None
+    if self.sharded_mesh is not None:
+        # the batched API rides the mesh: shared term-dedup scoring per
+        # doc shard with psum'd global df, one finalize + all_gather
+        # top-k merge; hybrid tails shard the flat OR int8/IVF vector
+        # layouts (ensure_vectors_int8)
+        sharded = getattr(self, "_shared_executor_sharded", None)
+        if sharded is None:
+            from ..parallel.engine import ShardedBatchExec
+
+            sharded = self._shared_executor_sharded = ShardedBatchExec(
+                self.sharded_mesh
+            )
+        out = sharded.search_topk_shared(
+            idx.string, token_lists, props, first.boost,
+            idx.document_count(), cap, max(max_k, 1),
+            thresholds=thresholds,
+            exact=exact,
+            tolerance=tolerance,
+            impact_cap=self.config.reader_side.impact_cap,
+            doc_masks=doc_masks,
+            field_params=fp,
+            omc=idx.omc_array(),
+            omc_key=(idx.uid, idx.omc_version),
+            token_weight_of=token_weight_of or None,
+            vector_index=idx.vector if shared_kind == "hybrid" else None,
+            queries=hybrid_args.get("queries"),
+            similarities=hybrid_args.get("similarities"),
+            rescale=hybrid_args.get("rescale"),
+        )
+    if out is None:
+        out = ex.search_topk_shared(
+            idx.string, token_lists, props, first.boost,
+            idx.document_count(), cap, max(max_k, 1),
+            thresholds=thresholds,
+            exact=exact,
+            tolerance=tolerance,
+            impact_cap=self.config.reader_side.impact_cap,
+            doc_masks=doc_masks,
+            field_params=fp,
+            omc=idx.omc_array(),
+            omc_key=(idx.uid, idx.omc_version),
+            token_weight_of=token_weight_of or None,
+            **hybrid_args,
+        )
     vals, ids, counts = out
     pairs_per_query: List[List[Tuple[int, float]]] = []
     for qi in range(len(params_list)):

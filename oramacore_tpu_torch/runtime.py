@@ -104,7 +104,12 @@ def build_orama(
     sync_embeddings: bool = False,
     start_consumer: bool = True,
     llm_resolve_mode=None,
+    mesh_devices=None,
 ) -> Orama:
+    """The runtime of `config` on `device`. `mesh_devices` names the
+    read side's mesh devices where `reader_side.sharded_shards` > 1 (a
+    device may repeat; ReadSide lists the distinct CUDA devices
+    otherwise)."""
     device = resolve_device(device)
     from .embeddings.encoder import (
         register_bundled_checkpoints,
@@ -172,12 +177,14 @@ def build_orama(
             read_side = ReadSide(
                 config, receiver_factory, embeddings, nlp,
                 llm_resolve_mode=llm_resolve_mode, device=device,
+                mesh_devices=mesh_devices,
             )
     if role == "reader":
         _, receiver_factory = channel_creator(config.reader_side.input)
         read_side = ReadSide(
             config, receiver_factory, embeddings, nlp,
             llm_resolve_mode=llm_resolve_mode, device=device,
+            mesh_devices=mesh_devices,
         )
 
     # the sandboxed hook runtime needs no LLM — attach it unconditionally

@@ -1,11 +1,11 @@
-"""Head widths the attention kernels do not take, on the CPU.
+"""Head widths the tensor-core attention kernels do not take, on the CPU.
 
 `ops/attention.py` routes a head width by shape before any launch
 (`route`): a kernel width (16, 32, 64, 128) launches as it is, a width
 under 128 is zero-padded to the next kernel width and launched with the
-true width's divisor, and a width above 128 is refused on the card
-(ValueError before any launch) while a CPU tensor runs the plain
-version at any width. Here:
+true width's divisor, and a width above 128 launches the wide instances
+(`launch_wide`, `launch_backward_wide`) at its true width, while a CPU
+tensor runs the plain version at any width. Here:
 
 - padding, the plain version at the padded width with the true divisor,
   and slicing give the plain version at the true width (forward and
@@ -13,8 +13,9 @@ version at any width. Here:
   gradient are zero;
 - the wrappers, with the device taken for CUDA, hand the launchers the
   padded tensors and the true divisor (the launchers replaced by the
-  plain arithmetic they run), and at hd 160 raise before reaching a
-  launcher; CPU tensors at hd 160 run the plain version, counted.
+  plain arithmetic they run), and at hd 160, 256 and 320 hand the wide
+  launchers the true tensors; CPU tensors at hd 160 run the plain
+  version, counted.
 """
 
 from __future__ import annotations
@@ -45,7 +46,7 @@ def test_routes_and_padded_widths():
                                         129, 160, 256)} == {
         1: "padded", 8: "padded", 16: "kernel", 24: "padded", 32: "kernel",
         48: "padded", 64: "kernel", 96: "padded", 128: "kernel",
-        129: "refused", 160: "refused", 256: "refused"}
+        129: "wide", 160: "wide", 256: "wide"}
     assert [at.padded_width(hd) for hd in (8, 17, 48, 96, 128, 160)] == [
         16, 32, 64, 128, 128, None]
 
@@ -100,9 +101,21 @@ def _as_if_on_the_card(monkeypatch):
         return (at.encoder_attention_backward_plain(
             qkv, mask, dctx, n_heads, div_hd=div_hd), None)
 
+    def launch_wide(qkv, mask, n_heads):
+        B, L, D, hd = at.plain_shapes(qkv, mask, n_heads)
+        calls.append(("wide forward", hd, None))
+        return at.encoder_attention_plain(qkv, mask, n_heads)
+
+    def launch_backward_wide(qkv, mask, dctx, n_heads):
+        B, L, D, hd = at.plain_shapes(qkv, mask, n_heads)
+        calls.append(("wide backward", hd, None))
+        return at.encoder_attention_backward_plain(qkv, mask, dctx, n_heads)
+
     monkeypatch.setattr(at, "_device_of", lambda ts: torch.device("cuda"))
     monkeypatch.setattr(at, "launch", launch)
     monkeypatch.setattr(at, "launch_backward", launch_backward)
+    monkeypatch.setattr(at, "launch_wide", launch_wide)
+    monkeypatch.setattr(at, "launch_backward_wide", launch_backward_wide)
     return calls
 
 
@@ -131,17 +144,22 @@ def test_kernel_widths_launch_as_before(monkeypatch):
     assert calls == [("forward", 32, None), ("backward", 32, None)]
 
 
-def test_widths_above_128_are_refused_on_the_card_before_any_launch(
-        monkeypatch):
-    qkv, mask, dctx, H = _inputs(160, seed=160, H=2, L=8)
+@pytest.mark.parametrize("hd", [160, 256, 320])
+def test_widths_above_128_launch_the_wide_kernels(hd, monkeypatch):
+    """Above 128 the wrappers hand the wide launchers the tensors at their
+    true width (no padding), forward and backward, and run no plain
+    version."""
+    qkv, mask, dctx, H = _inputs(hd, seed=hd, H=2, L=8)
+    want = at.encoder_attention_plain(qkv, mask, H)
+    want_d = at.encoder_attention_backward_plain(qkv, mask, dctx, H)
     calls = _as_if_on_the_card(monkeypatch)
-    before = dict(at.LAUNCHES)
     plain = at.PLAIN_WIDTH_CALLS["encoder_attention_plain"]
-    with pytest.raises(ValueError, match="head width 160"):
-        at.encoder_attention(qkv, mask, H)
-    with pytest.raises(ValueError, match="head width 160"):
-        at.encoder_attention_backward(qkv, mask, dctx, H)
-    assert calls == [] and at.LAUNCHES == before
+    torch.testing.assert_close(at.encoder_attention(qkv, mask, H), want,
+                               rtol=0, atol=0)
+    torch.testing.assert_close(at.encoder_attention_backward(qkv, mask, dctx,
+                                                             H),
+                               want_d, rtol=0, atol=0)
+    assert calls == [("wide forward", hd, None), ("wide backward", hd, None)]
     assert at.PLAIN_WIDTH_CALLS["encoder_attention_plain"] == plain
 
 

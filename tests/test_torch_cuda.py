@@ -1126,13 +1126,14 @@ def _bert_state(rng, D, n_layers, V=50):
     return state
 
 
-def test_encoder_refuses_other_head_widths_on_the_card(cuda):
-    """A BertEncoder of head width 16 runs on the card through the
-    attention kernel (once a layer) and equals its CPU run; head width 8,
-    which the kernel does not take, runs on the card through the kernel
-    on heads zero-padded to 16 (once a layer) and equals its CPU run (the
-    plain attention); head width 160, above every kernel width, is
-    refused on the card before any launch (ValueError)."""
+def test_encoder_runs_every_head_width_on_the_card(cuda):
+    """No head width is refused any more. A BertEncoder of head width 16
+    runs on the card through the attention kernel (once a layer) and
+    equals its CPU run; head width 8, which the kernel does not take, runs
+    on the card through the kernel on heads zero-padded to 16 (once a
+    layer) and equals its CPU run (the plain attention); head width 160,
+    above every tensor-core width and once refused, runs through the
+    wide kernel (once a layer) and equals its CPU run."""
     from oramacore_tpu_torch.embeddings import encoder as enc
     from oramacore_tpu_torch.ops import attention as at
 
@@ -1154,13 +1155,16 @@ def test_encoder_refuses_other_head_widths_on_the_card(cuda):
         assert torch.isfinite(got).all()
         torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-5)
     assert at.PLAIN_WIDTH_CALLS["encoder_attention_plain"] == plain
-    wide = enc.BertEncoder.from_state(_bert_state(rng, 320, 1), 2).to(cuda)
-    launches = dict(at.LAUNCHES)
-    with torch.inference_mode(), pytest.raises(ValueError,
-                                               match="head width 160"):
-        wide(ids.to(cuda), mask.to(cuda))
-    assert at.LAUNCHES == launches
-    assert at.PLAIN_WIDTH_CALLS["encoder_attention_plain"] == plain
+    wide_state = _bert_state(rng, 320, 1)
+    with torch.inference_mode():
+        want = enc.BertEncoder.from_state(wide_state, 2)(ids, mask)
+        launches = at.LAUNCHES["encoder_attention"]
+        got = enc.BertEncoder.from_state(wide_state, 2).to(cuda)(
+            ids.to(cuda), mask.to(cuda))
+        torch.cuda.synchronize()
+    assert at.LAUNCHES["encoder_attention"] == launches + 1
+    assert at.PLAIN_WIDTH_CALLS["encoder_attention_plain"] == plain + 1
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-5)
 
 
 @pytest.mark.parametrize("hd", [8, 48, 96])
@@ -1192,22 +1196,32 @@ def test_encoder_attention_padded_head_widths(cuda, hd):
                                rtol=tb.BWD_TOL, atol=tb.BWD_TOL)
 
 
-def test_encoder_attention_above_128_is_refused_on_the_card(cuda):
-    """Head width 160: refused (ValueError) before any launch, forward and
-    backward; nothing runs the plain version on the card."""
+@pytest.mark.parametrize("hd", [160, 256, 320])
+def test_encoder_attention_wide_head_widths(cuda, hd):
+    """Head widths above 128: the wide instances (f32, the head's columns
+    in chunks of 128); forward within 1e-5 of the f64 reference, the
+    backward within 5e-5 (BWD_TOL), one launch of each kernel, and
+    nothing runs the plain version on the card."""
     from oramacore_tpu_torch.benches import train_bench as tb
+    from oramacore_tpu_torch.benches.encoder_bench import attention_reference
     from oramacore_tpu_torch.ops import attention as at
 
-    case = dict(B=4, L=33, H=2, hd=160, padded=1)
-    qkv, mask, dctx = tb.backward_inputs(case, 160, cuda)
+    case = dict(B=4, L=200 if hd == 256 else 33, H=2, hd=hd, padded=1)
+    qkv, mask, dctx = tb.backward_inputs(case, hd, cuda)
     before = dict(at.LAUNCHES)
     plain = at.PLAIN_WIDTH_CALLS["encoder_attention_plain"]
-    with pytest.raises(ValueError, match="head width 160"):
-        at.encoder_attention(qkv, mask, 2)
-    with pytest.raises(ValueError, match="head width 160"):
-        at.encoder_attention_backward(qkv, mask, dctx, 2)
-    assert at.LAUNCHES == before
+    got = at.encoder_attention(qkv, mask, 2)
+    dqkv = at.encoder_attention_backward(qkv, mask, dctx, 2)
+    torch.cuda.synchronize()
+    assert {k: at.LAUNCHES[k] - before[k] for k in before} == {
+        "encoder_attention": 1, "encoder_attention_backward_dq": 1,
+        "encoder_attention_backward_dkv": 1}
     assert at.PLAIN_WIDTH_CALLS["encoder_attention_plain"] == plain
+    torch.testing.assert_close(got.double(), attention_reference(qkv, mask, 2),
+                               rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(dqkv.double(),
+                               tb.backward_reference(qkv, mask, dctx, 2),
+                               rtol=tb.BWD_TOL, atol=tb.BWD_TOL)
 
 
 def test_encoder_attention_refuses_what_it_cannot_run(cuda):
@@ -1438,3 +1452,47 @@ def test_read_side_on_the_card_equals_the_cpu(cuda, pruning, tmp_path):
             bad += cs.rs_result_errors(a, b, f"{name}[{qi}]")
     assert not bad, "\n".join(bad[:20])
     assert sum(r.count for r in got[cuda]["fulltext 0"]) > 0
+
+
+def test_mesh_on_one_card_equals_the_single_device(cuda):
+    """The doc-sharded mesh with its shards on the one card
+    (`mesh_devices=[cuda] * 4`): dense, filtered, faceted, sorted,
+    grouped, hybrid and pruned searches and batches equal the single
+    device's, and each full-text token's kernel launches once a shard."""
+    from oramacore_tpu_torch.ops import score_windows as sw
+
+    from .torch_mesh_cases import assert_groups_match, assert_hits_match, run
+
+    rng = np.random.default_rng(5)
+    words = [f"w{i}" for i in range(40)]
+    docs = [{"id": str(i), "t": " ".join(rng.choice(words, 4)),
+             "b": " ".join(rng.choice(words, 6)), "n": int(i % 7)}
+            for i in range(1500)]
+    qs = [{"term": "w1 w2"}, {"term": "w3", "where": {"n": {"gt": 2}}},
+          {"term": "w4 w5", "facets": {"n": {"ranges": [
+              {"from": 0, "to": 3}, {"from": 3, "to": 7}]}}},
+          {"term": "w6", "sortBy": {"property": "n", "order": "asc"}},
+          {"term": "w7", "groupBy": {"properties": ["n"], "maxResults": 3}},
+          {"mode": "hybrid", "term": "w8 w9", "similarity": 0.1},
+          {"term": "w1 w2", "exactCount": True}]
+    batch = [{"term": f"w{i} w{i + 1}"} for i in range(16)]
+
+    def count(orama, coll):
+        return sw.LAUNCHES["score_ranges_accumulate"]
+
+    steps = [("commit", None), ("search", qs), ("batch", batch),
+             ("call", lambda o, c: sw.reset_launch_counts()),
+             ("search", qs[:1]), ("call", count)]
+    single = run("torch", 0, docs, steps, device=cuda)
+    mesh = run("torch", 4, docs, steps, device=cuda)
+    for i, cases in ((1, qs), (2, batch)):
+        for q, a, b in zip(cases, single[i], mesh[i]):
+            assert_hits_match(a, b, q, tol=1e-4)
+            assert a["facets"] == b["facets"], q
+            if a["groups"]:
+                assert_groups_match(a, b, q)
+    assert single[5] > 0 and mesh[5] == 4 * single[5]
+    pruned = run("torch", 4, docs, steps[:2], pruning="on", device=cuda)
+    single_p = run("torch", 0, docs, steps[:2], pruning="on", device=cuda)
+    for q, a, b in zip(qs, single_p[1], pruned[1]):
+        assert_hits_match(a, b, q, tol=1e-4, counts=not a["estimated"])

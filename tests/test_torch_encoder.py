@@ -244,8 +244,8 @@ def test_forward_matches_bert_forward(D, H, n_layers):
     """Seeded numpy weights through params_from_jax against bert_forward,
     with padded tokens and a batch row with no token, at head widths 32,
     64, 16 and 128 (the kernel's), 8 and 96 (which the card runs
-    zero-padded) and 160 (above 128, which the card refuses: the plain
-    attention, counted once a layer in PLAIN_WIDTH_CALLS)."""
+    zero-padded) and 160 (above 128, the card's wide route: on the CPU
+    the plain attention, counted once a layer in PLAIN_WIDTH_CALLS)."""
     rng = np.random.default_rng(D + H + n_layers)
     params = _seeded_params(rng, 50, D, 2 * D, n_layers)
     B, L = 4, 16
@@ -259,7 +259,7 @@ def test_forward_matches_bert_forward(D, H, n_layers):
     with torch.inference_mode():
         got = model(torch.from_numpy(ids).long(),
                     torch.from_numpy(mask)).numpy()
-    plain = at.route(D // H) == "refused"
+    plain = at.route(D // H) == "wide"
     assert at.PLAIN_WIDTH_CALLS["encoder_attention_plain"] - before == \
         (n_layers if plain else 0)
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)

@@ -167,6 +167,25 @@ _NO_JAX_SCRIPT = textwrap.dedent("""
     # facets count the unfiltered matches (the reference's facet quirk)
     assert res.count == 5 and res.facets["n"].values == {"0-9": 10}, res
     orama.stop()
+    # the doc-sharded mesh: the same collection on two CPU shards, and
+    # the toy sharded step
+    cfg.reader_side.sharded_shards = 2
+    orama = build_orama(cfg, device="cpu", sync_embeddings=True,
+                        start_consumer=False, mesh_devices=["cpu", "cpu"])
+    assert orama.read_side.sharded_mesh is not None
+    res2 = orama.read_side.search("c", coll.read_api_key, SearchParams.from_json(
+        {"term": "fox", "where": {"n": {"lt": 5}}}))
+    assert res2.count == 5, res2
+    orama.stop()
+    from oramacore_tpu_torch import parallel as par
+    toy = par.make_toy_sharded_index(2, 64, 8, 16, 8)
+    step = par.make_sharded_search_step(par.build_mesh(1, 2, ["cpu"] * 2),
+                                        lr=8, cap=16, k=4)
+    ids, vals = step(*toy, torch.zeros((2, 1, 1), dtype=torch.int32),
+                     torch.full((2, 1, 1), 4, dtype=torch.int32),
+                     torch.ones((2, 1, 1)), torch.full((2, 1, 1), 25.0),
+                     torch.ones((2, 8)) / 8 ** 0.5, 32.0, 0.5)
+    assert ids.shape == (2, 4) and bool(torch.isfinite(vals).all())
     for name in ("oramacore_tpu_torch.runtime",
                  "oramacore_tpu_torch.config",
                  "oramacore_tpu_torch.metrics",
@@ -204,7 +223,10 @@ _NO_JAX_SCRIPT = textwrap.dedent("""
                  "oramacore_tpu_torch.benches.hybrid10m",
                  "oramacore_tpu_torch.benches.pallas_bench",
                  "oramacore_tpu_torch.ops.hybrid",
-                 "oramacore_tpu_torch.index.vector_index"):
+                 "oramacore_tpu_torch.index.vector_index",
+                 "oramacore_tpu_torch.parallel",
+                 "oramacore_tpu_torch.parallel.mesh",
+                 "oramacore_tpu_torch.parallel.engine"):
         assert name in sys.modules, name
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in (
         "aiohttp", "msgpack", "yaml", "transformers", "safetensors",
@@ -404,6 +426,51 @@ def test_cuda_executor_without_cuda_raises():
         require_cuda()
 
 
+def test_mesh_step_with_a_kernel_that_fails_to_build_raises(monkeypatch,
+                                                            tmp_path):
+    """A mesh step on tensors the wrapper takes for CUDA ones, with a
+    kernel whose build fails (no nvcc): every shard's launch raises, the
+    step aborts and re-raises in the caller, and no plain version runs
+    in the kernel's place."""
+    import numpy as np
+
+    from oramacore_tpu_torch.index.string_index import StringIndex
+    from oramacore_tpu_torch.index.plan import plan_query
+    from oramacore_tpu_torch.ops import _build, score_windows as sw
+    from oramacore_tpu_torch.parallel.engine import (
+        ShardedStringExec,
+        build_engine_mesh,
+    )
+
+    def no_nvcc():
+        raise RuntimeError("nvcc not found: cannot build the CUDA kernels")
+
+    plain = []
+    monkeypatch.setattr(_build, "_nvcc", no_nvcc)
+    monkeypatch.setattr(_build, "_libs", {})
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(sw, "_lib", None)
+    monkeypatch.setattr(sw, "_device_of", lambda ts: torch.device("cuda"))
+    monkeypatch.setattr(sw, "score_ranges_accumulate_plain",
+                        lambda *a, **kw: plain.append(1))
+    idx = StringIndex()
+    rng = np.random.default_rng(0)
+    for d in range(64):
+        idx.index_text(d, "body", [(str(w), []) for w in rng.choice(
+            ["alpha", "beta", "gamma"], 3)])
+    idx.commit()
+    mesh = build_engine_mesh(2, ["cpu", "cpu"])
+    try:
+        ex = ShardedStringExec(mesh)
+        plans = [plan_query(idx, ["alpha"], ["body"], {})]
+        before = dict(sw.LAUNCHES)
+        with pytest.raises(RuntimeError, match="nvcc"):
+            ex.search_topk(idx, plans, [64.0], 64, 5)
+        assert plain == [] and sw.LAUNCHES == before
+    finally:
+        mesh.close()
+
+
 def test_executor_needs_an_explicit_device():
     from oramacore_tpu_torch.index.search_exec import SharedBatchExecutor
     from oramacore_tpu_torch.index.vector_index import (
@@ -502,6 +569,15 @@ def test_kernel_table_covers_every_wrapper_and_perf_row():
     assert jitted == 7
     assert table["encoder_attention_backward_dq"]["replaces"] == \
         "scripts/train_semantic_encoder_v2.py:304"
+    # the kernels phase 20's mesh path launches (once a shard), whose
+    # rows of PERF.md's tables give their mesh launches
+    mesh = {n for n, k in table.items() if k["mesh"]}
+    assert mesh == {"score_ranges_accumulate", "rescore_bsearch",
+                    "rescore_worklist", "facet_hist", "encoder_attention"}
+    with open(os.path.join(REPO, "PERF.md")) as f:
+        rows = [line for line in f if line.startswith("|")]
+    for name in mesh:
+        assert any(f"`{name}`" in r and "phase 20" in r for r in rows), name
     pallas_files = set()
     for root, _, files in os.walk(os.path.join(REPO, "oramacore_tpu")):
         for fn in files:

@@ -216,9 +216,8 @@ def test_build_orama_without_a_device_needs_cuda(tmp_path):
 
 
 def test_unported_features_raise(tmp_path):
-    """Of what build_orama once refused, only the mesh is left (it is
-    switched off here, with fewer devices than shards, as the JAX read
-    side does). JWT providers, a secrets provider, hook settings and the
+    """Nothing build_orama once refused is left: the mesh is switched
+    off here, with fewer devices than shards, as the JAX read side does. JWT providers, a secrets provider, hook settings and the
     tcp-stream op log are built and attached."""
     from oramacore_tpu_torch.ai.hooks import HooksRuntime
     from oramacore_tpu_torch.auth import JwtManager
@@ -272,8 +271,10 @@ def test_unported_features_raise(tmp_path):
 
 
 def test_enough_devices_for_the_mesh_raise(tmp_path, monkeypatch):
-    """With as many CUDA devices as shards, the read side refuses rather
-    than serve unsharded (the mesh is ROADMAP.md §1.12)."""
+    """With as many CUDA devices as shards the read side once refused the
+    mesh; it now builds it over the distinct devices, as the JAX read
+    side builds it from `jax.devices()`, and `mesh_devices` names them
+    instead (a device may repeat)."""
     import oramacore_tpu_torch.read as port_read
     from oramacore_tpu_torch.config import ReaderSideConfig
 
@@ -285,9 +286,14 @@ def test_enough_devices_for_the_mesh_raise(tmp_path, monkeypatch):
     from oramacore_tpu_torch.utils.tokenizer import NLPService
 
     _, rx = channel_creator(None)
-    with pytest.raises(NotImplementedError, match=r"§1\.12"):
-        port_read.ReadSide(cfg, rx, EmbeddingsService(), NLPService(),
-                           device="cuda")
+    rs = port_read.ReadSide(cfg, rx, EmbeddingsService(), NLPService(),
+                            device="cuda")
+    assert rs.sharded_mesh.devices == [torch.device("cuda", i)
+                                       for i in range(4)]
+    rs = port_read.ReadSide(cfg, rx, EmbeddingsService(), NLPService(),
+                            device="cuda",
+                            mesh_devices=[torch.device("cpu")] * 4)
+    assert rs.sharded_mesh.devices == [torch.device("cpu")] * 4
 
 
 def test_set_hook_raises_and_stores_nothing(tmp_path):
