@@ -79,7 +79,12 @@ launch counts set to 0 just before it and read just after:
   into a `VectorIndex`; the shared BM25 batch (B=256) of query strings
   planned by `query_tokens`, its `score_ranges_accumulate` launches
   against the plain version, flat and IVF search (B=64) and the fused
-  hybrid (B=8);
+  hybrid (B=8); before them, the 14 Snowball locales of the text parser
+  (the port's own stemmers: the card's machine has no `nltk`) on their seeded
+  vocabularies (`oramacore_tpu_torch/benches/stem_vocab.py`, about 2,000
+  words each) held to the committed digests of NLTK's stems, and the
+  port's code parser on the sources of the repo's code-parser tests,
+  held to the outputs the CPU tests pin;
 - training: the attention's backward kernels
   (`encoder_attention_backward_dq`, `_dkv`) against their plain version
   in f64 at the cases of `oramacore_tpu_torch/benches/train_bench.py`
@@ -143,7 +148,17 @@ launch counts set to 0 just before it and read just after:
   read side, each kernel launched once a shard on each case (the query
   encoder once a search); and the head widths 160, 256 and 320,
   above the tensor-core attention kernels', through their f32
-  instances forward and backward (phase 14).
+  instances forward and backward (phase 14);
+- training at the full width of `scripts/train_semantic_encoder_tpu.py`
+  through `oramacore_tpu_torch/train/semantic_encoder_tpu.py` (6 layers,
+  width 256, 8 heads of 32, B=256 pairs as one (512, 32) batch a step,
+  400 of its 1,200 steps, seed 0): the three attention kernels at that
+  shape against their f64 references, timed beside their bound and
+  `scaled_dot_product_attention`'s forward and backward; step times, one
+  profiled step, the first steps held card against CPU (the first step's
+  gradients leaf by leaf, the losses, the parameters), the validation
+  probes of both tiers, and the checkpoint saved under `build/trained/`,
+  reloaded in `TorchTextEncoder` and probed again.
 
 Each `torch.profiler` reading is held to the wrappers' launch counts of
 the same call (`profile_once`): a profile that misses a launch gives no
@@ -271,6 +286,60 @@ TRAIN_COMPARE = 10        # first steps of the run held card against CPU
 TRAIN_LOSS_TOL = 1e-4     # |loss| card against CPU at each of those steps
 TRAIN_PARAM_TOL = 1e-5    # |parameter| card against CPU after them
 TRAIN_PASSAGES = 512      # passages embedded with the trained model
+
+# phase 21: training at scripts/train_semantic_encoder_tpu.py's full width
+# (train/semantic_encoder_tpu.py: 6 layers, 256 wide, B=256 pairs, L=32)
+TPU_TRAIN_STEPS = 400     # of the script's 1,200 (cut for time: at 1,200
+                          # the phase took 70.2 s, the host's batches and
+                          # launches pace a step at 46 ms)
+TPU_TRAIN_COMPARE = 3     # first steps of the run held card against CPU
+TPU_TRAIN_GRAD_REL = 1e-4  # |gradient| card against CPU at the first step,
+                           # of each leaf's largest
+TPU_TRAIN_OUT = os.path.join(ROOT, "build", "trained",
+                             "semantic-base-tpu-smoke")
+
+# the sources of tests/test_aux_components.py's code-parser tests, which
+# phase 15 parses with the port's utils/code_parser.py; the SHA-256 of its
+# outputs (code_parser_outputs) is pinned by tests/test_torch_code_parser.py
+# against the JAX package's outputs
+CODE_SOURCES = {
+    "tsx": """
+import React, { useState } from 'react';
+import { searchClient } from './lib/search';
+// renders the results list
+export default function SearchResults({ query }) {
+  const [items, setItems] = useState([]);
+  /* fetch on mount */
+  const fetchItems = async () => searchClient.find(query);
+  return <ResultList items={items} />;
+}
+class HelperThing {}
+""",
+    "lexer robustness": '''
+const API = "function fakeFn(x) { import bad from 'nope' }";
+// function commentedOut() {}
+const re = /function alsoNot\\(\\)/g;
+const tpl = `prefix ${ computeValue(realArg) } function neitherMe() {}`;
+const ratio = total / count / 2;  // divisions, not regexes
+import real, { useThing as useAliased } from "@scope/pkg";
+export const realFn = async ({ nested = { a: 1 }, flag = true }, rest) => 1;
+''',
+    "jsx and extends": '''
+class SearchBox extends BaseWidget {}
+const App = () => <ResultGrid items={items} pageSize={20} onSelect={go} />;
+''',
+}
+TOOL_SOURCES = [
+    "export default function run({ city, units = 'metric' }) { return 1; }",
+    "export default async (a, b) => a + b",
+    "function notExported() {}",
+    "export default function run({ city, opts = { a: 1, b: 2 }, "
+    "units = 'metric' }, extra) { return 1; }",
+    "export default async (query: string, limit: number = 10) => 1",
+    "export default x => x * 2",
+]
+CODE_PARSER_DIGEST = ("090f5852f1db0e8677380f1708e22f9b"
+                      "fbc6797fc35528a2ffe02313f5f26882")
 
 # phase 17: the runtime (build_orama -> WriteSide -> op log -> ReadSide)
 RS_DOCS = 262_144         # games documents (phase 15's corpus, seed 15)
@@ -2158,15 +2227,16 @@ def sdpa_ms(qkv, mask, H, reps):
     return ms, sdpa(qkv, mask, H).transpose(1, 2).reshape(B, L, D3 // 3)
 
 
-def attention_checks(device, card):
+def attention_checks(device, card, cases=None):
     """encoder_attention against its plain version in f64 at every case of
     benches/encoder_bench.py (the shapes phase 14's encoder gives it,
-    BGEBase's and BGESmall's geometry, padded batch rows, L=1), each timed
-    as CUDA-graph replays, warm and L2-cold, beside its bound (bytes
-    against FLOPs at the 3xTF32 tensor-core rate; the FFMA-rate bound in
-    brackets), the plain version and scaled_dot_product_attention on the
-    same inputs (its time and max abs error). The kernels line takes the
-    first case, SemanticBase at B=1024, L=64."""
+    BGEBase's and BGESmall's geometry, padded batch rows, L=1), or at
+    `cases`, each timed as CUDA-graph replays, warm and L2-cold, beside
+    its bound (bytes against FLOPs at the 3xTF32 tensor-core rate; the
+    FFMA-rate bound in brackets), the plain version and
+    scaled_dot_product_attention on the same inputs (its time and max abs
+    error); then, without `cases`, the head widths of width_checks. The
+    kernels line takes the first case, SemanticBase at B=1024, L=64."""
     import torch
 
     from oramacore_tpu_torch.benches import (
@@ -2186,7 +2256,7 @@ def attention_checks(device, card):
 
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=device)
     out, errs = {}, []
-    for i, (label, case) in enumerate(ATTENTION_CASES.items()):
+    for i, (label, case) in enumerate((cases or ATTENTION_CASES).items()):
         B, L, H, hd = case["B"], case["L"], case["H"], case["hd"]
         qkv, mask = attention_inputs(case, 140 + i, device)
         got = at.encoder_attention(qkv, mask, H)
@@ -2224,7 +2294,8 @@ def attention_checks(device, card):
                 library_ms=lib_ms)
     del flush
     out["encoder_attention"]["max_abs_err"] = max(errs)
-    width_checks(device, card)
+    if cases is None:
+        width_checks(device, card)
     return out
 
 
@@ -2736,6 +2807,71 @@ def ingest_routes(docs, parser, card):
               f"[{card}, host]", flush=True)
 
 
+def code_parser_outputs(mod) -> str:
+    """JSON of `mod.CodeParser().parse` on each of CODE_SOURCES and
+    `mod.extract_tool_params` on each of TOOL_SOURCES (mod: a code_parser
+    module, the port's here, the JAX package's in the CPU tests)."""
+    import dataclasses
+
+    parsed = {name: [dataclasses.astuple(t)
+                     for t in mod.CodeParser().parse(src)]
+              for name, src in CODE_SOURCES.items()}
+    tools = [mod.extract_tool_params(src) for src in TOOL_SOURCES]
+    return json.dumps({"parse": parsed, "tools": tools}, sort_keys=True)
+
+
+def code_parser_checks():
+    """The port's code parser (utils/code_parser.py, which no path of the
+    port imports) on the sources of the repo's code-parser tests, held to
+    the outputs the CPU tests pin (CODE_PARSER_DIGEST)."""
+    import hashlib
+
+    from oramacore_tpu_torch.utils import code_parser
+
+    out = code_parser_outputs(code_parser)
+    got = hashlib.sha256(out.encode("utf-8")).hexdigest()
+    kinds = {(k, v) for name in CODE_SOURCES
+             for k, v, *_ in json.loads(out)["parse"][name]}
+    check(got == CODE_PARSER_DIGEST and ("function", "realFn") in kinds
+          and ("function", "fakeFn") not in kinds,
+          f"code_parser: CodeParser().parse of {len(CODE_SOURCES)} sources "
+          f"({', '.join(CODE_SOURCES)}; {len(kinds)} tokens) and "
+          f"extract_tool_params of {len(TOOL_SOURCES)} equal the outputs the "
+          f"CPU tests pin (SHA-256 {got[:16]})")
+
+
+def snowball_checks(card):
+    """The 14 Snowball locales of the port's TextParser (its own copy of
+    NLTK's stemmers; the card's machine has no nltk): each parser stems its
+    locale's seeded vocabulary (benches/stem_vocab.py, about 2,000 words)
+    through tokenize_and_stem, held to the committed SHA-256 of NLTK's
+    stems; the route's words/s on the host."""
+    from oramacore_tpu_torch.benches import stem_vocab as sv
+    from oramacore_tpu_torch.types import Locale
+    from oramacore_tpu_torch.utils import snowball
+    from oramacore_tpu_torch.utils.tokenizer import TextParser
+
+    n, secs, bad = 0, 0.0, []
+    for lang in snowball.LANGUAGES:
+        parser = TextParser(Locale(lang), use_native=False)
+        words = sv.vocabulary(lang)
+        t0 = time.perf_counter()
+        parsed = parser.tokenize_and_stem(" ".join(words))
+        secs += time.perf_counter() - t0
+        n += len(words)
+        stems = [v[0] if v else t for t, v in parsed]
+        if parser.stemmer != "snowball" or len(parsed) != len(words) or \
+                sv.digest(words, stems) != sv.DIGESTS[lang]:
+            bad.append(lang)
+    check(not bad, f"Snowball: the {len(snowball.LANGUAGES)} locales' parsers "
+                   f"stem their seeded vocabularies ({n:,} words) as NLTK "
+                   f"3.10.0 does (per-locale SHA-256 equal to the committed "
+                   f"table){'; differ: ' + ', '.join(bad) if bad else ''}")
+    print(f"  Snowball route (Python, tokenize_and_stem, a fresh parser a "
+          f"locale): {n:,} words in {secs:.2f} s, {n / secs:,.0f} words/s "
+          f"[{card}, host]", flush=True)
+
+
 def phase_ingest(device, card):
     """Phase 15: JSON documents through flatten_document, build_doc_op
     (the native tokenizer's packed tokens) and index_text_packed (the
@@ -2787,6 +2923,12 @@ def phase_ingest(device, card):
                          []).append(loc.value)
     print("  stemmer by locale: " + "; ".join(
         f"{k}: {', '.join(v)}" for k, v in sorted(kinds.items())), flush=True)
+    check(sorted(kinds.get("snowball", [])) == sorted(
+        TextParser._SNOWBALL_LANGS),
+          f"the {len(TextParser._SNOWBALL_LANGS)} NLTK locales stem with "
+          f"Snowball (the port's own)")
+    snowball_checks(card)
+    code_parser_checks()
     parser = TextParser(Locale.EN)
 
     ingest_routes(docs[:INGEST_COMPARE], parser, card)
@@ -2937,9 +3079,10 @@ def phase_ingest(device, card):
 # training the text encoder (phase 16)
 # ---------------------------------------------------------------------------
 
-def backward_checks(device, card):
+def backward_checks(device, card, cases=None):
     """Both backward kernels against their f64 reference at every case of
-    benches/train_bench.py (the training call first), each timed as
+    benches/train_bench.py (the training call first), or at `cases`,
+    each timed as
     CUDA-graph replays, the pair and each part alone, warm and L2-cold,
     beside its bound (bytes against FLOPs at the 3xTF32 tensor-core rate,
     as the kernels run their products; the share of the f32 FFMA-rate
@@ -2969,7 +3112,7 @@ def backward_checks(device, card):
 
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=device)
     out, errs = {}, {"dq": [], "dkv": []}
-    for i, (label, case) in enumerate(BACKWARD_CASES.items()):
+    for i, (label, case) in enumerate((cases or BACKWARD_CASES).items()):
         B, L, H, hd = case["B"], case["L"], case["H"], case["hd"]
         D = H * hd
         qkv, mask, dctx = backward_inputs(case, 160 + i, device)
@@ -3129,18 +3272,12 @@ def phase_train(device, card):
         l_card = float(on_card.step(b_card)[0])
         l_cpu = float(on_cpu.step(b_cpu)[0])
         worst = max(worst, abs(l_card - l_cpu))
-    got = {k: p.detach().cpu() for k, p in on_card.model.named_parameters()}
-    want = dict(on_cpu.model.named_parameters())
-    pdiff = max(float((got[k] - w.detach()).abs().max())
-                for k, w in want.items())
-    moved = max(float((w.detach() - state0[k]).abs().max())
-                for k, w in want.items())
-    check(worst <= TRAIN_LOSS_TOL and pdiff <= TRAIN_PARAM_TOL,
+    held, what = params_card_vs_cpu(on_card, on_cpu, state0,
+                                    TRAIN_PARAM_TOL)
+    check(worst <= TRAIN_LOSS_TOL and held,
           f"{TRAIN_COMPARE} steps on the card (kernels) and on the CPU (plain "
           f"versions) from one set of parameters and the same batches: losses "
-          f"within {TRAIN_LOSS_TOL} (max |d| {worst:.3g}), parameters within "
-          f"{TRAIN_PARAM_TOL} (max |d| {pdiff:.3g}; the steps moved them up "
-          f"to {moved:.3g})")
+          f"within {TRAIN_LOSS_TOL} (max |d| {worst:.3g}), {what}")
     del on_card, on_cpu
 
     # serve the trained checkpoint
@@ -3180,6 +3317,154 @@ def phase_train(device, card):
     # the rows as the index holds them (insert normalizes them)
     phase_flat(vidx, bf16_round(vidx._committed_matrix), qb, device, card)
     return timings, launches
+
+
+def params_card_vs_cpu(on_card, on_cpu, start, tol):
+    """Phases 16 and 21: every parameter of the card's trainer within tol
+    of the CPU trainer's (max |d|). Returns (held, what)."""
+    got = {k: p.detach().cpu() for k, p in on_card.model.named_parameters()}
+    want = {k: p.detach() for k, p in on_cpu.model.named_parameters()}
+    worst = max(float((got[k] - w).abs().max()) for k, w in want.items())
+    moved = max(float((w - start[k]).abs().max()) for k, w in want.items())
+    return worst <= tol, (f"parameters within {tol} (max |d| {worst:.3g}; "
+                          f"the steps moved them up to {moved:.3g})")
+
+
+def grads_card_vs_cpu(on_card, on_cpu, rel):
+    """The gradients of the trainers' last step, leaf by leaf, card
+    against CPU: each within rel of the CPU leaf's largest magnitude (the
+    rule of tests/test_torch_train_tpu.py). Returns (held, what)."""
+    want = {k: p.grad for k, p in on_cpu.model.named_parameters()}
+    errs = {}
+    for k, p in on_card.model.named_parameters():
+        scale = max(float(want[k].abs().max()), 1e-12)
+        errs[k] = (float((p.grad.cpu() - want[k]).abs().max()), scale)
+    name = max(errs, key=lambda k: errs[k][0] / errs[k][1])
+    err, scale = errs[name]
+    return all(e <= rel * c for e, c in errs.values()), (
+        f"the first step's gradients of all {len(errs)} leaves within {rel} "
+        f"of each leaf's largest (worst {name}: max |d| {err:.3g} of "
+        f"{scale:.3g})")
+
+
+def phase_train_tpu(device, card):
+    """Phase 21: train/semantic_encoder_tpu.py at the full width of
+    scripts/train_semantic_encoder_tpu.py (6 layers, width 256, 8 heads of
+    32, B=256 pairs as one (512, 32) batch a step, seed 0): the attention
+    forward and both backward kernels at that shape against their f64
+    references, timed (CUDA-graph replays, L2-cold) beside the 3xTF32
+    bound and scaled_dot_product_attention's forward and backward; the
+    run (TPU_TRAIN_STEPS steps) with its launches, steps/s, median and p90
+    step, one profiled step (device ms, idle share; profiled launches held
+    to LAUNCHES) and peak memory; the validation probes of both tiers; the
+    first TPU_TRAIN_COMPARE steps card against CPU (losses, the first
+    step's gradients, then the parameters); the checkpoint saved
+    under build/, reloaded in TorchTextEncoder and probed again. Returns
+    the run's launch counts."""
+    import torch
+
+    from oramacore_tpu_torch.benches.train_bench import StepTimer
+    from oramacore_tpu_torch.embeddings import encoder as em
+    from oramacore_tpu_torch.train import semantic_encoder as se
+    from oramacore_tpu_torch.train import semantic_encoder_tpu as tpu
+
+    cfg = tpu.TpuTrainConfig(steps=TPU_TRAIN_STEPS)
+    case = dict(B=2 * cfg.batch, L=cfg.seq, H=cfg.heads,
+                hd=cfg.hidden // cfg.heads, padded=0)
+    label = (f"train_semantic_encoder_tpu B={case['B']} L={case['L']} "
+             f"H={case['H']} hd={case['hd']}")
+    attention_checks(device, card, {label: case})
+    backward_checks(device, card, {label: case})
+
+    print(f"  training: {cfg} (the script's defaults but the steps)",
+          flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer = tpu.TpuScriptTrainer(cfg, device)
+    timer = StepTimer()
+
+    def run():
+        timer.mark()
+        return trainer.run(log_every=200,
+                           log=lambda line: print(f"  {line}", flush=True),
+                           on_step=timer.mark)
+
+    logged, launches = counted("train_semantic_encoder_tpu", run)
+    secs = time.perf_counter() - t0
+    calls = cfg.steps * cfg.layers
+    check(all(launches[k] == calls for k in (
+        "encoder_attention", "encoder_attention_backward_dq",
+        "encoder_attention_backward_dkv")),
+        f"{cfg.steps} steps launched encoder_attention and both backward "
+        f"kernels {calls} times each (one encoder call x {cfg.layers} "
+        f"layers a step)")
+    step_ms = timer.step_ms()[10:]
+    print(f"  {cfg.steps} steps in {secs:.2f} s ({cfg.steps / secs:.2f} "
+          f"steps/s over the whole window, the host's batches and the "
+          f"model's set-up included); step (device timeline between steps, "
+          f"after step 10) median {float(np.median(step_ms)):.3f} ms, p90 "
+          f"{float(np.percentile(step_ms, 90)):.3f} ms; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB [{card}]",
+          flush=True)
+    losses = [row[1] for row in logged]
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"the loss fell from {losses[0]:.4f} to {losses[-1]:.4f} (pair "
+          f"accuracy {logged[0][2]:.3f} -> {logged[-1][2]:.3f})")
+    cos = trainer.validate()
+    check(True, "validation probes of both tiers: " + ", ".join(
+        f"cos({k.replace('~', ', ')}) {c:.3f}" for k, c in cos.items())
+          + " (each synonym beats its cross-concept word by more than 0.2)")
+    batch = trainer.next_batch()
+    # past the schedule's end the rate is 0: the profiled steps move
+    # Adam's moments only
+    before = {k: p.detach().clone() for k, p in
+              trainer.model.named_parameters()}
+    profile_once("one step of train_semantic_encoder_tpu",
+                 lambda: trainer.step(batch), card)
+    check(all(torch.equal(p, before[k]) for k, p in
+              trainer.model.named_parameters()),
+          "the profiled steps (rate 0 past the schedule) left the trained "
+          "parameters as they were")
+
+    # the first steps of the same run, card against CPU
+    state0 = tpu.init_state(cfg, len(tpu.vocab_tokens()),
+                            torch.Generator().manual_seed(se.SEED))
+    on_card = tpu.TpuScriptTrainer(cfg, device, state=state0)
+    on_cpu = tpu.TpuScriptTrainer(cfg, "cpu", state=state0)
+    worst = 0.0
+    t0 = time.perf_counter()
+    for i in range(TPU_TRAIN_COMPARE):
+        b_card, b_cpu = on_card.next_batch(), on_cpu.next_batch()
+        l_card = float(on_card.step(b_card)[0])
+        l_cpu = float(on_cpu.step(b_cpu)[0])
+        worst = max(worst, abs(l_card - l_cpu))
+        if i == 0:
+            # Adam divides a gradient by its running magnitude, so the
+            # parameters after these small steps cannot tell a gradient of
+            # the wrong size: hold the first step's gradients themselves
+            grads_held, grads_what = grads_card_vs_cpu(on_card, on_cpu,
+                                                       TPU_TRAIN_GRAD_REL)
+    held, what = params_card_vs_cpu(on_card, on_cpu, state0, TRAIN_PARAM_TOL)
+    check(worst <= TRAIN_LOSS_TOL and grads_held and held,
+          f"{TPU_TRAIN_COMPARE} steps at full width on the card (kernels) "
+          f"and on the CPU (plain versions, {time.perf_counter() - t0:.1f} s) "
+          f"from one set of parameters and the same batches: losses within "
+          f"{TRAIN_LOSS_TOL} (max |d| {worst:.3g}); {grads_what}; {what}")
+    del on_card, on_cpu
+
+    # save, reload in the serving encoder, probe again
+    trainer.save(TPU_TRAIN_OUT)
+    cos = tpu.reload_check(TPU_TRAIN_OUT, device)
+    enc = em.TorchTextEncoder(TPU_TRAIN_OUT, device)
+    check(enc.dim == cfg.hidden and enc.n_heads == cfg.heads
+          and enc.max_len == cfg.max_len
+          and len(enc.model.layers) == cfg.layers,
+          f"the checkpoint saved to build/trained/ and reloaded in "
+          f"TorchTextEncoder ({cfg.layers} layers, width {enc.dim}, "
+          f"{enc.n_heads} heads, max_position_embeddings {enc.max_len}): "
+          f"cos(car, automobile) {cos['car~automobile']:.3f} > cos(car, "
+          f"doctor) {cos['car~doctor']:.3f} + 0.2")
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -5342,41 +5627,54 @@ def main() -> int:
           f"cuda {torch.version.cuda}, {torch.cuda.device_count()} device(s)",
           flush=True)
 
-    print("[2] build the kernels", flush=True)
-    t0 = time.perf_counter()
-    _build.load_all()
+    # the kernels (one nvcc a source) and the native host libraries (g++)
+    # build in the background while [3] builds the host index
+    print("[2] build the kernels and the native host libraries (in the "
+          "background, while [3] builds the host index)", flush=True)
+    from concurrent.futures import ThreadPoolExecutor
+
+    from oramacore_tpu_torch import native
+    from oramacore_tpu_torch.native import _build as native_build
+
+    def seconds(fn):
+        t = time.perf_counter()
+        fn()
+        return time.perf_counter() - t
+
+    t_build = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        kernels_s = pool.submit(seconds, _build.load_all)
+        native_s = pool.submit(seconds, lambda: [load() for load in (
+            native.load_tokenizer, native.load_hash_encoder,
+            native.load_live_accum)])
+
+        print(f"[3] the {N_DOCS:,}-doc index (bench_bm25_1m)", flush=True)
+        t0 = time.perf_counter()
+        idx = build_index(N_DOCS, VOCAB, POSTINGS_PER_DOC, seed=0)
+        comm = idx.slab_split()[0]
+        n_champ = (0 if idx._champ_matrix is None
+                   else idx._champ_matrix.shape[0])
+        print(f"  host index build {time.perf_counter() - t0:.2f} s: "
+              f"{len(comm[0]):,} postings, {n_champ} champion rows",
+              flush=True)
+        batches = make_batches(1 + STEADY_BATCHES, BATCH, seed=1)
+        kernel_secs, native_secs = kernels_s.result(), native_s.result()
     for mod in wrapper_modules():
         mod.load_kernels()
     attention.load_backward_kernels()
-    for name, (seconds, log) in sorted(_build.BUILD_LOG.items()):
-        built = f"built by nvcc in {seconds:.1f} s" if log else \
+    for name, (secs, log) in sorted(_build.BUILD_LOG.items()):
+        built = f"built by nvcc in {secs:.1f} s" if log else \
             "loaded from build/kernels/ (built earlier from the same sources)"
         print(f"  {name}.cu: {built}", flush=True)
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas: {line.strip()}", flush=True)
-    print(f"  all kernels ready in {time.perf_counter() - t0:.1f} s", flush=True)
-    from oramacore_tpu_torch import native
-    from oramacore_tpu_torch.native import _build as native_build
-
-    t0 = time.perf_counter()
-    for load in (native.load_tokenizer, native.load_hash_encoder,
-                 native.load_live_accum):
-        load()
-    print(f"  native host libraries (g++ {' '.join(native_build.CXX_FLAGS)}) "
-          f"ready in {time.perf_counter() - t0:.1f} s: "
+    print(f"  all kernels ready in {kernel_secs:.1f} s; native host libraries "
+          f"(g++ {' '.join(native_build.CXX_FLAGS)}) in {native_secs:.1f} s: "
           + ", ".join(f"{k} {'built in %.1f s' % s if s else 'cached'}"
-                      for k, s in sorted(native_build.BUILD_LOG.items())),
-          flush=True)
-
-    print(f"[3] the {N_DOCS:,}-doc index (bench_bm25_1m)", flush=True)
-    t0 = time.perf_counter()
-    idx = build_index(N_DOCS, VOCAB, POSTINGS_PER_DOC, seed=0)
-    comm = idx.slab_split()[0]
-    n_champ = 0 if idx._champ_matrix is None else idx._champ_matrix.shape[0]
-    print(f"  host index build {time.perf_counter() - t0:.2f} s: "
-          f"{len(comm[0]):,} postings, {n_champ} champion rows", flush=True)
-    batches = make_batches(1 + STEADY_BATCHES, BATCH, seed=1)
+                      for k, s in sorted(native_build.BUILD_LOG.items()))
+          + f"; [2] and [3] took {time.perf_counter() - t_build:.1f} s "
+          f"together", flush=True)
 
     print("[4] kernels against their plain versions on the card", flush=True)
     from oramacore_tpu_torch.index.search_exec import SharedBatchExecutor
@@ -5532,6 +5830,18 @@ def main() -> int:
               flush=True)
     finally:
         served["orama"].stop()
+    del served, rs_out
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    print(f"[21] training at scripts/train_semantic_encoder_tpu.py's full "
+          f"width: 6 layers, 256 wide, B=256 pairs at L=32, "
+          f"{TPU_TRAIN_STEPS:,} of its 1,200 steps, through the attention "
+          f"kernels forward "
+          f"and backward, then the checkpoint reloaded", flush=True)
+    t_phase = time.perf_counter()
+    path_launches["train_tpu"] = phase_train_tpu(device, card)
+    print(f"  phase 21: {time.perf_counter() - t_phase:.1f} s", flush=True)
 
     kernels = {"kernels": [{
         "name": k["name"],

@@ -3,9 +3,16 @@
 This package runs the full-text (BM25F), vector and hybrid search paths,
 and the text encoder that embeds passages and queries for them
 (`embeddings/`), on an NVIDIA Hopper card, and the ingest text pipeline
-that feeds them on the host: the text parser (`utils/tokenizer.py`), the
+that feeds them on the host: the text parser (`utils/tokenizer.py`, with
+its own Snowball stemmers for 14 languages, `utils/snowball.py`), the
 write side's op bodies and embedding queue (`write/`) and three native
 C++ libraries (`native/`: tokenizer, hash encoder, live accumulator).
+It trains the encoder as both of the JAX package's training scripts do
+(`train/semantic_encoder.py` for `scripts/train_semantic_encoder_v2.py`,
+`train/semantic_encoder_tpu.py` for `scripts/train_semantic_encoder_tpu.py`),
+through the attention kernels forward and backward, and keeps a copy of
+the TS/JS code parser (`utils/code_parser.py`), which, as in the JAX
+package, no module imports.
 
 Around them runs the system's own entry point, as in the JAX package:
 `runtime.build_orama(config, device="cuda")` wires the write side

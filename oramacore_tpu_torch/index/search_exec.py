@@ -46,9 +46,13 @@ on its slice, and one top-k merge.
 The vectors these executors search come from the port's text encoder
 (`embeddings/encoder.py`), which the port also trains
 (`train/semantic_encoder.py`: the contrastive loop of
-`scripts/train_semantic_encoder_v2.py`, with the attention's forward and
-backward kernels on the card); a trained checkpoint loads through
-`load_torch_encoder` like a bundled one.
+`scripts/train_semantic_encoder_v2.py`; `train/semantic_encoder_tpu.py`:
+that of `scripts/train_semantic_encoder_tpu.py`, at 6 layers and width
+256; both with the attention's forward and backward kernels on the
+card); a trained checkpoint loads through `load_torch_encoder` like a
+bundled one. The terms they score come from the text parser
+(`utils/tokenizer.py`), which stems 14 languages with the port's own
+Snowball stemmers (`utils/snowball.py`) on the card as on the CPU.
 """
 
 from __future__ import annotations

@@ -290,26 +290,40 @@ def info_nce(za: torch.Tensor, zb: torch.Tensor) -> tuple:
 class SemanticTrainer:
     """One training run on an explicit device: the batches from
     `np.random.default_rng(SEED)`, the model from `state` (or
-    `init_state` with a generator seeded by `SEED`)."""
+    `initial_state` with a generator seeded by `SEED`).
+
+    A trainer of another script's recipe (`semantic_encoder_tpu`)
+    subclasses it and overrides what differs: `vocab`, `concept_names`,
+    `initial_state`, `next_batch`, `loss` and `validate`."""
 
     def __init__(self, cfg: TrainConfig, device,
                  state: Optional[Dict[str, torch.Tensor]] = None):
         self.cfg = cfg
         self.device = resolve_device(device)
-        self.tokens = vocab_tokens()
+        self.tokens = self.vocab()
         self.tokenizer = wordpiece.WordPieceTokenizer(
             {t: i for i, t in enumerate(self.tokens)})
-        self.names = list(CONCEPTS)
+        self.names = self.concept_names()
         self.rng = np.random.default_rng(SEED)
         if state is None:
-            state = init_state(cfg, len(self.tokens),
-                               torch.Generator().manual_seed(SEED))
+            state = self.initial_state(len(self.tokens),
+                                       torch.Generator().manual_seed(SEED))
         self.model = BertEncoder.from_state(state, cfg.heads).to(
             self.device).set_trainable(True)
         self.opt = torch.optim.AdamW(
             self.model.parameters(), lr=0.0, betas=(0.9, 0.999), eps=1e-8,
             weight_decay=WEIGHT_DECAY)
         self.updates = 0
+
+    def vocab(self) -> List[str]:
+        return vocab_tokens()
+
+    def concept_names(self) -> List[str]:
+        return list(CONCEPTS)
+
+    def initial_state(self, vocab: int, generator: torch.Generator
+                      ) -> Dict[str, torch.Tensor]:
+        return init_state(self.cfg, vocab, generator)
 
     def lr(self) -> float:
         """The rate of the next update (the schedule at the count of

@@ -6,11 +6,13 @@ where variants are stemmed forms differing from the surface token: exact
 search uses only the surface token; non-exact chains token + variants.
 
 English uses a full Porter2 (Snowball) stemmer implemented below. The 14
-Snowball locales use NLTK's `SnowballStemmer` when `nltk` imports, and
-the light stemmer of their locale otherwise (the JAX package's rule);
-`TextParser.stemmer` says which one a parser got. The other locales with
-a suffix table use the light stemmer, the rest none. CJK locales emit
-character unigrams + bigrams.
+Snowball locales use the port's copy of NLTK's Snowball stemmers
+(`utils/snowball.py`), always: the JAX package stems them with NLTK's
+where `nltk` imports, as on the CPU hosts the tests run on, and with its
+light stemmers where it does not; the port needs no `nltk`.
+`TextParser.stemmer` says which stemmer a parser got. The other locales
+with a suffix table use the light stemmer (`light_stem`), the rest none.
+CJK locales emit character unigrams + bigrams.
 
 English ASCII texts go to the native tokenizer (`native/tokenizer.cpp`),
 whose output is byte-identical; every other text goes to the Python code
@@ -27,6 +29,8 @@ from typing import Dict, List, Sequence, Tuple
 
 from ..native import ROUTES, native_tokenize_and_stem, native_tokenize_wire
 from ..types import Locale
+from .snowball import LANGUAGES as _SNOWBALL_LANGUAGES
+from .snowball import SnowballStemmer
 
 _WORD_RE = re.compile(r"[0-9A-Za-zÀ-ɏͰ-ϿЀ-ӿ԰-֏֐-׿؀-ۿऀ-ॿ]+")
 _CJK_RE = re.compile(r"[぀-ヿ㐀-䶿一-鿿가-힯]")
@@ -273,32 +277,18 @@ class TextParser:
     semantic oracle and the route of every other text.
     """
 
-    # full Snowball stemmers (NLTK's pure-Python implementations, the
-    # same algorithm family the reference gets from rust-stemmers).
-    # English stays on our Porter2 for parity with the native C++ path.
-    _SNOWBALL_LANGS = frozenset({
-        "arabic", "danish", "dutch", "finnish", "french", "german",
-        "hungarian", "italian", "norwegian", "portuguese", "romanian",
-        "russian", "spanish", "swedish",
-    })
-    _snowball_cache: dict = {}
+    # full Snowball stemmers (the port's copy of NLTK's pure-Python
+    # implementations, the same algorithm family the reference gets from
+    # rust-stemmers). English stays on our Porter2 for parity with the
+    # native C++ path.
+    _SNOWBALL_LANGS = frozenset(_SNOWBALL_LANGUAGES)
 
     def __init__(self, locale: Locale = Locale.EN, use_native: bool = True):
         self.locale = locale
         self._is_cjk = locale in (Locale.ZH, Locale.JA, Locale.KO)
-        self._snowball = None
+        self._snowball = (SnowballStemmer(locale.value)
+                          if locale.value in self._SNOWBALL_LANGS else None)
         self._stem_memo: dict = {}
-        if locale.value in self._SNOWBALL_LANGS:
-            sb = TextParser._snowball_cache.get(locale.value)
-            if sb is None and locale.value not in TextParser._snowball_cache:
-                try:
-                    from nltk.stem.snowball import SnowballStemmer
-
-                    sb = SnowballStemmer(locale.value)
-                except Exception:  # noqa: BLE001 — light stemmer instead
-                    sb = None
-                TextParser._snowball_cache[locale.value] = sb
-            self._snowball = sb
         # which stemmer `stem` applies: porter2, snowball, light or none
         if locale == Locale.EN:
             self.stemmer = "porter2"

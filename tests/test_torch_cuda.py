@@ -1401,6 +1401,83 @@ def test_training_step_on_the_card(cuda):
             float(h.abs().max()), 1e-6), k
 
 
+# the attention's shape in the training step of
+# scripts/train_semantic_encoder_tpu.py: B=256 pairs, so 512 texts of 32
+# tokens, 8 heads of 32
+TPU_SCRIPT_CASE = dict(B=512, L=32, H=8, hd=32, padded=0)
+
+
+def test_attention_at_the_tpu_script_shape(cuda):
+    """Forward within 1e-5 and both backward kernels within BWD_TOL (5e-5)
+    of the f64 references at (B=512, L=32, H=8, hd=32), one launch each."""
+    from oramacore_tpu_torch.benches import train_bench as tb
+    from oramacore_tpu_torch.benches.encoder_bench import attention_reference
+    from oramacore_tpu_torch.ops import attention as at
+
+    qkv, mask, dctx = tb.backward_inputs(TPU_SCRIPT_CASE, 62, cuda)
+    at.reset_launch_counts()
+    got = at.encoder_attention(qkv, mask, 8)
+    grad = at.encoder_attention_backward(qkv, mask, dctx, 8)
+    torch.cuda.synchronize()
+    assert at.LAUNCHES == {"encoder_attention": 1,
+                           "encoder_attention_backward_dq": 1,
+                           "encoder_attention_backward_dkv": 1}
+    torch.testing.assert_close(got.double(), attention_reference(qkv, mask, 8),
+                               rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(
+        grad.double(), tb.backward_reference(qkv, mask, dctx, 8),
+        rtol=tb.BWD_TOL, atol=tb.BWD_TOL)
+
+
+def test_tpu_script_training_steps_on_the_card(cuda):
+    """Two steps of train.semantic_encoder_tpu at the CPU tests' size (2
+    layers, width 64, B=8 pairs, L=32) on the card and on the CPU from
+    one set of parameters: one encoder call x 2 layers a step, so 2
+    launches of each kernel a step; losses within 1e-4; parameters, as
+    in tests/test_torch_train_tpu.py: 99.9% of the entries within 1e-5
+    and all within twice the rates' sum (at 5 steps the warm-up is 0, so
+    an entry whose gradient is at f32 noise level steps by the full rate
+    with the noise's sign), the key bias (gradient 0 in exact
+    arithmetic) held apart: on each side it moves no more than the
+    rates' sum from its start."""
+    from oramacore_tpu_torch.ops import attention as at
+    from oramacore_tpu_torch.train import semantic_encoder_tpu as tpu
+
+    cfg = tpu.TpuTrainConfig(steps=5, batch=8, layers=2, hidden=64, heads=2,
+                             ffn=128)
+    state = tpu.init_state(cfg, len(tpu.vocab_tokens()),
+                           torch.Generator().manual_seed(3))
+    card = tpu.TpuScriptTrainer(cfg, cuda, state=state)
+    cpu = tpu.TpuScriptTrainer(cfg, "cpu", state=state)
+    at.reset_launch_counts()
+    for _ in range(2):
+        batch, cpu_batch = card.next_batch(), cpu.next_batch()
+        assert all(torch.equal(a.cpu(), b) for a, b in zip(batch, cpu_batch))
+        loss = float(card.step(batch)[0])
+        assert abs(loss - float(cpu.step(cpu_batch)[0])) <= 1e-4
+    torch.cuda.synchronize()
+    assert at.LAUNCHES == {"encoder_attention": 4,
+                           "encoder_attention_backward_dq": 4,
+                           "encoder_attention_backward_dkv": 4}
+    D = cfg.hidden
+    rates = cfg.lr * (1 + 0.5 * (1 + np.cos(np.pi / cfg.steps)))
+    diff, kb = [], []
+    for (k, p), (_, q) in zip(card.model.named_parameters(),
+                              cpu.model.named_parameters()):
+        p, q = p.detach().cpu(), q.detach()
+        d = (p - q).abs().flatten()
+        if k.endswith("qkv_b"):
+            for t in (p, q):
+                kb.append(float((t - state[k])[D:2 * D].abs().max()))
+            d = torch.cat([d[:D], d[2 * D:]])
+        diff.append(d)
+    diff = torch.cat(diff)
+    assert len(kb) == 2 * cfg.layers
+    assert max(kb) <= 1.01 * rates, (kb, rates)
+    assert float((diff > 1e-5).double().mean()) <= 1e-3
+    assert float(diff.max()) <= 2 * rates
+
+
 @pytest.mark.parametrize("pruning", ["auto", "on"])
 def test_read_side_on_the_card_equals_the_cpu(cuda, pruning, tmp_path):
     """The runtime on the card: build_orama(device="cuda"), 2,000 games

@@ -208,6 +208,10 @@ _NO_JAX_SCRIPT = textwrap.dedent("""
                  "oramacore_tpu_torch.native._build",
                  "oramacore_tpu_torch.types",
                  "oramacore_tpu_torch.utils.tokenizer",
+                 "oramacore_tpu_torch.utils.snowball",
+                 "oramacore_tpu_torch.utils.code_parser",
+                 "oramacore_tpu_torch.benches.stem_vocab",
+                 "oramacore_tpu_torch.train.semantic_encoder_tpu",
                  "oramacore_tpu_torch.utils.flatten",
                  "oramacore_tpu_torch.write.doc_op",
                  "oramacore_tpu_torch.write.embedding_queue",
@@ -230,7 +234,7 @@ _NO_JAX_SCRIPT = textwrap.dedent("""
         assert name in sys.modules, name
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in (
         "aiohttp", "msgpack", "yaml", "transformers", "safetensors",
-        "optax", "scripts", "cryptography"))
+        "optax", "scripts", "cryptography", "nltk"))
     assert not leaked, leaked
     leaked = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
     assert not leaked, leaked
@@ -281,14 +285,14 @@ def test_no_source_of_the_port_imports_the_jax_package():
 
 _IMPORT_OF_ABSENT_PACKAGE = re.compile(
     r"^\s*(from|import)\s+(jax|jaxlib|flax|transformers|safetensors|msgpack"
-    r"|yaml|aiohttp|optax|scripts|cryptography)(\.\S*)?(\s|,|$)", re.M)
+    r"|yaml|aiohttp|optax|scripts|cryptography|nltk)(\.\S*)?(\s|,|$)", re.M)
 
 
 def test_no_source_of_the_port_imports_jax_transformers_or_safetensors():
     """The card's machine has none of them: no .py file of
     oramacore_tpu_torch/ and no line of chip_smoke.py imports jax,
-    transformers, safetensors, msgpack, yaml, aiohttp, optax or
-    cryptography, even inside a function;
+    transformers, safetensors, msgpack, yaml, aiohttp, optax,
+    cryptography or nltk, even inside a function;
     nor the repo's scripts/ (the trainer keeps its own copy of what it
     needs of scripts/train_semantic_encoder_v2.py)."""
     files = [os.path.join(REPO, "chip_smoke.py")]
@@ -314,7 +318,11 @@ def test_no_source_of_the_port_imports_jax_transformers_or_safetensors():
                        True),
                       ("import cryptographyx", False),
                       ("import scriptsx", False),
-                      ("import jaxtyping", False)):
+                      ("import jaxtyping", False),
+                      ("    from nltk.stem.snowball import SnowballStemmer",
+                       True),
+                      ("from .snowball import SnowballStemmer", False),
+                      ("import nltkx", False)):
         assert bool(_IMPORT_OF_ABSENT_PACKAGE.search(line)) == hit, line
 
 

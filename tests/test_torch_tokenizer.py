@@ -2,9 +2,11 @@
 the JAX package's (CPU): `tokenize_and_stem` and `tokenize_and_stem_packed`
 equal exactly for every Locale on seeded text in many scripts and on the
 JAX tokenizer tests' cases, once as the environment is (NLTK's Snowball
-stemmers where `nltk` imports) and once with Snowball blocked in both
-packages, so every Snowball locale takes its light stemmer, as where nltk
-is absent.
+stemmers in the JAX package where `nltk` imports, the port's own copy of
+them always) and once with Snowball blocked in the JAX package, as where
+nltk is absent: JAX then takes its light stemmers, the port still stems
+with Snowball and equals the unblocked JAX parser, and the port's
+`light_stem` equals the blocked JAX parser's stems word by word.
 """
 
 import numpy as np
@@ -80,51 +82,64 @@ TEXTS = seeded_texts()
 
 
 @pytest.fixture(params=["as-is", "snowball-blocked"])
-def snowball(request, monkeypatch):
-    """As the environment is, or with each package's Snowball cache holding
-    None for every Snowball locale (as where nltk is absent)."""
-    if request.param == "snowball-blocked":
-        for mod in (jtok, ttok):
-            monkeypatch.setattr(mod.TextParser, "_snowball_cache", {
-                lang: None for lang in mod.TextParser._SNOWBALL_LANGS})
+def snowball(request):
+    """As the environment is, or with the JAX package's Snowball cache
+    holding None for every Snowball locale (as where nltk is absent);
+    the test blocks it once it has made the unblocked JAX parser."""
     return request.param
 
 
+def _block_jax_snowball(monkeypatch):
+    monkeypatch.setattr(jtok.TextParser, "_snowball_cache", {
+        lang: None for lang in jtok.TextParser._SNOWBALL_LANGS})
+
+
 @pytest.mark.parametrize("locale", [loc.value for loc in Locale])
-def test_parser_matches_jax(locale, snowball):
+def test_parser_matches_jax(locale, snowball, monkeypatch):
+    jfull = jtok.TextParser(JLocale(locale))
+    if snowball == "snowball-blocked":
+        _block_jax_snowball(monkeypatch)
     jp = jtok.TextParser(JLocale(locale))
     tp = ttok.TextParser(Locale(locale))
+    light = JLocale(locale) in jtok._LIGHT_STEMMERS
     for text in TEXTS:
         assert tp.tokenize(text) == jp.tokenize(text), text
-        assert tp.tokenize_and_stem(text) == jp.tokenize_and_stem(text), text
+        # the port stems as the JAX parser with NLTK does, blocked or not
+        assert tp.tokenize_and_stem(text) == jfull.tokenize_and_stem(text), \
+            text
         assert tp.tokenize_and_stem_packed(text) == \
-            jp.tokenize_and_stem_packed(text), text
+            jfull.tokenize_and_stem_packed(text), text
+        if snowball == "snowball-blocked" and light:
+            # the port's light stemmer is the one JAX falls back to
+            for tok in jp.tokenize(text):
+                assert ttok.light_stem(tok, Locale(locale)) == \
+                    jp.stem(tok), (text, tok)
     # the stemmer each package applies, and the attribute that says which
-    assert (tp._snowball is None) == (jp._snowball is None)
+    assert (tp._snowball is None) == (jfull._snowball is None)
     if Locale(locale) == Locale.EN:
         expect = "porter2"
-    elif jp._snowball is not None:
+    elif locale in ttok.TextParser._SNOWBALL_LANGS:
         expect = "snowball"
-    elif JLocale(locale) in jtok._LIGHT_STEMMERS:
+    elif light:
         expect = "light"
     else:
         expect = "none"
     assert tp.stemmer == expect
-    if snowball == "snowball-blocked":
-        assert expect != "snowball"
+    if snowball == "snowball-blocked" and expect == "snowball":
+        assert jp._snowball is None   # JAX took its light stemmer
 
 
 def test_stemmer_kinds_cover_every_locale():
     """Each locale's stemmer, as chip_smoke.py prints it: Porter2 for
-    English, Snowball for the 14 NLTK locales where nltk imports, light
+    English, Snowball (the port's own) for the 14 NLTK locales, light
     stemmers for the other suffix-table locales, none for the rest."""
     kinds = {loc: ttok.TextParser(loc, use_native=False).stemmer
              for loc in Locale}
     assert kinds[Locale.EN] == "porter2"
     snow = {loc for loc in Locale if loc.value in ttok.TextParser._SNOWBALL_LANGS}
     assert len(snow) == 14
-    assert all(kinds[loc] in ("snowball", "light") for loc in snow)
-    assert {loc for loc, k in kinds.items() if k == "light"} >= \
+    assert {loc for loc, k in kinds.items() if k == "snowball"} == snow
+    assert {loc for loc, k in kinds.items() if k == "light"} == \
         set(ttok._LIGHT_STEMMERS) - snow
     assert kinds[Locale.ZH] == kinds[Locale.JA] == kinds[Locale.TA] == "none"
 
