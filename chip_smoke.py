@@ -285,6 +285,8 @@ TRAIN_STEPS = 500         # of the script's 1,500 (all until phase 20, then
 TRAIN_COMPARE = 10        # first steps of the run held card against CPU
 TRAIN_LOSS_TOL = 1e-4     # |loss| card against CPU at each of those steps
 TRAIN_PARAM_TOL = 1e-5    # |parameter| card against CPU after them
+WIDE_TRAIN_STEPS = 3      # steps at --hidden 256 --heads 1 (one head of 256:
+                          # the wide backward kernels), card against CPU
 TRAIN_PASSAGES = 512      # passages embedded with the trained model
 
 # phase 21: training at scripts/train_semantic_encoder_tpu.py's full width
@@ -2302,12 +2304,17 @@ def attention_checks(device, card, cases=None):
 def width_checks(device, card):
     """Head widths the tensor-core kernels do not take, through the
     wrappers on the card: hd 48 zero-padded to 64 (one launch, within
-    ATTN_TOL of the f64 plain version), and hd 160, 256 and 320 on the
-    wide instances, forward within ATTN_TOL and backward within BWD_TOL
-    of their f64 references, one launch of each kernel a call, each timed
-    as CUDA-graph replays beside its bound (3xTF32 rate; FFMA rate in
-    brackets), the plain versions and scaled_dot_product_attention's
-    forward and backward. Returns {label: numbers} of the wide cases."""
+    ATTN_TOL of the f64 plain version), and hd 160, 256, 320 and a ragged
+    130 on the wide instances, forward within ATTN_TOL and backward within
+    BWD_TOL of their f64 references, one launch of each kernel a call. The
+    forward and the backward pair are timed warm as CUDA-graph replays
+    beside their bounds (3xTF32 rate; FFMA rate in brackets), the plain
+    versions and scaled_dot_product_attention's forward and backward; each
+    backward kernel alone (on the operands the wrapper gives it: hd 130
+    zero-padded to 132) L2-cold beside its own bound. (The wide
+    backward's earlier FFMA design, a3966e4's, is timed against this one
+    by `python -m oramacore_tpu_torch.benches.train_bench --wide
+    --baseline`.) Returns {label: numbers} of the wide cases."""
     import torch
 
     from oramacore_tpu_torch.benches import (
@@ -2322,17 +2329,20 @@ def width_checks(device, card):
         attention_inputs,
         attention_reference,
     )
+    from oramacore_tpu_torch.benches.pruned_bench import time_cold
     from oramacore_tpu_torch.benches.train_bench import (
         BWD_TOL,
         SdpaBackward,
         backward_inputs,
         backward_reference,
         backward_work,
+        current_parts,
     )
     from oramacore_tpu_torch.ops import attention as at
 
     names = ("encoder_attention", "encoder_attention_backward_dq",
              "encoder_attention_backward_dkv")
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=device)
     out = {}
     for i, (label, case) in enumerate(WIDTH_CASES.items()):
         B, L, H, hd = case["B"], case["L"], case["H"], case["hd"]
@@ -2360,44 +2370,66 @@ def width_checks(device, card):
         d_launched = {n: at.LAUNCHES[n] - before[n] for n in names[1:]}
         dref = backward_reference(qkv, mask, dctx, H)
         derr = float((dgot.double() - dref).abs().max())
+        tl = at.wide_backward_tiles_for(B, H, L, hd)
         check(all(v == 1 for v in d_launched.values())
               and bool(torch.isfinite(dgot).all())
               and torch.allclose(dgot.double(), dref, rtol=BWD_TOL,
                                  atol=BWD_TOL),
-              f"encoder_attention_backward [{label}]: route {how}, "
-              f"launches {d_launched}, dQ, dK, dV within rtol/atol "
-              f"{BWD_TOL} of the f64 reference (max abs err {derr:.3g}) "
-              f"[{card}]")
+              f"encoder_attention_backward [{label}]: route {how} ({tl.rows} "
+              f"rows a block, chunks of {tl.chunk} columns), launches "
+              f"{d_launched}, dQ, dK, dV within rtol/atol {BWD_TOL} of the "
+              f"f64 reference (max abs err {derr:.3g}) [{card}]")
         fwd_ms = time_graph(lambda: at.encoder_attention(qkv, mask, H), 10)
         bwd_ms = time_graph(lambda: at.encoder_attention_backward(
             qkv, mask, dctx, H), 5)
+        # each kernel alone on the operands the wrapper gives it
+        launch = current_parts(qkv, mask, dctx, H, wide=True)
+        cold = {k: time_cold(lambda k=k: launch(k), flush, 3)
+                for k in ("dq", "dkv")}
         plain_ms = time_cuda(lambda: at.encoder_attention_plain(qkv, mask,
                                                                 H), 3)
         bplain_ms = time_cuda(lambda: at.encoder_attention_backward_plain(
             qkv, mask, dctx, H), 3)
         lib_ms, _ = sdpa_ms(qkv, mask, H, 10)
-        flush = torch.empty(1 << 20, dtype=torch.uint8, device=device)
         lib = SdpaBackward(qkv, mask, dctx, H, flush)
         lib_bwd = time_cuda(lib.graph.replay, 5)
-        del lib, flush
+        lib_cold = time_cuda(lib.cold_graph.replay, 3) - time_graph(
+            flush.zero_, 3)
+        del lib
         f_bytes, f_ops = at.attention_work(B, L, H, hd)
         f_bound = bound_ms(f_bytes, f_ops, H100_TF32X3_OPS_PER_S)
         f_ffma = bound_ms(f_bytes, f_ops, H100_F32_OPS_PER_S)[0]
-        work = backward_work(B, L, H, hd)["total"]
-        b_bound = bound_ms(*work, H100_TF32X3_OPS_PER_S)
-        b_ffma = bound_ms(*work, H100_F32_OPS_PER_S)[0]
+        work = backward_work(B, L, H, hd)
+        b_bound = bound_ms(*work["total"], H100_TF32X3_OPS_PER_S)
+        b_ffma = bound_ms(*work["total"], H100_F32_OPS_PER_S)[0]
         print(f"  wide [{label}]: forward {fwd_ms:.4f} ms (plain "
               f"{plain_ms:.4f}, scaled_dot_product_attention {lib_ms:.4f}; "
               f"bound {f_bound[0]:.4f} ms {f_bound[1]} at the 3xTF32 rate, "
               f"{f_ffma:.4f} at the FFMA rate); backward {bwd_ms:.4f} ms "
-              f"(plain {bplain_ms:.4f}, SDPA's backward {lib_bwd:.4f}; "
-              f"bound {b_bound[0]:.4f} ms {b_bound[1]}, FFMA rate "
-              f"{b_ffma:.4f}); max abs err forward {err:.3g}, backward "
-              f"{derr:.3g}, warm [{card}]", flush=True)
+              f"(plain {bplain_ms:.4f}, SDPA's backward {lib_bwd:.4f}; bound "
+              f"{b_bound[0]:.4f} ms {b_bound[1]}, FFMA rate {b_ffma:.4f}); "
+              f"max abs err forward "
+              f"{err:.3g}, backward {derr:.3g}, warm [{card}]", flush=True)
+        kernels = {}
+        for k in ("dq", "dkv"):
+            bd = bound_ms(*work[k], H100_TF32X3_OPS_PER_S)
+            bf = bound_ms(*work[k], H100_F32_OPS_PER_S)[0]
+            kernels[k] = dict(ms=cold[k], bound_ms=bd[0], bound_by=bd[1])
+            print(f"  wide [{label}] encoder_attention_backward_{k} alone: "
+                  f"{cold[k]:.4f} ms L2-cold; bound {bd[0]:.4f} ms ({bd[1]} "
+                  f"at the 3xTF32 rate), {100 * bd[0] / cold[k]:.1f}% of it "
+                  f"[FFMA rate {bf:.4f} ms, {100 * bf / cold[k]:.1f}%] "
+                  f"[{card}]", flush=True)
+        print(f"  wide [{label}] dq + dkv {sum(cold.values()):.4f} ms "
+              f"L2-cold, plain {bplain_ms:.4f} ms, SDPA's backward "
+              f"{lib_cold:.4f} ms L2-cold [{card}]", flush=True)
         out[label] = dict(fwd_ms=fwd_ms, bwd_ms=bwd_ms, plain_ms=plain_ms,
                           bwd_plain_ms=bplain_ms, sdpa_ms=lib_ms,
-                          sdpa_bwd_ms=lib_bwd, fwd_bound=f_bound[0],
-                          bwd_bound=b_bound[0], err=err, bwd_err=derr)
+                          sdpa_bwd_ms=lib_bwd, sdpa_bwd_cold_ms=lib_cold,
+                          fwd_bound=f_bound[0],
+                          bwd_bound=b_bound[0], err=err, bwd_err=derr,
+                          kernels=kernels)
+    del flush
     return out
 
 
@@ -3191,10 +3223,11 @@ def phase_train(device, card):
     train.semantic_encoder (seed 0; TRAIN_STEPS of the script's 1,500
     steps), launch counts checked,
     steady step time, one profiled step, the validation probes; the first
-    steps held card against CPU; the checkpoint saved under build/,
-    loaded through load_torch_encoder, checked (probes, synonyms,
-    phrases) and searched with. Returns (timings, the run's launch
-    counts)."""
+    steps held card against CPU, and WIDE_TRAIN_STEPS steps at --hidden
+    256 --heads 1 through the wide kernels (`wide_train_checks`); the
+    checkpoint saved under build/, loaded through load_torch_encoder,
+    checked (probes, synonyms, phrases) and searched with. Returns
+    (timings, the run's launch counts)."""
     import torch
 
     from oramacore_tpu_torch.benches.encoder_bench import (
@@ -3279,6 +3312,7 @@ def phase_train(device, card):
           f"versions) from one set of parameters and the same batches: losses "
           f"within {TRAIN_LOSS_TOL} (max |d| {worst:.3g}), {what}")
     del on_card, on_cpu
+    wide_train_checks(device, card)
 
     # serve the trained checkpoint
     out = os.path.join(ROOT, "build", "trained", "semantic-base-smoke")
@@ -3317,6 +3351,62 @@ def phase_train(device, card):
     # the rows as the index holds them (insert normalizes them)
     phase_flat(vidx, bf16_round(vidx._committed_matrix), qb, device, card)
     return timings, launches
+
+
+def wide_train_checks(device, card):
+    """Phase 16 at the script's --hidden 256 --heads 1: one head of 256 a
+    layer, so every attention call of a step runs the wide forward and
+    both wide backward kernels (one launch of each per encoder call and
+    layer). WIDE_TRAIN_STEPS steps from one set of parameters, card
+    against CPU (plain versions) on the same batches, held by the rule of
+    the default width's steps: losses within TRAIN_LOSS_TOL, parameters
+    within TRAIN_PARAM_TOL, and the first step's gradients leaf by leaf
+    within TPU_TRAIN_GRAD_REL (phase 21's `grads_card_vs_cpu`)."""
+    import torch
+
+    from oramacore_tpu_torch.ops import attention as at
+    from oramacore_tpu_torch.train import semantic_encoder as se
+
+    cfg = se.TrainConfig(steps=TRAIN_STEPS, heads=1)
+    hd = cfg.hidden // cfg.heads
+    check(at.route(hd) == "wide", f"--hidden {cfg.hidden} --heads "
+          f"{cfg.heads} gives heads of {hd}, the wide route")
+    state0 = se.init_state(cfg, len(se.vocab_tokens()),
+                           torch.Generator().manual_seed(se.SEED))
+    on_card = se.SemanticTrainer(cfg, device, state=state0)
+    on_cpu = se.SemanticTrainer(cfg, "cpu", state=state0)
+
+    def steps():
+        worst, grads = 0.0, None
+        for i in range(WIDE_TRAIN_STEPS):
+            b_card, b_cpu = on_card.next_batch(), on_cpu.next_batch()
+            l_card = float(on_card.step(b_card)[0])
+            worst = max(worst, abs(l_card - float(on_cpu.step(b_cpu)[0])))
+            if i == 0:
+                # Adam's first steps cannot show a gradient of the wrong
+                # size in the parameters: hold the gradients themselves
+                grads = grads_card_vs_cpu(on_card, on_cpu,
+                                          TPU_TRAIN_GRAD_REL)
+        return worst, grads
+
+    (worst, (grads_held, grads_what)), launches = counted(
+        f"hd {hd} training", steps)
+    calls = WIDE_TRAIN_STEPS * 2 * cfg.layers
+    check(all(launches[k] == calls for k in (
+        "encoder_attention", "encoder_attention_backward_dq",
+        "encoder_attention_backward_dkv")),
+        f"{WIDE_TRAIN_STEPS} steps at --hidden {cfg.hidden} --heads "
+        f"{cfg.heads} launched the wide forward and both wide backward "
+        f"kernels {calls} times each (2 encoder calls x {cfg.layers} layers "
+        f"a step)")
+    held, what = params_card_vs_cpu(on_card, on_cpu, state0,
+                                    TRAIN_PARAM_TOL)
+    check(worst <= TRAIN_LOSS_TOL and grads_held and held,
+          f"{WIDE_TRAIN_STEPS} steps at hd {hd} on the card (the wide "
+          f"kernels) and on the CPU (plain versions) from one set of "
+          f"parameters and the same batches: losses within "
+          f"{TRAIN_LOSS_TOL} (max |d| {worst:.3g}); {grads_what}; {what} "
+          f"[{card}]")
 
 
 def params_card_vs_cpu(on_card, on_cpu, start, tol):
@@ -5786,7 +5876,9 @@ def main() -> int:
     print(f"[16] training: SemanticBase at the script's defaults "
           f"({TRAIN_STEPS:,} of its 1,500 steps of B=64 pairs, L=16) "
           "through the attention kernels forward and "
-          "backward, then the trained checkpoint served", flush=True)
+          "backward, then the trained checkpoint served; "
+          f"{WIDE_TRAIN_STEPS} steps at --hidden 256 --heads 1 through the "
+          "wide kernels", flush=True)
     t_phase = time.perf_counter()
     train_timings, path_launches["train"] = phase_train(device, card)
     timings.update(train_timings)

@@ -11,8 +11,9 @@ cases and the ingest corpus of `chip_smoke.py` phase 14.
   whose mask is all zero (a power-of-two batch's padding) and L=1.
 - `WIDTH_CASES`: head widths the tensor-core kernels do not take, which
   the wrappers route by shape: 48 (zero-padded to 64 and launched), and
-  160, 256 and 320 (above 128: the wide instances, forward and
-  backward).
+  160, 256, 320 and 130 (above 128: the wide instances, forward and
+  backward; 130 is not a multiple of 4, so its columns are not 16-byte
+  aligned, and the wrapper zero-pads the backward's heads to 132).
 - `attention_inputs`: seeded f32 qkv and an int32 key mask for a case;
   every row attends a prefix of its keys, of a length drawn in [1, L],
   and the case's last `padded` rows attend nothing.
@@ -57,6 +58,8 @@ WIDTH_CASES = {
     "hd 256 B=8 L=512 H=4, 1 padded row (wide)": dict(B=8, L=512, H=4,
                                                       hd=256, padded=1),
     "hd 320 B=4 L=128 H=3 (wide)": dict(B=4, L=128, H=3, hd=320, padded=0),
+    "hd 130 B=64 L=65 H=4, 3 padded rows (wide, ragged)": dict(
+        B=64, L=65, H=4, hd=130, padded=3),
 }
 
 

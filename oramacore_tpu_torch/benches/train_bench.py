@@ -2,21 +2,29 @@
 (`chip_smoke.py` phase 16), and the bench of the attention's backward
 kernels:
 
-    python -m oramacore_tpu_torch.benches.train_bench [--baseline OLD.cu]
+    python -m oramacore_tpu_torch.benches.train_bench [--wide]
+        [--baseline OLD.cu]
 
-For every `BACKWARD_CASES` entry (inputs from the seeds phase 16 uses)
-the bench holds both kernels (dq then dkv) to the f64 reference within
-`BWD_TOL` and times them as CUDA-graph replays, L2 warm and cold (a
-256 MiB write between replays, subtracted), beside their bound (bytes
-against FLOPs at the 3xTF32 rate of 165 TFLOP/s; the FFMA-rate bound in
-brackets) and the backward of `scaled_dot_product_attention` on the same
+For every `BACKWARD_CASES` entry (inputs from the seeds phase 16 uses),
+or with `--wide` every case of `encoder_bench.WIDTH_CASES` above 128
+(the wide kernels), the bench holds both kernels (dq then dkv) to the
+f64 reference within `BWD_TOL` and times them as CUDA-graph replays, L2
+warm and cold (a 256 MiB write between replays, subtracted), beside their
+bound (bytes against FLOPs at the 3xTF32 rate of 165 TFLOP/s; the
+FFMA-rate bound in brackets), then each kernel alone L2-cold beside its
+own bound, and the backward of `scaled_dot_product_attention` on the same
 inputs (`SdpaBackward`). It prints the kernels' `-Xptxas -v` lines.
 `--baseline OLD.cu` builds an earlier `encoder_attention_backward.cu`
-whose entry points take no tiling (the SIMT design, f32 FFMA lanes:
-`git show dda63df:oramacore_tpu_torch/ops/csrc/encoder_attention_backward.cu`
-into the gitignored `build/archive/`), holds it to the same reference
-and times it in turns with the current pair: baseline, current, current,
-baseline.
+whose entry points take no tiling, holds it to the same reference and
+times it in turns with the current pair (baseline, current, current,
+baseline), and each of its kernels alone. Without `--wide` that is the
+narrow kernels' SIMT design (`git show
+dda63df:oramacore_tpu_torch/ops/csrc/encoder_attention_backward.cu`);
+with it, the wide kernels' FFMA design, a3966e4's file and its two
+headers (`git show a3966e4:oramacore_tpu_torch/ops/csrc/<file>` for
+`encoder_attention_backward.cu`, `attention_wide.cuh` and
+`tf32_mma.cuh`, into one directory). Either goes into the gitignored
+`build/archive/`.
 
 - `BACKWARD_CASES`: the shapes at which the attention's backward kernels
   (`encoder_attention_backward_dq`, `encoder_attention_backward_dkv`) are
@@ -36,6 +44,9 @@ baseline.
   chains of tensor-core steps that truncate what they add into their
   accumulator, divisions, statistics) in PyTorch on the CPU, for the
   tests.
+- `wide_backward_tf32`: the same for the wide kernels (head widths above
+  128): S and dP summed over the head a column chunk at a time, dQ, dK
+  and dV an 8-row step at a time.
 - `backward_work`: the bytes and FLOPs each entry point and the whole
   gradient must spend, for the bound.
 - `SdpaBackward`: the library yardstick, `torch.autograd.grad` of
@@ -222,6 +233,68 @@ def backward_tf32(qkv: torch.Tensor, mask: torch.Tensor, dctx: torch.Tensor,
                       for x in (dq, dk, dv)], dim=-1)
 
 
+def wide_backward_tf32(qkv: torch.Tensor, mask: torch.Tensor,
+                       dctx: torch.Tensor, n_heads: int, passes: int = 3,
+                       chunked: bool = True) -> torch.Tensor:
+    """The wide backward kernels' arithmetic (head widths above 128; any
+    width) on the CPU in f32, for the tests. Every product is a chain of
+    tensor-core steps in `passes` tf32 passes (`_mma`). S and dP (S^T and
+    dP^T in dkv) sum over the head's columns in chunks of C
+    (`wide_backward_tiles_for(...).chunk`): each chunk's chain from 0,
+    added to the running sum in f32 rounded to nearest (chunked=False takes
+    the whole width in one chain, as an accumulator on the tensor core
+    would). dq's row statistics (m, l, delta = sum P dP), P = exp(s - m) /
+    l and dS = P (dP - delta) / div; dkv's P^T and dS^T from those
+    statistics; dQ = dS K, dK = dS^T Q and dV = P^T dO, each 8-row step's
+    chain from 0, added in rounded f32 (mma3_add). Every division an IEEE
+    quotient, -1e9 added for masked keys. The order of the row sums is not
+    the kernels', and the truncation model is milder than the card's (see
+    `backward_tf32`). Nothing on the main path uses it."""
+    from ..ops.attention import MASKED, plain_shapes, wide_backward_tiles_for
+
+    B, L, D, hd = plain_shapes(qkv, mask, n_heads)
+    C = wide_backward_tiles_for(B, n_heads, L, hd).chunk if chunked else hd
+    q, k, v = (x.to(torch.float32).reshape(B, L, n_heads, hd).transpose(1, 2)
+               for x in qkv.split(D, dim=-1))
+    do = dctx.to(torch.float32).reshape(B, L, n_heads, hd).transpose(1, 2)
+    div = torch.tensor(np.sqrt(hd), dtype=torch.float32)
+    bias = torch.where(mask > 0, 0.0, MASKED).to(torch.float32)
+
+    def product(a, b):   # a @ b from an accumulator of 0
+        zero = torch.zeros(a.shape[:-1] + b.shape[-1:])
+        return _mma(zero, a, b, passes)
+
+    def over_d(a, b):   # a b^T, summed over the head's columns a chunk at a time
+        acc = None
+        for c0 in range(0, hd, C):
+            part = product(a[..., c0:c0 + C],
+                           b[..., c0:c0 + C].transpose(-1, -2))
+            acc = part if acc is None else acc + part
+        return acc
+
+    def over_rows(a, b):   # a b, summed over the rows of b 8 at a time
+        acc = torch.zeros(a.shape[:-1] + b.shape[-1:])
+        for j in range(0, a.shape[-1], 8):
+            acc = acc + product(a[..., j:j + 8], b[..., j:j + 8, :])
+        return acc
+
+    s = over_d(q, k) / div + bias[:, None, None, :]
+    dp = over_d(do, v)
+    m = s.amax(dim=-1, keepdim=True)
+    l = torch.exp(s - m).sum(dim=-1, keepdim=True)
+    p = torch.exp(s - m) / l
+    delta = (p * dp).sum(dim=-1, keepdim=True)
+    dq = over_rows((p * (dp - delta)) / div, k)
+
+    m_t, l_t, d_t = (x.transpose(-1, -2) for x in (m, l, delta))
+    st = over_d(k, q) / div + bias[:, None, :, None]
+    pt = torch.exp(st - m_t) / l_t
+    dst = (pt * (over_d(v, do) - d_t)) / div
+    dk, dv = over_rows(dst, q), over_rows(pt, do)
+    return torch.cat([x.transpose(1, 2).reshape(B, L, D)
+                      for x in (dq, dk, dv)], dim=-1)
+
+
 def backward_work(B: int, L: int, n_heads: int, hd: int) -> dict:
     """{"dq", "dkv", "total"}: (bytes, FLOPs) each must spend. Every input
     read once and every output written once (4 B a float; the int32 mask;
@@ -316,48 +389,80 @@ class StepTimer:
 # the bench
 # ---------------------------------------------------------------------------
 
-def load_baseline(source: Path) -> Callable:
-    """run(qkv, mask, dctx, H) -> dqkv over an earlier
-    encoder_attention_backward.cu whose entry points take no tiling (the
-    SIMT design), built with the port's nvcc flags: its dq, then its dkv,
-    on the current stream."""
+def load_baseline(source: Path, wide: bool = False) -> Callable:
+    """run(qkv, mask, dctx, H, parts=("dq", "dkv"), dqkv=None, stats=None)
+    -> (dqkv, stats) over an earlier encoder_attention_backward.cu whose
+    entry points take no tiling (the narrow ones, or with `wide` the wide
+    ones), built with the port's nvcc flags: its dq, then its dkv, on the
+    current stream; a part alone as `at.launch_backward` takes it."""
     from ..ops import _build
 
     lib = _build.load_source(source, "baseline_attention_backward")
+    kind = "_wide" if wide else ""
+    dq_fn = getattr(lib, f"encoder_attention_backward_dq{kind}_launch")
+    dkv_fn = getattr(lib, f"encoder_attention_backward_dkv{kind}_launch")
     ptr, i64 = ctypes.c_void_p, ctypes.c_int64
-    for fn in (lib.encoder_attention_backward_dq_launch,
-               lib.encoder_attention_backward_dkv_launch):
+    for fn in (dq_fn, dkv_fn):
         fn.argtypes = [ptr, ptr, ptr, ptr, ptr, i64, i64, i64, i64,
                        ctypes.c_float, ptr]
         fn.restype = ctypes.c_int
 
-    def run(qkv, mask, dctx, H):
+    def run(qkv, mask, dctx, H, parts=("dq", "dkv"), dqkv=None, stats=None):
         B, L, D3 = qkv.shape
         hd = D3 // 3 // H
-        dqkv = torch.empty_like(qkv)
-        stats = torch.empty((B * H * L, 4), dtype=torch.float32,
-                            device=qkv.device)
+        dqkv = torch.empty_like(qkv) if dqkv is None else dqkv
+        if stats is None:
+            stats = torch.empty((B * H * L, 4), dtype=torch.float32,
+                                device=qkv.device)
         div = float(np.float32(np.sqrt(hd)))
         stream = torch.cuda.current_stream().cuda_stream
-        for err in (
-                lib.encoder_attention_backward_dq_launch(
-                    qkv.data_ptr(), mask.data_ptr(), dctx.data_ptr(),
-                    dqkv.data_ptr(), stats.data_ptr(), B, L, H, hd, div,
-                    stream),
-                lib.encoder_attention_backward_dkv_launch(
-                    qkv.data_ptr(), mask.data_ptr(), dctx.data_ptr(),
-                    stats.data_ptr(), dqkv.data_ptr(), B, L, H, hd, div,
-                    stream)):
-            if err:
-                raise RuntimeError(f"baseline launch failed: cudaError_t "
-                                   f"{err}")
-        return dqkv
+        if "dq" in parts:
+            _check_launch(dq_fn(
+                qkv.data_ptr(), mask.data_ptr(), dctx.data_ptr(),
+                dqkv.data_ptr(), stats.data_ptr(), B, L, H, hd, div, stream))
+        if "dkv" in parts:
+            _check_launch(dkv_fn(
+                qkv.data_ptr(), mask.data_ptr(), dctx.data_ptr(),
+                stats.data_ptr(), dqkv.data_ptr(), B, L, H, hd, div, stream))
+        return dqkv, stats
 
     return run
 
 
+def current_parts(qkv, mask, dctx, H, wide: bool) -> Callable:
+    """launch(part) of each current backward kernel alone ("dq" or "dkv",
+    on the dqkv and stats of one launch of both), on the operands the
+    wrapper gives it: a wide width that is not a multiple of 4 zero-padded
+    to `wide_width`."""
+    from ..ops import attention as at
+
+    if not wide:
+        dqkv, stats = at.launch_backward(qkv, mask, dctx, H)
+        return lambda k: at.launch_backward(qkv, mask, dctx, H, (k,), dqkv,
+                                            stats)
+    B, L, D3 = qkv.shape
+    hd = D3 // 3 // H
+    w = at.wide_width(hd)
+    if w != hd:
+        qkv, dctx = (at.pad_heads(t, H, hd, w) for t in (qkv, dctx))
+    stats = torch.empty((B * H * L, 4), dtype=torch.float32,
+                        device=qkv.device)
+    dqkv = at.launch_backward_wide(qkv, mask, dctx, H, stats=stats,
+                                   div_hd=hd)
+    return lambda k: at.launch_backward_wide(qkv, mask, dctx, H, (k,), dqkv,
+                                             stats, div_hd=hd)
+
+
+def _check_launch(err: int) -> None:
+    if err:
+        raise RuntimeError(f"baseline launch failed: cudaError_t {err}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--wide", action="store_true",
+                    help="the wide kernels (encoder_bench.WIDTH_CASES "
+                         "above 128) instead of BACKWARD_CASES")
     ap.add_argument("--baseline", type=Path, default=None,
                     help="an earlier encoder_attention_backward.cu to time "
                          "beside this one")
@@ -377,6 +482,7 @@ def main(argv=None) -> int:
         time_graph,
     )
     from .attention_bench import ptxas_lines
+    from .encoder_bench import WIDTH_CASES
     from .pruned_bench import time_cold
 
     require_cuda()
@@ -386,26 +492,37 @@ def main(argv=None) -> int:
     at.load_backward_kernels()
     for ln in ptxas_lines("encoder_attention_backward"):
         print(f"  ptxas: {ln}", flush=True)
+    cases = ({k: c for k, c in WIDTH_CASES.items() if c["hd"] > 128}
+             if args.wide else BACKWARD_CASES)
     runners = {"current": lambda qkv, mask, dctx, H:
                at.encoder_attention_backward(qkv, mask, dctx, H)}
     if args.baseline is not None:
-        runners["baseline"] = load_baseline(args.baseline)
+        base = load_baseline(args.baseline, args.wide)
+        runners["baseline"] = lambda qkv, mask, dctx, H: base(
+            qkv, mask, dctx, H)[0]
     turns = ("baseline", "current", "current", "baseline") \
         if args.baseline is not None else ("current",)
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=device)
-    for i, (label, case) in enumerate(BACKWARD_CASES.items()):
+    for i, (label, case) in enumerate(cases.items()):
         B, L, H, hd = case["B"], case["L"], case["H"], case["hd"]
         qkv, mask, dctx = backward_inputs(case, 160 + i, device)
         ref = backward_reference(qkv, mask, dctx, H)
-        work = backward_work(B, L, H, hd)["total"]
+        works = backward_work(B, L, H, hd)
+        work = works["total"]
         bound, by = bound_ms(*work, H100_TF32X3_OPS_PER_S)
         ffma, ffma_by = bound_ms(*work, H100_F32_OPS_PER_S)
-        tiles = {k: (t.warps, t.pairs, t.tile, t.stages, t.grid)
-                 for k, t in at.backward_tiles_for(B, H, L, hd).items()}
+        if args.wide:
+            t = at.wide_backward_tiles_for(B, H, L, at.wide_width(hd))
+            tiles = (f"(rows, chunk, row tiles, grid) "
+                     f"{(t.rows, t.chunk, t.row_tiles, t.grid)}")
+        else:
+            tiles = "(warps, pairs, tile, stages, grid) " + str({
+                k: (t.warps, t.pairs, t.tile, t.stages, t.grid)
+                for k, t in at.backward_tiles_for(B, H, L, hd).items()})
         print(f"{label}: {work[0] / 1e6:.1f} MB, {work[1] / 1e9:.3f} GFLOP; "
               f"bound {bound:.4f} ms ({by}, 3xTF32 at 165 TFLOP/s) [FFMA "
-              f"rate: {ffma:.4f} ms, {ffma_by}]; tiles (warps, pairs, tile, "
-              f"stages, grid) {tiles} [{card}]", flush=True)
+              f"rate: {ffma:.4f} ms, {ffma_by}]; tiles {tiles} [{card}]",
+              flush=True)
         for who in dict.fromkeys(turns):
             got = runners[who](qkv, mask, dctx, H)
             torch.cuda.synchronize()
@@ -435,16 +552,31 @@ def main(argv=None) -> int:
                   + ", ".join(f"{v:.4f}" for v in times[(who, "cold")])
                   + f" [{card}]", flush=True)
         D = H * hd
-        dqkv, stats = at.launch_backward(qkv, mask, dctx, H)
-        diff = (dqkv.double() - ref).abs()
-        part_cold = {k: time_cold(lambda k=k: at.launch_backward(
-            qkv, mask, dctx, H, (k,), dqkv, stats), flush, args.reps)
-            for k in ("dq", "dkv")}
-        print(f"  current, each kernel alone: dq {part_cold['dq']:.4f} ms, "
-              f"dkv {part_cold['dkv']:.4f} ms (L2 cold); max abs err dQ "
-              f"{float(diff[..., :D].max()):.3g}, dK "
-              f"{float(diff[..., D:2 * D].max()):.3g}, dV "
-              f"{float(diff[..., 2 * D:].max()):.3g} [{card}]", flush=True)
+        got = runners["current"](qkv, mask, dctx, H)
+        diff = (got.double() - ref).abs()
+        print(f"  current: max abs err dQ {float(diff[..., :D].max()):.3g}, "
+              f"dK {float(diff[..., D:2 * D].max()):.3g}, dV "
+              f"{float(diff[..., 2 * D:].max()):.3g}", flush=True)
+        parts = {"current": current_parts(qkv, mask, dctx, H, args.wide)}
+        if args.baseline is not None:
+            b_dqkv, b_stats = base(qkv, mask, dctx, H)
+            parts["baseline"] = lambda k: base(qkv, mask, dctx, H, (k,),
+                                               b_dqkv, b_stats)
+        for who, launch in parts.items():
+            cold = {k: time_cold(lambda k=k: launch(k), flush, args.reps)
+                    for k in ("dq", "dkv")}
+            shares = []
+            for k in ("dq", "dkv"):
+                bd, bd_by = bound_ms(*works[k], H100_TF32X3_OPS_PER_S)
+                bf = bound_ms(*works[k], H100_F32_OPS_PER_S)[0]
+                shares.append(
+                    f"{k} {cold[k]:.4f} ms (bound {bd:.4f} ms {bd_by}, "
+                    f"{100 * bd / cold[k]:.1f}%; FFMA rate {bf:.4f} ms, "
+                    f"{100 * bf / cold[k]:.1f}%)")
+            print(f"  {who}, each kernel alone, L2 cold: "
+                  + "; ".join(shares)
+                  + f"; together {sum(cold.values()):.4f} ms [{card}]",
+                  flush=True)
         lib = SdpaBackward(qkv, mask, dctx, H, flush)
         lib_warm = time_cuda(lib.graph.replay, args.reps)
         lib_cold = time_cuda(lib.cold_graph.replay, args.reps) - time_graph(

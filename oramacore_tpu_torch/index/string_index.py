@@ -42,6 +42,7 @@ import numpy as np
 
 from ..native import ROUTES
 from ..ops.bm25 import MAX_RANGE_LEN
+from ..utils.gc_pause import gc_paused
 from ..utils.tokenizer import pack_parsed
 
 DEFAULT_B = 0.75  # reference BM25FFieldParams::default (bm25.rs:56-63)
@@ -723,7 +724,8 @@ class StringIndex:
         with self._build_lock:
             if not self._dirty and self._slab_committed is not None:
                 return  # another reader already rebuilt it
-            self._build_slab_locked()
+            with gc_paused():
+                self._build_slab_locked()
 
     def _committed_key(self) -> Tuple:
         return tuple(

@@ -25,11 +25,12 @@ the dtype it is given (the card's check runs it in f64).
   true width, and sliced back (zero columns leave Q K^T and dP = dO V^T
   unchanged, and the padded columns of O, dQ, dK and dV are zero); a
   width above 128 takes the "wide" instances (`launch_wide`,
-  `launch_backward_wide`: csrc/attention_wide.cuh, f32 on the CUDA
-  cores, the head's columns in chunks of 128, since a 16 x hd
-  accumulator a warp no longer fits in registers). A CPU tensor runs the
-  plain version at any width (forward calls above 128 counted in
-  `PLAIN_WIDTH_CALLS`).
+  `launch_backward_wide`, csrc/attention_wide.cuh: a 16 x hd accumulator
+  a warp no longer fits in registers, so they stream the head's columns;
+  the forward in f32 on the CUDA cores, the backward pair on the tensor
+  cores in 3xTF32, tiled by `wide_backward_tiles_for`). A CPU tensor
+  runs the plain version at any width (forward calls above 128 counted
+  in `PLAIN_WIDTH_CALLS`).
 - A batch row whose mask is all zero (the padding rows of a power-of-two
   batch) gets the mean of V in every query row, as in JAX: -1e9 is added
   to every score, and at 1e9 the f32 ulp is 64, so all its scores round
@@ -216,6 +217,67 @@ def backward_tiles_for(B: int, n_heads: int, L: int, hd: int) -> dict:
     return out
 
 
+# the wide backward kernels' tiling (csrc/encoder_attention_backward.cu,
+# head widths above 128): a block of 8 warps owns 16 rows of one (b, h)
+# and keeps their scores against all L rows of the other side (two floats
+# a pair, rows of L rounded up to 128, plus 4); phase A streams tiles of
+# 128 other-side rows a head-column chunk at a time through a two-stage
+# ring (the 16 own rows and the tile's, two operands each, chunk + 4
+# floats a row). The chunks the .cu compiles, in the order tried: 32
+# where it pads no more columns than 16 and 2 blocks fit an SM, else 16
+# (2 blocks fit at every L)
+WIDE_CHUNKS = (32, 16)
+_WIDE_ROWS = 16
+_WIDE_TILE = 128
+_WIDE_THREADS = 256
+
+
+class WideTiles(NamedTuple):
+    """How both wide backward kernels tile a call (see
+    `wide_backward_tiles_for`); the wrapper launches with every field but
+    `blocks_per_sm`."""
+    rows: int        # rows of its own side of one (b, h) a block owns (16)
+    chunk: int       # head columns a phase-A stage holds (C)
+    row_tiles: int   # blocks along the rows of one (b, h)
+    grid: int        # blocks launched: B H row_tiles
+    smem: int        # dynamic shared-memory bytes a block (the kernels
+                     # refuse a launch whose layout takes another size)
+    blocks_per_sm: int   # resident blocks an SM by shared memory
+
+
+def wide_backward_smem(chunk: int, L: int) -> int:
+    """Shared-memory bytes of a wide backward block (the kernels'
+    WideTile): two score rows of round128(L) + 4 floats for each of the 16
+    rows, and a ring of 2 stages of (2 x 16 + 2 x 128) rows of chunk + 4
+    floats."""
+    stride = -(-L // _WIDE_TILE) * _WIDE_TILE + 4
+    stage = (2 * _WIDE_ROWS + 2 * _WIDE_TILE) * (chunk + 4)
+    return 4 * (2 * _WIDE_ROWS * stride + 2 * stage)
+
+
+def wide_backward_tiles_for(B: int, n_heads: int, L: int,
+                            hd: int) -> WideTiles:
+    """The wide backward kernels' tiling of a call (both kernels take the
+    same): 16 rows a block, and the first of `WIDE_CHUNKS` that fits 2
+    blocks an SM (16 resident warps), taking chunks of 32 columns only
+    where they compute no more padded columns than 16 (hd mod 32 is 0 or
+    above 16)."""
+    if hd < 1:
+        raise ValueError(f"head width {hd} is not positive")
+    if not 1 <= L <= MAX_LEN:
+        raise ValueError(f"sequence length {L} is outside [1, {MAX_LEN}]")
+    for chunk in WIDE_CHUNKS:
+        if chunk == 32 and 0 < hd % 32 <= 16:
+            continue
+        smem = wide_backward_smem(chunk, L)
+        per_sm = _SMEM_SM // (smem + _SMEM_RESERVED)
+        if per_sm >= 2:
+            break
+    row_tiles = -(-L // _WIDE_ROWS)
+    return WideTiles(_WIDE_ROWS, chunk, row_tiles, B * n_heads * row_tiles,
+                     smem, min(per_sm, 2048 // _WIDE_THREADS))
+
+
 _lib = None
 _bwd_lib = None
 
@@ -255,12 +317,10 @@ def load_backward_kernels() -> ctypes.CDLL:
                            i64, i64, i64, i64, i64, i64, i64,
                            ctypes.c_float, ptr]
             fn.restype = ctypes.c_int
-        lib.encoder_attention_backward_dq_wide_launch.argtypes = [
-            ptr, ptr, ptr, ptr, ptr, i64, i64, i64, i64, ctypes.c_float, ptr]
-        lib.encoder_attention_backward_dkv_wide_launch.argtypes = [
-            ptr, ptr, ptr, ptr, ptr, i64, i64, i64, i64, ctypes.c_float, ptr]
         for fn in (lib.encoder_attention_backward_dq_wide_launch,
                    lib.encoder_attention_backward_dkv_wide_launch):
+            fn.argtypes = [ptr, ptr, ptr, ptr, ptr, i64, i64, i64, i64,
+                           i64, i64, i64, i64, i64, ctypes.c_float, ptr]
             fn.restype = ctypes.c_int
         _bwd_lib = lib
     return _bwd_lib
@@ -310,10 +370,18 @@ def padded_width(hd: int):
 def route(hd: int) -> str:
     """How the wrappers run a head width on the card: "kernel" (a
     tensor-core kernel width), "padded" (zero-padded to `padded_width`)
-    or "wide" (above 128: the f32 instances of `launch_wide` and
+    or "wide" (above 128: the instances of `launch_wide` and
     `launch_backward_wide`, at the true width)."""
     w = padded_width(hd)
     return "wide" if w is None else "kernel" if w == hd else "padded"
+
+
+def wide_width(hd: int) -> int:
+    """The width the wide backward kernels run a head width above 128 at:
+    hd rounded up to a multiple of 4, so each head's rows are 16-byte
+    copies (the kernels take any width, a ragged one by 4-byte copies
+    that cost about 4 times as much)."""
+    return -(-hd // 4) * 4
 
 
 def pad_heads(t: torch.Tensor, n_heads: int, hd: int,
@@ -502,7 +570,9 @@ def encoder_attention_backward(qkv: torch.Tensor, mask: torch.Tensor,
     """dqkv f32[B, L, 3D] of the attention given dctx f32[B, L, D], by
     the forward's route (`route`): on the card the kernels, the kernels
     on zero-padded heads (dctx padded, dqkv sliced), or above 128 the
-    wide kernels; the plain version on CPU tensors. See the module doc."""
+    wide kernels (at `wide_width`: a width that is not a multiple of 4
+    zero-padded to one, as under 128); the plain version on CPU tensors.
+    See the module doc."""
     B, L, D, hd = plain_shapes(qkv, mask, n_heads)
     if tuple(dctx.shape) != (B, L, D):
         raise ValueError(f"dctx must be ({B}, {L}, {D}), got "
@@ -511,7 +581,13 @@ def encoder_attention_backward(qkv: torch.Tensor, mask: torch.Tensor,
     if _device_of((qkv, mask, dctx)).type == "cpu":
         return encoder_attention_backward_plain(qkv, mask, dctx, n_heads)
     if how == "wide":
-        return launch_backward_wide(qkv, mask, dctx, n_heads)
+        w = wide_width(hd)
+        if w == hd:
+            return launch_backward_wide(qkv, mask, dctx, n_heads)
+        dqkv = launch_backward_wide(pad_heads(qkv, n_heads, hd, w), mask,
+                                    pad_heads(dctx, n_heads, hd, w), n_heads,
+                                    div_hd=hd)
+        return unpad_heads(dqkv, n_heads, hd, w)
     if how == "padded":
         w = padded_width(hd)
         dqkv = launch_backward(pad_heads(qkv, n_heads, hd, w), mask,
@@ -583,36 +659,56 @@ def launch_backward(qkv: torch.Tensor, mask: torch.Tensor,
 
 
 def launch_backward_wide(qkv: torch.Tensor, mask: torch.Tensor,
-                         dctx: torch.Tensor, n_heads: int) -> torch.Tensor:
+                         dctx: torch.Tensor, n_heads: int,
+                         parts=("dq", "dkv"), dqkv=None, stats=None,
+                         div_hd=None) -> torch.Tensor:
     """The wide backward instances (any head width; the wrapper sends
-    those above 128), dq then dkv in stream order, on CUDA tensors:
-    dqkv f32[B, L, 3D], counted as `encoder_attention_backward_dq` and
-    `_dkv` (the stats between them are the wide kernels' own: each query
-    row's max, sum and delta)."""
+    those above 128), dq then dkv in stream order, on CUDA tensors, tiled
+    by `wide_backward_tiles_for`, divisor f32(sqrt(div_hd)) (the head
+    width when None): dqkv f32[B, L, 3D], counted as
+    `encoder_attention_backward_dq` and `_dkv` (the stats between them are
+    the wide kernels' own: each query row's max, sum and delta). The main
+    path launches both parts; a bench times one: ("dq",) fills dQ and
+    `stats` (allocated when None), ("dkv",) takes the `dqkv` and `stats`
+    of an earlier dq launch and fills dK and dV."""
     B, L, D, hd = plain_shapes(qkv, mask, n_heads)
     if tuple(dctx.shape) != (B, L, D):
         raise ValueError(f"dctx must be ({B}, {L}, {D}), got "
                          f"{tuple(dctx.shape)}")
     dev = _check_wide(qkv, mask, dctx)
+    if set(parts) - {"dq", "dkv"} or not parts:
+        raise ValueError(f"parts {parts} are not of ('dq', 'dkv')")
+    if "dq" not in parts and (dqkv is None or stats is None):
+        raise ValueError("a dkv launch alone needs the dqkv and stats of a "
+                         "dq launch")
     lib = load_backward_kernels()
-    dqkv = torch.empty((B, L, 3 * D), dtype=torch.float32, device=dev)
-    stats = torch.empty((B * n_heads * L, 4), dtype=torch.float32,
-                        device=dev)
-    div = float(np.float32(np.sqrt(hd)))
+    if dqkv is None:
+        dqkv = torch.empty((B, L, 3 * D), dtype=torch.float32, device=dev)
+    if stats is None:
+        stats = torch.empty((B * n_heads * L, 4), dtype=torch.float32,
+                            device=dev)
+    if dqkv.shape != (B, L, 3 * D) or stats.shape != (B * n_heads * L, 4):
+        raise ValueError("dqkv or stats of another call")
+    tl = wide_backward_tiles_for(B, n_heads, L, hd)
+    div = float(np.float32(np.sqrt(div_hd or hd)))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.encoder_attention_backward_dq_wide_launch(
-            qkv.data_ptr(), mask.data_ptr(), dctx.data_ptr(),
-            dqkv.data_ptr(), stats.data_ptr(), B, L, n_heads, hd, div,
-            stream)
-        _raise_on(err, "encoder_attention_backward_dq")
-        _build.count_launch(LAUNCHES, "encoder_attention_backward_dq")
-        err = lib.encoder_attention_backward_dkv_wide_launch(
-            qkv.data_ptr(), mask.data_ptr(), dctx.data_ptr(),
-            stats.data_ptr(), dqkv.data_ptr(), B, L, n_heads, hd, div,
-            stream)
-        _raise_on(err, "encoder_attention_backward_dkv")
-        _build.count_launch(LAUNCHES, "encoder_attention_backward_dkv")
+        if "dq" in parts:
+            err = lib.encoder_attention_backward_dq_wide_launch(
+                qkv.data_ptr(), mask.data_ptr(), dctx.data_ptr(),
+                dqkv.data_ptr(), stats.data_ptr(), B, L, n_heads, hd,
+                tl.rows, tl.chunk, tl.row_tiles, tl.grid, tl.smem, div,
+                stream)
+            _raise_on(err, "encoder_attention_backward_dq")
+            _build.count_launch(LAUNCHES, "encoder_attention_backward_dq")
+        if "dkv" in parts:
+            err = lib.encoder_attention_backward_dkv_wide_launch(
+                qkv.data_ptr(), mask.data_ptr(), dctx.data_ptr(),
+                stats.data_ptr(), dqkv.data_ptr(), B, L, n_heads, hd,
+                tl.rows, tl.chunk, tl.row_tiles, tl.grid, tl.smem, div,
+                stream)
+            _raise_on(err, "encoder_attention_backward_dkv")
+            _build.count_launch(LAUNCHES, "encoder_attention_backward_dkv")
     return dqkv
 
 

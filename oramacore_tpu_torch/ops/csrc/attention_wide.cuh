@@ -1,24 +1,23 @@
 // Shared pieces of the attention kernels for head widths above 128
-// (`encoder_attention_kernel(WideArgs)` in encoder_attention.cu,
-// `attention_dq_kernel(WideArgs)` and `attention_dkv_kernel(WideArgs)` in
-// encoder_attention_backward.cu).
-//
-// The tensor-core kernels of those files hold a warp's 16 x hd output in
-// registers (64 a thread at hd 128); a wider head would not fit. These
-// kernels take any head width, in f32 on the CUDA cores (FFMA), with the
-// head's columns walked in chunks of kChunk = 128:
-// - a block of kThreadsW = 128 threads owns a tile of 16 rows of one
-//   (b, h);
-// - every dot product over the head width (q . k for the scores, dO . v
-//   for dP) runs tile against tile: 16 rows of one side against 32 of the
-//   other, both staged through shared memory a chunk of columns at a time
-//   (`dot_tile`), each thread summing 4 (row, row) pairs in column order;
-// - the row of scores (or P and dS) over all L keys stays in shared
-//   memory, so the products with V, K, Q or dO read each of those rows
-//   once from device memory, thread t owning column chunk + t.
-// Every sum runs in the same order in the forward, dq and dkv kernels
-// (a fused multiply-add a column, columns ascending), so the three see
-// bit-identical scores.
+// (`encoder_attention_kernel(WideArgs)` in encoder_attention.cu, and the
+// `attention_dq_kernel` / `attention_dkv_kernel` templates on a WideArgs in
+// encoder_attention_backward.cu), whose tensor-core instances for widths
+// up to 128 hold a warp's 16 x hd output in registers (64 a thread at hd
+// 128); a wider head would not fit.
+// - WideArgs, the column pointers of a (b, h) (q_of, k_of, v_of, do_of)
+//   and the warp reductions serve all three kernels.
+// - The rest serves the forward, which runs in f32 on the CUDA cores
+//   (FFMA) with the head's columns walked in chunks of kChunk = 128: a
+//   block of kThreadsW = 128 threads owns a tile of 16 query rows of one
+//   (b, h); each score (q . k over the head width) runs tile against tile,
+//   16 query rows against 32 keys, both staged through shared memory a
+//   chunk of columns at a time (`dot_tile`), each thread summing 4 (row,
+//   row) pairs in column order; the row of scores over all L keys stays in
+//   shared memory, so O = P V reads each row of V once from device memory,
+//   thread t owning column chunk + t.
+// The backward kernels run their products on the tensor cores in 3xTF32
+// and sum in another order, so their scores agree with the forward's to
+// about an ulp, not to the bit; nothing relies on more.
 #pragma once
 
 #include <cuda_runtime.h>

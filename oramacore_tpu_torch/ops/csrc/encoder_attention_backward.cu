@@ -865,213 +865,594 @@ extern "C" int encoder_attention_backward_dkv_launch(
 }
 
 // ---------------------------------------------------------------------------
-// Head widths above 128 (attention_wide.cuh), f32 FFMA: the tensor-core
-// instances above keep 16 x hd accumulators a warp in registers, which no
-// width above 128 fits.
-// - attention_dq_kernel(WideArgs): a block of 128 threads a tile of 16
-//   query rows of one (b, h). It forms the rows' scores as the forward
-//   does, their softmax P (keeping each row's max and sum), dP = dO V^T
-//   tile by tile, delta = rowsum(P dP) and dS = P (dP - delta) / div, all
-//   16 x L in shared memory; writes (max, sum, delta) of each row to
-//   `stats`, then dQ = dS K, thread t owning column c + t of each
-//   128-column chunk c.
-// - attention_dkv_kernel(WideArgs): a block a tile of 16 keys. For each
-//   tile of 32 queries it forms the scores and dP of its keys (the same
-//   sums, in the same order, as the dq kernel: bit-identical), P from the
-//   dq kernel's stats and dS, all 16 x L in shared memory; then dV = P^T
-//   dO and dK = dS^T Q, thread t owning column c + t.
+// Head widths above 128 (any hd >= 1 is taken): 3xTF32 mma.sync with the
+// head's columns streamed.
+//
+// The instances above keep a warp's 16 x hd accumulators in registers (dQ;
+// dK and dV): 128 and 256 floats a thread at hd 256, which no width above
+// 128 fits. These keep nothing of width hd in registers, and run every
+// product on the tensor cores as the instances above do (mma3: a_lo b_hi,
+// a_hi b_lo, a_hi b_hi; tf32_mma.cuh). They replace f32 FFMA kernels of
+// the same entry points (a3966e4, this file :868-1077) that reached 1.5%
+// of the 3xTF32 bound at hd 256, B = 8, L = 512.
+//
+// A block of kWideWarps = 8 warps owns kRows = 16 rows of its side of one
+// (b, h) (queries in dq, keys in dkv). Those rows' scores against all L
+// rows of the other side stay in shared memory, two floats a pair (dq: S,
+// then P; dP, then dS. dkv: P^T and dS^T), in rows of `score_stride(L)`
+// floats.
+// - Phase A forms them. The other side comes in tiles of kTile = 128 rows
+//   (keys in dq, queries in dkv), a warp an n-slice of 16, and the head's
+//   columns in chunks of C = 16 or 32: a chunk of the block's own rows
+//   (Q and dO in dq; K and V in dkv) and of the tile's rows lands raw
+//   through a two-stage cp.async ring (chunk s + 1 is copied while chunk s
+//   is multiplied), in rows of C + 4 floats so a warp's fragment reads fall
+//   on 32 banks. S and dP sum over d on the tensor core: a chunk's
+//   products from 0, added to the tile's sums in rounded f32, so no sum
+//   is taken into the accumulator more than 3 C / 8 times (a whole head of
+//   320 would take 120 truncating steps; under the truncation model of
+//   benches/train_bench.wide_backward_tf32 that drifts 3-5 times further).
+// - dq's phase B, a warp a row: each row's max m, sum l and delta =
+//   sum_j P_ij dP_ij, then P and dS = P (dP - delta) / div in place (the
+//   FFMA design's code); (m, l, delta, 0) go to `stats`. dkv forms P^T =
+//   exp(s - m) / l and dS^T from the stats as each tile of its scores
+//   completes.
+// - Phase C: dQ = dS K in dq, dK = dS^T Q and dV = P^T dO in dkv. The
+//   head's columns go in passes of at most kPass = 128, a warp an eighth
+//   of a pass (up to 2 n8 steps, rounded up to whole steps); A fragments
+//   come from the score rows, the other side's rows of the pass through
+//   the same ring in tiles of `tc` rows (rows of kStrideC = 136 floats, so
+//   a warp's reads down a column fall on 32 banks). These sums run over up
+//   to 512 rows: each 8-row k-step's products are summed from 0 and added
+//   in rounded f32 (mma3_add), as in the instances above.
+// Operands sit raw in shared memory and are split into tf32 hi and lo as
+// a fragment is read. Keys past L weigh 0 (score -inf, rows zero-filled);
+// query rows past L are computed and not stored. The two kernels form a
+// pair's score from the same products in the same order, but nothing
+// relies on that: the gate is BWD_TOL against f64.
+//
+// What bounds them on the H100 (benches/train_bench.backward_work): at
+// hd 256, B = 8, L = 512, H = 4 the products at the 3xTF32 rate (78.1 us
+// dq, 104.1 us dkv). They execute about what that counts (dq: S, dP, dQ;
+// dkv: S, dP, dK, dV), plus a hi / lo split of 5 integer and float
+// operations for every element of a fragment read, issued beside the
+// tensor cores' work by the same warp schedulers, and they wait on shared
+// memory and on L2 (each block reads its (b, h)'s other side once). At
+// L = 512 the score rows take 66 KB of a block's 110 KB (C = 16), so 2
+// blocks of 8 warps fit an SM: 16 warps to hide that latency, where 4-warp
+// blocks over tiles of 64 rows (this design's first form) had 8. On the
+// card the 8-warp blocks ran every case of benches/encoder_bench.
+// WIDTH_CASES faster than the 4-warp ones, and slower at L <= 16 (a tile
+// of 128 rows is then mostly padding) and at hd 256, B = 32, L = 128
+// against 32 rows a 4-warp block (PERF.md §6). Slower still,
+// and not kept: 32 rows in one block an SM at L = 512; tiles of 128 rows
+// with 4 n8 steps a warp; n8 steps past L skipped behind a branch, dS
+// split once in phase B and a staging loop specialised to the chunk.
+//
+// Tiling (ops/attention.wide_backward_tiles_for, which the wrapper passes
+// in): 16 rows a block, the chunk C (a WIDE_INSTANCE), the row tiles, the
+// grid and the shared memory; the entry points refuse a shared-memory size
+// other than the instance's WideTile layout for L.
 // ---------------------------------------------------------------------------
 
 namespace {
 
-__global__ void __launch_bounds__(wide::kThreadsW)
-attention_dq_kernel(wide::WideArgs a) {
-  using namespace wide;
-  extern __shared__ float wide_smem[];
-  const int Lp = padded_len(a.L);
-  float* P = wide_smem;                  // [16][Lp] scores, then P
-  float* dS = P + kRowsA * Lp;           // [16][Lp] dP, then dS
-  float* As = dS + kRowsA * Lp;
-  float* Bs = As + kRowsA * kChunk;
-  const int bh = blockIdx.x, b = bh / a.H, h = bh % a.H;
-  const int q0 = blockIdx.y * kRowsA;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int stride = 3 * a.H * a.hd, dstride = a.H * a.hd;
-  const float* Q = q_of(a, b, h);
-  const float* K = k_of(a, b, h);
-  const float* V = v_of(a, b, h);
-  const float* dO = do_of(a, b, h);
-  const int32_t* mk = a.mask + (size_t)b * a.L;
-  float acc[kPairs];
-  for (int k0 = 0; k0 < a.L; k0 += kRowsB) {
-    dot_tile(Q, q0, stride, K, k0, stride, a.L, a.hd, As, Bs, acc);
-    for (int p = 0; p < kPairs; ++p) {
-      const int e = tid + kThreadsW * p;
-      const int j = k0 + e % kRowsB;
-      if (j < a.L) P[(e / kRowsB) * Lp + j] = score_of(acc[p], a.div, mk[j]);
+constexpr int kWideWarps = 8;
+constexpr int kWideThreads = 32 * kWideWarps;
+constexpr int kRows = 16;                 // own rows a block: one m16 tile
+constexpr int kTile = 16 * kWideWarps;    // phase A: other-side rows a tile
+constexpr int kPass = 128;                // phase C: head columns a pass
+constexpr int kStrideC = kPass + 8;       // phase C: floats a staged row
+
+// floats a row of scores takes: L rounded up to whole tiles, plus 4 (an A
+// fragment's reads of 8 rows x 4 columns fall on 32 banks)
+__host__ __device__ constexpr int score_stride(int L) {
+  return (L + kTile - 1) / kTile * kTile + 4;
+}
+
+template <int C>
+struct WideTile {
+  static constexpr int kStrideA = C + 4;               // phase A row
+  // a ring stage: the own rows' two operands and the tile's two, a chunk
+  static constexpr int kStage = (2 * kRows + 2 * kTile) * kStrideA;
+  // phase C: other-side rows a stage holds with `ops` operands of a pass,
+  // the largest power of 2 up to kTile that fits a stage
+  __host__ __device__ static constexpr int tc(int ops) {
+    int t = kTile;
+    while (ops * t * kStrideC > kStage) t /= 2;
+    return t;
+  }
+  __host__ __device__ static constexpr int floats(int L) {
+    return 2 * kRows * score_stride(L) + 2 * kStage;
+  }
+};
+
+// rows r0 .. r0 + n - 1 (zero from L on) and head columns c0 .. c0 + w - 1
+// (zero from hd on) of `src` (row stride ld) into dst (row stride sd) by
+// the block's threads through cp.async: 16 bytes a copy where `vec` (hd a
+// multiple of 4, the operands 16-byte aligned), else 4
+__device__ __forceinline__ void stage_rows(float* dst, int sd,
+                                           const float* src, int64_t ld,
+                                           int r0, int n, int L, int c0,
+                                           int w, int hd, bool vec) {
+  if (vec) {
+    const int nv = w / 4;
+    for (int e = threadIdx.x; e < n * nv; e += kWideThreads) {
+      const int r = e / nv, c = 4 * (e % nv);
+      const bool ok = r0 + r < L && c0 + c < hd;
+      cp_async16(dst + r * sd + c,
+                 ok ? src + (int64_t)(r0 + r) * ld + c0 + c : src, ok);
     }
-    dot_tile(dO, q0, dstride, V, k0, stride, a.L, a.hd, As, Bs, acc);
-    for (int p = 0; p < kPairs; ++p) {
-      const int e = tid + kThreadsW * p;
-      const int j = k0 + e % kRowsB;
-      if (j < a.L) dS[(e / kRowsB) * Lp + j] = acc[p];
+  } else {
+    for (int e = threadIdx.x; e < n * w; e += kWideThreads) {
+      const int r = e / w, c = e % w;
+      const bool ok = r0 + r < L && c0 + c < hd;
+      cp_async4(dst + r * sd + c,
+                ok ? src + (int64_t)(r0 + r) * ld + c0 + c : src, ok);
     }
   }
-  __syncthreads();
-  for (int r = warp; r < kRowsA; r += kThreadsW / 32) {
-    float* prow = P + r * Lp;
-    float* drow = dS + r * Lp;
+}
+
+__device__ __forceinline__ float4 split2(float b0, float b1) {
+  float4 r;
+  split(b0, r.x, r.z);
+  split(b1, r.y, r.w);
+  return r;
+}
+
+// the A fragment of 16 rows x 8 columns at p (row stride ld), split
+__device__ __forceinline__ void frag_a(const float* p, int ld, int g, int t,
+                                       uint32_t (&ah)[4], uint32_t (&al)[4]) {
+  const float x[4] = {p[g * ld + t], p[(g + 8) * ld + t], p[g * ld + t + 4],
+                      p[(g + 8) * ld + t + 4]};
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    float hi, lo;
+    split(x[e], hi, lo);
+    ah[e] = __float_as_uint(hi);
+    al[e] = __float_as_uint(lo);
+  }
+}
+
+// the B fragment (n 8 x k 8) of mma3 from 8 rows n holding k along them
+__device__ __forceinline__ float4 frag_b_rows(const float* p, int ld, int g,
+                                              int t) {
+  return split2(p[g * ld + t], p[g * ld + t + 4]);
+}
+
+// ... from 8 rows k holding n along them
+__device__ __forceinline__ float4 frag_b_cols(const float* p, int ld, int g,
+                                              int t) {
+  return split2(p[t * ld + g], p[(t + 4) * ld + g]);
+}
+
+// Phase A's products of one ring stage (own rows: operands x0 at st, x1 at
+// st + kRows rows; the tile: y0 at st + 2 kRows rows, y1 at st + (2 kRows
+// + kTile) rows): s += x0 y0^T, d += x1 y1^T over the stage's C columns
+// for this warp's 16 tile rows, summed from 0 and added in rounded f32, or
+// taken as they are on the first chunk of a tile
+template <int C>
+__device__ __forceinline__ void chunk_products(const float* st, int warp,
+                                               int g, int t, bool first,
+                                               float (&s)[2][4],
+                                               float (&d)[2][4]) {
+  constexpr int SA = WideTile<C>::kStrideA;
+  const float* y0 = st + (2 * kRows + 16 * warp) * SA;
+  const float* y1 = y0 + kTile * SA;
+  float cs[2][4], cd[2][4];
+#pragma unroll
+  for (int n = 0; n < 2; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) cs[n][e] = cd[n][e] = 0.f;
+  }
+#pragma unroll
+  for (int k = 0; k < C; k += 8) {
+    float4 b0[2], b1[2];
+#pragma unroll
+    for (int n = 0; n < 2; ++n) {
+      b0[n] = frag_b_rows(y0 + 8 * n * SA + k, SA, g, t);
+      b1[n] = frag_b_rows(y1 + 8 * n * SA + k, SA, g, t);
+    }
+    uint32_t ah[4], al[4];
+    frag_a(st + k, SA, g, t, ah, al);
+#pragma unroll
+    for (int n = 0; n < 2; ++n) mma3(cs[n], ah, al, b0[n]);
+    frag_a(st + kRows * SA + k, SA, g, t, ah, al);
+#pragma unroll
+    for (int n = 0; n < 2; ++n) mma3(cd[n], ah, al, b1[n]);
+  }
+#pragma unroll
+  for (int n = 0; n < 2; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      s[n][e] = first ? cs[n][e] : s[n][e] + cs[n][e];
+      d[n][e] = first ? cd[n][e] : d[n][e] + cd[n][e];
+    }
+  }
+}
+
+// phase C's columns: passes of at most kPass, a warp `wc` of them (whole
+// n8 steps, at most kNt)
+constexpr int kNt = kPass / (8 * kWideWarps);
+struct Passes {
+  int n, wc;
+  __device__ explicit Passes(int hd) {
+    n = (hd + kPass - 1) / kPass;
+    wc = ((hd + n - 1) / n + 8 * kWideWarps - 1) / (8 * kWideWarps) * 8;
+  }
+};
+
+template <int C>
+__global__ void __launch_bounds__(kWideThreads, 2)
+attention_dq_kernel(wide::WideArgs a, int row_tiles, bool vec) {
+  using Y = WideTile<C>;
+  constexpr int R = kRows, SA = Y::kStrideA, TC = Y::tc(1);
+  static_assert(TC >= 8, "a phase-C stage holds a k-step");
+  extern __shared__ __align__(16) float smem[];
+  const int L = a.L, hd = a.hd, Ls = score_stride(L);
+  float* Sb = smem;              // [R][Ls]: s, then P
+  float* Db = Sb + R * Ls;       // [R][Ls]: dP, then dS
+  float* ring = Db + R * Ls;     // 2 stages
+  const int bh = blockIdx.x / row_tiles, b = bh / a.H, h = bh % a.H;
+  const int q0 = blockIdx.x % row_tiles * R;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int64_t rs = 3 * (int64_t)a.H * hd, os = (int64_t)a.H * hd;
+  const float* Q = wide::q_of(a, b, h);
+  const float* K = wide::k_of(a, b, h);
+  const float* V = wide::v_of(a, b, h);
+  const float* dO = wide::do_of(a, b, h);
+  const int32_t* mk = a.mask + (int64_t)b * L;
+
+  // phase A: step s takes key tile s / nch, head columns chunk s % nch
+  const int nch = (hd + C - 1) / C;
+  const int nA = (L + kTile - 1) / kTile * nch;
+  auto stage_a = [&](int s) {
+    float* st = ring + (s & 1) * Y::kStage;
+    const int k0 = s / nch * kTile, c0 = s % nch * C;
+    stage_rows(st, SA, Q, rs, q0, R, L, c0, C, hd, vec);
+    stage_rows(st + R * SA, SA, dO, os, q0, R, L, c0, C, hd, vec);
+    stage_rows(st + 2 * R * SA, SA, K, rs, k0, kTile, L, c0, C, hd, vec);
+    stage_rows(st + (2 * R + kTile) * SA, SA, V, rs, k0, kTile, L, c0, C,
+               hd, vec);
+  };
+  float sc[2][4], dp[2][4];
+  stage_a(0);
+  cp_async_commit();
+  for (int s = 0; s < nA; ++s) {
+    if (s + 1 < nA) stage_a(s + 1);
+    cp_async_commit();
+    cp_async_wait_prior();
+    __syncthreads();
+    chunk_products<C>(ring + (s & 1) * Y::kStage, warp, g, t, s % nch == 0,
+                      sc, dp);
+    if (s % nch == nch - 1) {   // the tile's S and dP are complete
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+        const int j = s / nch * kTile + 16 * warp + 8 * n + 2 * t;
+        const float b0 = j >= L ? -INFINITY : mk[j] > 0 ? 0.f : kMasked;
+        const float b1 = j + 1 >= L ? -INFINITY
+                                    : mk[j + 1] > 0 ? 0.f : kMasked;
+        *reinterpret_cast<float2*>(Sb + g * Ls + j) =
+            make_float2(__fdiv_rn(sc[n][0], a.div) + b0,
+                        __fdiv_rn(sc[n][1], a.div) + b1);
+        *reinterpret_cast<float2*>(Sb + (g + 8) * Ls + j) =
+            make_float2(__fdiv_rn(sc[n][2], a.div) + b0,
+                        __fdiv_rn(sc[n][3], a.div) + b1);
+        *reinterpret_cast<float2*>(Db + g * Ls + j) =
+            make_float2(dp[n][0], dp[n][1]);
+        *reinterpret_cast<float2*>(Db + (g + 8) * Ls + j) =
+            make_float2(dp[n][2], dp[n][3]);
+      }
+    }
+    __syncthreads();
+  }
+
+  // phase C's first stage is copied while phase B runs
+  const Passes ps(hd);
+  const int nkc = (L + TC - 1) / TC, nC = ps.n * nkc;
+  auto stage_c = [&](int s) {
+    stage_rows(ring + (s & 1) * Y::kStage, kStrideC, K, rs, s % nkc * TC, TC,
+               L, s / nkc * kWideWarps * ps.wc, kWideWarps * ps.wc, hd, vec);
+  };
+  stage_c(0);
+  cp_async_commit();
+
+  // phase B: a warp a row; rows past L keep dS = dP = 0
+  for (int r = warp; r < R; r += kWideWarps) {
+    if (q0 + r >= L) continue;
+    float* prow = Sb + r * Ls;
+    float* drow = Db + r * Ls;
     float m = -INFINITY;
-    for (int j = lane; j < a.L; j += 32) m = fmaxf(m, prow[j]);
-    m = warp_max(m);
+    for (int j = lane; j < L; j += 32) m = fmaxf(m, prow[j]);
+    m = wide::warp_max(m);
     float l = 0.f;
-    for (int j = lane; j < a.L; j += 32) l += expf(prow[j] - m);
-    l = warp_sum(l);
+    for (int j = lane; j < L; j += 32) l += expf(prow[j] - m);
+    l = wide::warp_sum(l);
     float delta = 0.f;
-    for (int j = lane; j < a.L; j += 32) {
+    for (int j = lane; j < L; j += 32) {
       const float pj = __fdiv_rn(expf(prow[j] - m), l);
       prow[j] = pj;
       delta = fmaf(pj, drow[j], delta);
     }
-    delta = warp_sum(delta);
-    for (int j = lane; j < a.L; j += 32)
+    delta = wide::warp_sum(delta);
+    for (int j = lane; j < L; j += 32)
       drow[j] = __fdiv_rn(prow[j] * (drow[j] - delta), a.div);
-    if (lane == 0 && q0 + r < a.L) {
-      float* st = a.stats + ((size_t)bh * a.L + q0 + r) * 4;
-      st[0] = m;
-      st[1] = l;
-      st[2] = delta;
-      st[3] = 0.f;
+    if (lane == 0) {
+      reinterpret_cast<float4*>(a.stats)[(int64_t)bh * L + q0 + r] =
+          make_float4(m, l, delta, 0.f);
     }
   }
-  __syncthreads();
-  const int rows = min(kRowsA, a.L - q0);
-  for (int c0 = 0; c0 < a.hd; c0 += kChunk) {
-    const int col = c0 + tid;
-    if (col >= a.hd) break;
-    float o[kRowsA];
-    for (int r = 0; r < kRowsA; ++r) o[r] = 0.f;
-    for (int j = 0; j < a.L; ++j) {
-      const float k = K[(size_t)j * stride + col];
-      for (int r = 0; r < kRowsA; ++r) o[r] = fmaf(dS[r * Lp + j], k, o[r]);
+
+  // phase C: dQ = dS K, this warp's columns of each pass
+  const int nt = ps.wc / 8;
+  float acc[kNt][4];
+  for (int s = 0; s < nC; ++s) {
+    if (s + 1 < nC) stage_c(s + 1);
+    cp_async_commit();
+    cp_async_wait_prior();
+    __syncthreads();
+    const int kc = s % nkc;
+    if (kc == 0) {
+#pragma unroll
+      for (int n = 0; n < kNt; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+      }
     }
-    float* out = a.out + ((size_t)b * a.L + q0) * stride +
-                 (size_t)h * a.hd + col;
-    for (int r = 0; r < rows; ++r) out[(size_t)r * stride] = o[r];
+    const float* kst = ring + (s & 1) * Y::kStage + warp * ps.wc;
+#pragma unroll
+    for (int k = 0; k < TC; k += 8) {
+      uint32_t ah[4], al[4];
+      frag_a(Db + kc * TC + k, Ls, g, t, ah, al);
+#pragma unroll
+      for (int n = 0; n < kNt; ++n) {
+        if (n < nt) {
+          const float4 bk = frag_b_cols(kst + k * kStrideC + 8 * n, kStrideC,
+                                        g, t);
+          mma3_add(acc[n], ah, al, bk);
+        }
+      }
+    }
+    if (kc == nkc - 1) {
+      const int c0 = s / nkc * kWideWarps * ps.wc + warp * ps.wc + 2 * t;
+      float* out = a.out + (int64_t)b * L * rs + (int64_t)h * hd;
+#pragma unroll
+      for (int n = 0; n < kNt; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int row = q0 + g + (e >= 2 ? 8 : 0);
+          const int col = c0 + 8 * n + (e & 1);
+          if (n < nt && row < L && col < hd)
+            out[(int64_t)row * rs + col] = acc[n][e];
+        }
+      }
+    }
+    __syncthreads();
   }
 }
 
-__global__ void __launch_bounds__(wide::kThreadsW)
-attention_dkv_kernel(wide::WideArgs a) {
-  using namespace wide;
-  extern __shared__ float wide_smem[];
-  const int Lp = padded_len(a.L);
-  float* Pt = wide_smem;                 // [16 keys][Lp queries] P
-  float* dSt = Pt + kRowsA * Lp;         // [16 keys][Lp queries] dS
-  float* As = dSt + kRowsA * Lp;
-  float* Bs = As + kRowsA * kChunk;
-  const int bh = blockIdx.x, b = bh / a.H, h = bh % a.H;
-  const int k0 = blockIdx.y * kRowsA;
-  const int tid = threadIdx.x;
-  const int stride = 3 * a.H * a.hd, dstride = a.H * a.hd;
-  const float* Q = q_of(a, b, h);
-  const float* K = k_of(a, b, h);
-  const float* V = v_of(a, b, h);
-  const float* dO = do_of(a, b, h);
-  const int32_t* mk = a.mask + (size_t)b * a.L;
-  float s[kPairs], dp[kPairs];
-  for (int i0 = 0; i0 < a.L; i0 += kRowsB) {
-    dot_tile(K, k0, stride, Q, i0, stride, a.L, a.hd, As, Bs, s);
-    dot_tile(V, k0, stride, dO, i0, dstride, a.L, a.hd, As, Bs, dp);
-    for (int p = 0; p < kPairs; ++p) {
-      const int e = tid + kThreadsW * p;
-      const int r = e / kRowsB, i = i0 + e % kRowsB, j = k0 + r;
-      if (i >= a.L || j >= a.L) continue;
-      const float* st = a.stats + ((size_t)bh * a.L + i) * 4;
-      const float pj =
-          __fdiv_rn(expf(score_of(s[p], a.div, mk[j]) - st[0]), st[1]);
-      Pt[r * Lp + i] = pj;
-      dSt[r * Lp + i] = __fdiv_rn(pj * (dp[p] - st[2]), a.div);
-    }
+template <int C>
+__global__ void __launch_bounds__(kWideThreads, 2)
+attention_dkv_kernel(wide::WideArgs a, int row_tiles, bool vec) {
+  using Y = WideTile<C>;
+  constexpr int R = kRows, SA = Y::kStrideA, TC = Y::tc(2);
+  static_assert(TC >= 8, "a phase-C stage holds a k-step");
+  extern __shared__ __align__(16) float smem[];
+  const int L = a.L, hd = a.hd, Ls = score_stride(L);
+  float* Pb = smem;              // [R keys][Ls queries]: P^T
+  float* Db = Pb + R * Ls;       // [R][Ls]: dS^T
+  float* ring = Db + R * Ls;
+  const int bh = blockIdx.x / row_tiles, b = bh / a.H, h = bh % a.H;
+  const int k0 = blockIdx.x % row_tiles * R;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int64_t rs = 3 * (int64_t)a.H * hd, os = (int64_t)a.H * hd;
+  const float* Q = wide::q_of(a, b, h);
+  const float* K = wide::k_of(a, b, h);
+  const float* V = wide::v_of(a, b, h);
+  const float* dO = wide::do_of(a, b, h);
+  const int32_t* mk = a.mask + (int64_t)b * L;
+  const float4* stats = reinterpret_cast<const float4*>(a.stats) +
+                        (int64_t)bh * L;
+
+  // the biases of this lane's keys (rows g and g + 8)
+  float bias[2];
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {
+    const int j = k0 + g + 8 * u;
+    bias[u] = j >= L ? -INFINITY : mk[j] > 0 ? 0.f : kMasked;
   }
-  __syncthreads();
-  const int keys = min(kRowsA, a.L - k0);
-  for (int c0 = 0; c0 < a.hd; c0 += kChunk) {
-    const int col = c0 + tid;
-    if (col >= a.hd) break;
-    float dk[kRowsA], dv[kRowsA];
-    for (int r = 0; r < kRowsA; ++r) dk[r] = dv[r] = 0.f;
-    for (int i = 0; i < a.L; ++i) {
-      const float q = Q[(size_t)i * stride + col];
-      const float g = dO[(size_t)i * dstride + col];
-      // every row of the tile (a key past L reads a row never written
-      // and is never stored), so dk and dv stay in registers
-      for (int r = 0; r < kRowsA; ++r) {
-        dk[r] = fmaf(dSt[r * Lp + i], q, dk[r]);
-        dv[r] = fmaf(Pt[r * Lp + i], g, dv[r]);
+
+  // phase A: step s takes query tile s / nch, head columns chunk s % nch
+  const int nch = (hd + C - 1) / C;
+  const int nA = (L + kTile - 1) / kTile * nch;
+  auto stage_a = [&](int s) {
+    float* st = ring + (s & 1) * Y::kStage;
+    const int i0 = s / nch * kTile, c0 = s % nch * C;
+    stage_rows(st, SA, K, rs, k0, R, L, c0, C, hd, vec);
+    stage_rows(st + R * SA, SA, V, rs, k0, R, L, c0, C, hd, vec);
+    stage_rows(st + 2 * R * SA, SA, Q, rs, i0, kTile, L, c0, C, hd, vec);
+    stage_rows(st + (2 * R + kTile) * SA, SA, dO, os, i0, kTile, L, c0, C,
+               hd, vec);
+  };
+  float sc[2][4], dp[2][4];
+  stage_a(0);
+  cp_async_commit();
+  for (int s = 0; s < nA; ++s) {
+    if (s + 1 < nA) stage_a(s + 1);
+    cp_async_commit();
+    cp_async_wait_prior();
+    __syncthreads();
+    chunk_products<C>(ring + (s & 1) * Y::kStage, warp, g, t, s % nch == 0,
+                      sc, dp);
+    if (s % nch == nch - 1) {   // S^T and dP^T of the tile: P^T, dS^T
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+        const int i = s / nch * kTile + 16 * warp + 8 * n + 2 * t;
+        const float4 z = make_float4(0.f, 1.f, 0.f, 0.f);
+        const float4 st[2] = {i < L ? stats[i] : z,
+                              i + 1 < L ? stats[i + 1] : z};
+        float p[4], ds[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float4& q = st[e & 1];
+          const float x = __fdiv_rn(sc[n][e], a.div) + bias[e >> 1];
+          p[e] = __fdiv_rn(expf(x - q.x), q.y);
+          ds[e] = __fdiv_rn(p[e] * (dp[n][e] - q.z), a.div);
+          if (i + (e & 1) >= L) p[e] = ds[e] = 0.f;   // no such query
+        }
+        *reinterpret_cast<float2*>(Pb + g * Ls + i) = make_float2(p[0], p[1]);
+        *reinterpret_cast<float2*>(Pb + (g + 8) * Ls + i) =
+            make_float2(p[2], p[3]);
+        *reinterpret_cast<float2*>(Db + g * Ls + i) =
+            make_float2(ds[0], ds[1]);
+        *reinterpret_cast<float2*>(Db + (g + 8) * Ls + i) =
+            make_float2(ds[2], ds[3]);
       }
     }
-    float* out = a.out + ((size_t)b * a.L + k0) * stride +
-                 (size_t)h * a.hd + col;
-    for (int r = 0; r < keys; ++r) {
-      out[(size_t)r * stride + (size_t)a.H * a.hd] = dk[r];
-      out[(size_t)r * stride + 2 * (size_t)a.H * a.hd] = dv[r];
+    __syncthreads();
+  }
+
+  // phase C: dV = P^T dO, dK = dS^T Q, this warp's columns of each pass;
+  // a stage holds TC rows of Q, then TC of dO
+  const Passes ps(hd);
+  const int nkc = (L + TC - 1) / TC, nC = ps.n * nkc, nt = ps.wc / 8;
+  auto stage_c = [&](int s) {
+    float* st = ring + (s & 1) * Y::kStage;
+    const int i0 = s % nkc * TC, c0 = s / nkc * kWideWarps * ps.wc;
+    stage_rows(st, kStrideC, Q, rs, i0, TC, L, c0, kWideWarps * ps.wc, hd,
+               vec);
+    stage_rows(st + TC * kStrideC, kStrideC, dO, os, i0, TC, L, c0,
+               kWideWarps * ps.wc, hd, vec);
+  };
+  stage_c(0);
+  cp_async_commit();
+  float dk[kNt][4], dv[kNt][4];
+  for (int s = 0; s < nC; ++s) {
+    if (s + 1 < nC) stage_c(s + 1);
+    cp_async_commit();
+    cp_async_wait_prior();
+    __syncthreads();
+    const int kc = s % nkc;
+    if (kc == 0) {
+#pragma unroll
+      for (int n = 0; n < kNt; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
+      }
     }
+    const float* qst = ring + (s & 1) * Y::kStage + warp * ps.wc;
+    const float* ost = qst + TC * kStrideC;
+#pragma unroll
+    for (int k = 0; k < TC; k += 8) {
+      uint32_t ph[4], pl[4], dh[4], dl[4];
+      frag_a(Pb + kc * TC + k, Ls, g, t, ph, pl);
+      frag_a(Db + kc * TC + k, Ls, g, t, dh, dl);
+#pragma unroll
+      for (int n = 0; n < kNt; ++n) {
+        if (n < nt) {
+          const float4 bo = frag_b_cols(ost + k * kStrideC + 8 * n, kStrideC,
+                                        g, t);
+          const float4 bq = frag_b_cols(qst + k * kStrideC + 8 * n, kStrideC,
+                                        g, t);
+          mma3_add(dv[n], ph, pl, bo);
+          mma3_add(dk[n], dh, dl, bq);
+        }
+      }
+    }
+    if (kc == nkc - 1) {
+      const int c0 = s / nkc * kWideWarps * ps.wc + warp * ps.wc + 2 * t;
+      float* out = a.out + (int64_t)b * L * rs + (int64_t)h * hd;
+#pragma unroll
+      for (int n = 0; n < kNt; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int row = k0 + g + (e >= 2 ? 8 : 0);
+          const int col = c0 + 8 * n + (e & 1);
+          if (n < nt && row < L && col < hd) {
+            out[(int64_t)row * rs + os + col] = dk[n][e];
+            out[(int64_t)row * rs + 2 * os + col] = dv[n][e];
+          }
+        }
+      }
+    }
+    __syncthreads();
   }
 }
+
+template <int C>
+int launch_wide(bool dq, const wide::WideArgs& a, int64_t row_tiles,
+                int64_t grid, int64_t smem, bool vec, cudaStream_t stream) {
+  if (smem != (int64_t)WideTile<C>::floats(a.L) * (int64_t)sizeof(float))
+    return (int)cudaErrorInvalidValue;
+  void (*kernel)(wide::WideArgs, int, bool) =
+      dq ? attention_dq_kernel<C> : attention_dkv_kernel<C>;
+  static int64_t allowed[2] = {0, 0};   // one attribute call per larger size
+  const int err = allow_smem(kernel, smem, allowed[dq]);
+  if (err != (int)cudaSuccess) return err;
+  kernel<<<(unsigned)grid, kWideThreads, smem, stream>>>(a, (int)row_tiles,
+                                                          vec);
+  return (int)cudaGetLastError();
+}
+
+// The chunks ops/attention.wide_backward_tiles_for picks;
+// tests/test_torch_attention_wide_split.py holds the tiling to this list.
+#define WIDE_INSTANCE(C_) \
+  if (chunk == C_) return launch_wide<C_>(dq, a, row_tiles, grid, smem, vec, s);
 
 int wide_backward_launch(bool dq, const void* qkv, const void* mask,
                          const void* dctx, void* dqkv, void* stats,
                          int64_t B, int64_t L, int64_t H, int64_t hd,
-                         float div, void* stream) {
+                         int64_t rows, int64_t chunk, int64_t row_tiles,
+                         int64_t grid, int64_t smem, float div,
+                         void* stream) {
   if (B <= 0 || L <= 0) return 0;
   if (L > 512 || H <= 0 || hd <= 0 || B * H > 2147483647LL ||
       B * L * 3 * H * hd > (int64_t)1 << 40 ||
-      !(div > 0.f && div < INFINITY)) {
+      !(div > 0.f && div < INFINITY) || rows != kRows ||
+      row_tiles != (L + rows - 1) / rows || grid != B * H * row_tiles ||
+      grid > 2147483647LL || (uintptr_t)stats % 16) {
     return (int)cudaErrorInvalidValue;
   }
   wide::WideArgs a{(const float*)qkv, (const int32_t*)mask,
                    (const float*)dctx, (float*)dqkv, (float*)stats, (int)B,
                    (int)L, (int)H, (int)hd, div};
-  const size_t smem = (size_t)(2 * wide::kRowsA * wide::padded_len((int)L) +
-                               wide::kStageFloats) * sizeof(float);
-  void (*kernel)(wide::WideArgs) =
-      dq ? static_cast<void (*)(wide::WideArgs)>(attention_dq_kernel)
-         : static_cast<void (*)(wide::WideArgs)>(attention_dkv_kernel);
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((unsigned)(B * H),
-                  (unsigned)((L + wide::kRowsA - 1) / wide::kRowsA));
-  if (dq) {
-    attention_dq_kernel<<<grid, wide::kThreadsW, smem,
-                          (cudaStream_t)stream>>>(a);
-  } else {
-    attention_dkv_kernel<<<grid, wide::kThreadsW, smem,
-                           (cudaStream_t)stream>>>(a);
-  }
-  return (int)cudaGetLastError();
+  const bool vec = hd % 4 == 0 &&
+      ((uintptr_t)qkv | (uintptr_t)dctx) % 16 == 0;
+  const cudaStream_t s = (cudaStream_t)stream;
+  WIDE_INSTANCE(32)
+  WIDE_INSTANCE(16)
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // Head widths above 128 (any hd >= 1 is taken), 1 <= L <= 512, div =
 // f32(sqrt(hd)); contiguous f32 qkv [B, L, 3 H hd], dctx [B, L, H hd],
-// dqkv [B, L, 3 H hd], stats [B H L, 4], int32 mask [B, L]. The dq launch
-// fills dQ and stats; the dkv launch, after it in stream order, reads
-// stats and fills dK and dV. Each returns cudaGetLastError().
+// dqkv [B, L, 3 H hd], stats [B H L, 4] (16-byte aligned), int32 mask
+// [B, L], and the tiling of ops/attention.wide_backward_tiles_for: rows
+// = 16, the chunk of a WIDE_INSTANCE, row_tiles = ceil(L / 16), grid = B H
+// row_tiles, smem the instance's WideTile layout for L (refused
+// otherwise). The dq launch fills dQ and stats; the dkv launch, after it
+// in stream order, reads stats and fills dK and dV. Each returns
+// cudaGetLastError().
 extern "C" int encoder_attention_backward_dq_wide_launch(
     const void* qkv, const void* mask, const void* dctx, void* dqkv,
-    void* stats, int64_t B, int64_t L, int64_t H, int64_t hd, float div,
+    void* stats, int64_t B, int64_t L, int64_t H, int64_t hd, int64_t rows,
+    int64_t chunk, int64_t row_tiles, int64_t grid, int64_t smem, float div,
     void* stream) {
   return wide_backward_launch(true, qkv, mask, dctx, dqkv, stats, B, L, H,
-                              hd, div, stream);
+                              hd, rows, chunk, row_tiles, grid, smem, div,
+                              stream);
 }
 
 extern "C" int encoder_attention_backward_dkv_wide_launch(
     const void* qkv, const void* mask, const void* dctx, const void* stats,
-    void* dqkv, int64_t B, int64_t L, int64_t H, int64_t hd, float div,
+    void* dqkv, int64_t B, int64_t L, int64_t H, int64_t hd, int64_t rows,
+    int64_t chunk, int64_t row_tiles, int64_t grid, int64_t smem, float div,
     void* stream) {
   return wide_backward_launch(false, qkv, mask, dctx, dqkv, (void*)stats, B,
-                              L, H, hd, div, stream);
+                              L, H, hd, rows, chunk, row_tiles, grid, smem,
+                              div, stream);
 }

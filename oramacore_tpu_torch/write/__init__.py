@@ -46,6 +46,7 @@ from ..utils.flatten import (
     infer_field_type,
     string_values,
 )
+from ..utils.gc_pause import gc_paused
 from ..utils.tokenizer import NLPService
 from .doc_op import build_doc_op, embedding_text
 from .embedding_queue import EmbeddingQueue
@@ -225,14 +226,6 @@ class WriteSide:
         # the AI service (reference AutomaticEmbeddingsSelector): takes a
         # sample document dict, returns property paths to embed
         self.embeddings_selector = None
-        # ingest tokenization pool: the native tokenizer releases the GIL,
-        # so batches tokenize in parallel across cores
-        from concurrent.futures import ThreadPoolExecutor
-
-        self._tokenize_pool = ThreadPoolExecutor(
-            max_workers=min(os.cpu_count() or 4, 16),
-            thread_name_prefix="tokenize",
-        )
         self._load()
 
     def _send_embedding(self, collection_id: str, body: Dict[str, Any]):
@@ -468,6 +461,17 @@ class WriteSide:
         write_key: Optional[str],
         docs: Sequence[Dict[str, Any]],
     ) -> InsertStats:
+        with gc_paused():
+            return self._insert_documents(collection_id, index_id,
+                                          write_key, docs)
+
+    def _insert_documents(
+        self,
+        collection_id: str,
+        index_id: str,
+        write_key: Optional[str],
+        docs: Sequence[Dict[str, Any]],
+    ) -> InsertStats:
         coll = self.check_write_key(
             collection_id, write_key,
             target_index=index_id, incoming=len(docs),
@@ -496,8 +500,10 @@ class WriteSide:
                     transformed.append(doc)
             docs = transformed
 
-        # pre-tokenize every unique string value in parallel (memoized;
-        # the native tokenizer releases the GIL during execution)
+        # pre-tokenize every unique string value once (memoized). In this
+        # thread: a pool of tokenizer threads, though the native tokenizer
+        # releases the GIL, halved the ingest rate on 8 cores, its
+        # hand-offs costing more than the tokenizing they overlapped
         unique_texts: List[str] = []
         seen_texts = set()
         for doc in docs:
@@ -508,23 +514,8 @@ class WriteSide:
                     if text and text not in seen_texts:
                         seen_texts.add(text)
                         unique_texts.append(text)
-        if len(unique_texts) > 8:
-            if (os.cpu_count() or 1) > 1:
-                packed_list = list(
-                    self._tokenize_pool.map(
-                        parser.tokenize_and_stem_packed, unique_texts
-                    )
-                )
-            else:
-                # single-core host: the pool is pure futures/lock
-                # overhead (the GIL-releasing native tokenizer can't
-                # overlap with anything)
-                packed_list = [
-                    parser.tokenize_and_stem_packed(t) for t in unique_texts
-                ]
-            token_cache = dict(zip(unique_texts, packed_list))
-        else:
-            token_cache = {}
+        token_cache = {t: parser.tokenize_and_stem_packed(t)
+                       for t in unique_texts} if len(unique_texts) > 8 else {}
 
         # automatic embedding-property selection (reference
         # write/index/mod.rs:589 path → AutomaticEmbeddingsSelector LLM
@@ -1037,5 +1028,4 @@ class WriteSide:
 
     def stop(self):
         self.embedding_queue.stop()
-        self._tokenize_pool.shutdown(wait=False)
         self.commit()

@@ -106,10 +106,11 @@ def _as_if_on_the_card(monkeypatch):
         calls.append(("wide forward", hd, None))
         return at.encoder_attention_plain(qkv, mask, n_heads)
 
-    def launch_backward_wide(qkv, mask, dctx, n_heads):
+    def launch_backward_wide(qkv, mask, dctx, n_heads, div_hd=None):
         B, L, D, hd = at.plain_shapes(qkv, mask, n_heads)
-        calls.append(("wide backward", hd, None))
-        return at.encoder_attention_backward_plain(qkv, mask, dctx, n_heads)
+        calls.append(("wide backward", hd, div_hd))
+        return at.encoder_attention_backward_plain(qkv, mask, dctx, n_heads,
+                                                   div_hd=div_hd)
 
     monkeypatch.setattr(at, "_device_of", lambda ts: torch.device("cuda"))
     monkeypatch.setattr(at, "launch", launch)
@@ -161,6 +162,24 @@ def test_widths_above_128_launch_the_wide_kernels(hd, monkeypatch):
                                want_d, rtol=0, atol=0)
     assert calls == [("wide forward", hd, None), ("wide backward", hd, None)]
     assert at.PLAIN_WIDTH_CALLS["encoder_attention_plain"] == plain
+
+
+@pytest.mark.parametrize("hd", [130, 131])
+def test_ragged_widths_above_128_pad_the_backward_to_a_multiple_of_4(
+        hd, monkeypatch):
+    """A width above 128 that is not a multiple of 4: the forward runs at
+    its true width, the backward on heads zero-padded to the next multiple
+    of 4 (16-byte rows) with the true width's divisor, sliced back."""
+    qkv, mask, dctx, H = _inputs(hd, seed=hd, H=2, L=8)
+    want_d = at.encoder_attention_backward_plain(qkv, mask, dctx, H)
+    calls = _as_if_on_the_card(monkeypatch)
+    at.encoder_attention(qkv, mask, H)
+    torch.testing.assert_close(at.encoder_attention_backward(qkv, mask, dctx,
+                                                             H),
+                               want_d, rtol=0, atol=1e-6)
+    assert calls == [("wide forward", hd, None),
+                     ("wide backward", at.wide_width(hd), hd)]
+    assert at.wide_width(hd) == 132
 
 
 def test_widths_above_128_run_the_plain_version_on_cpu_tensors():

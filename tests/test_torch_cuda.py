@@ -1196,18 +1196,20 @@ def test_encoder_attention_padded_head_widths(cuda, hd):
                                rtol=tb.BWD_TOL, atol=tb.BWD_TOL)
 
 
-@pytest.mark.parametrize("hd", [160, 256, 320])
-def test_encoder_attention_wide_head_widths(cuda, hd):
-    """Head widths above 128: the wide instances (f32, the head's columns
-    in chunks of 128); forward within 1e-5 of the f64 reference, the
-    backward within 5e-5 (BWD_TOL), one launch of each kernel, and
-    nothing runs the plain version on the card."""
+@pytest.mark.parametrize("hd", [130, 160, 256, 320])
+@pytest.mark.parametrize("L", [1, 17, 65, 512])
+def test_encoder_attention_wide_head_widths(cuda, hd, L):
+    """Head widths above 128, a ragged one (130: its columns are not
+    16-byte aligned) among them: the wide instances (the forward in f32,
+    the backward on the tensor cores in 3xTF32); forward within 1e-5 of
+    the f64 reference, the backward within 5e-5 (BWD_TOL), one launch of
+    each kernel, and nothing runs the plain version on the card."""
     from oramacore_tpu_torch.benches import train_bench as tb
     from oramacore_tpu_torch.benches.encoder_bench import attention_reference
     from oramacore_tpu_torch.ops import attention as at
 
-    case = dict(B=4, L=200 if hd == 256 else 33, H=2, hd=hd, padded=1)
-    qkv, mask, dctx = tb.backward_inputs(case, hd, cuda)
+    case = dict(B=4, L=L, H=2, hd=hd, padded=1)
+    qkv, mask, dctx = tb.backward_inputs(case, hd + L, cuda)
     before = dict(at.LAUNCHES)
     plain = at.PLAIN_WIDTH_CALLS["encoder_attention_plain"]
     got = at.encoder_attention(qkv, mask, 2)
@@ -1368,6 +1370,49 @@ def test_encoder_attention_backward_refuses_another_layout(cuda):
     torch.testing.assert_close(
         dqkv.double(), tb.backward_reference(qkv, mask, dctx, 2),
         rtol=tb.BWD_TOL, atol=tb.BWD_TOL)
+
+
+def test_encoder_attention_wide_backward_refuses_another_layout(cuda):
+    """The tiling `wide_backward_tiles_for` passes is what the wide entry
+    points take: they launch with it (16 rows a block; chunks of 32 at hd
+    160, of 16 at hd 130 and 136) and refuse its shared memory 16 bytes
+    off, rows and chunks they do not compile, and a grid or row tiles that
+    do not cover the call."""
+    import numpy as np
+
+    from oramacore_tpu_torch.benches import train_bench as tb
+    from oramacore_tpu_torch.ops import attention as at
+
+    lib = at.load_backward_kernels()
+    stream = torch.cuda.current_stream().cuda_stream
+    for case in (dict(B=3, L=40, H=2, hd=160, padded=1),
+                 dict(B=2, L=300, H=1, hd=130, padded=1),
+                 dict(B=64, L=65, H=5, hd=136, padded=0)):
+        B, L, H, hd = case["B"], case["L"], case["H"], case["hd"]
+        qkv, mask, dctx = tb.backward_inputs(case, 5, cuda)
+        dqkv = torch.zeros_like(qkv)
+        stats = torch.zeros((B * H * L, 4), device=cuda)
+        div = float(np.float32(np.sqrt(hd)))
+        tl = at.wide_backward_tiles_for(B, H, L, hd)
+        good = (tl.rows, tl.chunk, tl.row_tiles, tl.grid, tl.smem)
+        bad = [(tl.rows, tl.chunk, tl.row_tiles, tl.grid, tl.smem + 16),
+               (tl.rows, tl.chunk, tl.row_tiles, tl.grid, tl.smem - 16),
+               (tl.rows, 64, tl.row_tiles, tl.grid, tl.smem),
+               (32, tl.chunk, -(-L // 32), B * H * -(-L // 32), tl.smem),
+               (tl.rows, tl.chunk, tl.row_tiles + 1, tl.grid, tl.smem),
+               (tl.rows, tl.chunk, tl.row_tiles, tl.grid - 1, tl.smem)]
+        for kind in ("dq", "dkv"):
+            fn = getattr(lib, f"encoder_attention_backward_{kind}_wide_launch")
+            tail = (dqkv, stats) if kind == "dq" else (stats, dqkv)
+            for tiling, ok in [(t, False) for t in bad] + [(good, True)]:
+                err = fn(qkv.data_ptr(), mask.data_ptr(), dctx.data_ptr(),
+                         *(t.data_ptr() for t in tail), B, L, H, hd,
+                         *tiling, div, stream)
+                assert (err == 0) == ok, (case, kind, tiling, err)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(
+            dqkv.double(), tb.backward_reference(qkv, mask, dctx, H),
+            rtol=tb.BWD_TOL, atol=tb.BWD_TOL)
 
 
 def test_training_step_on_the_card(cuda):
