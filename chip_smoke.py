@@ -439,7 +439,7 @@ KERNELS = (
          source="oramacore_tpu_torch/ops/csrc/facet_hist.cu",
          replaces="oramacore_tpu/ops/pruned.py:1198", jitted=True,
          path="facets", mesh=False),
-    # the attention and its gradient count their f32 instances for head
+    # the attention and its gradient count their wide instances for head
     # widths above 128 (ops/csrc/attention_wide.cuh) under the same names
     dict(name="encoder_attention",
          module="oramacore_tpu_torch.ops.attention", route="cuda",
@@ -2309,12 +2309,13 @@ def width_checks(device, card):
     BWD_TOL of their f64 references, one launch of each kernel a call. The
     forward and the backward pair are timed warm as CUDA-graph replays
     beside their bounds (3xTF32 rate; FFMA rate in brackets), the plain
-    versions and scaled_dot_product_attention's forward and backward; each
-    backward kernel alone (on the operands the wrapper gives it: hd 130
-    zero-padded to 132) L2-cold beside its own bound. (The wide
-    backward's earlier FFMA design, a3966e4's, is timed against this one
-    by `python -m oramacore_tpu_torch.benches.train_bench --wide
-    --baseline`.) Returns {label: numbers} of the wide cases."""
+    versions and scaled_dot_product_attention's forward and backward; the
+    forward kernel and each backward kernel alone (on the operands the
+    wrapper gives them: hd 130 zero-padded to 132) L2-cold beside their
+    own bounds. (The wide kernels' earlier FFMA designs are timed against
+    these by `python -m oramacore_tpu_torch.benches.attention_bench --wide
+    --baseline` and `... .train_bench --wide --baseline`.) Returns {label:
+    numbers} of the wide cases."""
     import torch
 
     from oramacore_tpu_torch.benches import (
@@ -2324,6 +2325,7 @@ def width_checks(device, card):
         time_cuda,
         time_graph,
     )
+    from oramacore_tpu_torch.benches.attention_bench import wide_kernel
     from oramacore_tpu_torch.benches.encoder_bench import (
         WIDTH_CASES,
         attention_inputs,
@@ -2383,6 +2385,7 @@ def width_checks(device, card):
         bwd_ms = time_graph(lambda: at.encoder_attention_backward(
             qkv, mask, dctx, H), 5)
         # each kernel alone on the operands the wrapper gives it
+        fwd_cold = time_cold(wide_kernel(qkv, mask, H, None), flush, 3)
         launch = current_parts(qkv, mask, dctx, H, wide=True)
         cold = {k: time_cold(lambda k=k: launch(k), flush, 3)
                 for k in ("dq", "dkv")}
@@ -2410,7 +2413,15 @@ def width_checks(device, card):
               f"{b_bound[0]:.4f} ms {b_bound[1]}, FFMA rate {b_ffma:.4f}); "
               f"max abs err forward "
               f"{err:.3g}, backward {derr:.3g}, warm [{card}]", flush=True)
-        kernels = {}
+        tf = at.wide_tiles_for(B, H, L, at.wide_width(hd))
+        print(f"  wide [{label}] encoder_attention alone ({tf.rows} query "
+              f"rows a block, chunks of {tf.chunk} columns): {fwd_cold:.4f} "
+              f"ms L2-cold; bound {f_bound[0]:.4f} ms ({f_bound[1]} at the "
+              f"3xTF32 rate), {100 * f_bound[0] / fwd_cold:.1f}% of it "
+              f"[FFMA rate {f_ffma:.4f} ms, {100 * f_ffma / fwd_cold:.1f}%] "
+              f"[{card}]", flush=True)
+        kernels = {"forward": dict(ms=fwd_cold, bound_ms=f_bound[0],
+                                   bound_by=f_bound[1])}
         for k in ("dq", "dkv"):
             bd = bound_ms(*work[k], H100_TF32X3_OPS_PER_S)
             bf = bound_ms(*work[k], H100_F32_OPS_PER_S)[0]

@@ -61,6 +61,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import functools
 import sys
 from pathlib import Path
 from typing import Callable
@@ -118,22 +119,54 @@ def backward_reference(qkv: torch.Tensor, mask: torch.Tensor,
     return attention_backward_from_probs(q, k, v, P, dctx.double(), div)
 
 
-def _trunc_f32(x: torch.Tensor) -> torch.Tensor:
-    """f64 -> f32, rounded toward zero."""
-    r = x.to(torch.float32)
-    return torch.where(r.double().abs() > x.abs(),
-                       torch.nextafter(r, torch.zeros_like(r)), r)
+def one_thread(fn: Callable) -> Callable:
+    """fn run with PyTorch on one CPU thread (the count restored after):
+    the emulators' tensors are small, and their thousands of small steps
+    ran far slower on 8 threads beside other test workers. `_mma`
+    gives the bits it gave on the default threads
+    (`tests/test_torch_attention_grad_split.py`)."""
+    @functools.wraps(fn)
+    def run(*args, **kwargs):
+        n = torch.get_num_threads()
+        torch.set_num_threads(1)
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            torch.set_num_threads(n)
+    return run
 
 
+_F32_TINY = float(np.finfo(np.float32).tiny)   # the least normal f32
+_F32_MAX = float(np.finfo(np.float32).max)
+
+
+def _cut_f32(x: torch.Tensor) -> torch.Tensor:
+    """f64 x rounded toward zero to f32, kept in f64: its 29 low mantissa
+    bits cleared, which is that rounding wherever the result is 0 or a
+    normal f32; elsewhere (f32 subnormals, beyond the f32 range, NaN) the
+    f32 rounded to nearest and stepped towards 0 where it grew."""
+    t = (x.view(torch.int64) & -(1 << 29)).view(torch.float64)
+    a = t.abs()
+    off = ~(((a >= _F32_TINY) & (a <= _F32_MAX)) | (a == 0))
+    if bool(off.any()):
+        xo = x[off]
+        r = xo.to(torch.float32)
+        t[off] = torch.where(r.double().abs() > xo.abs(),
+                             torch.nextafter(r, torch.zeros_like(r)),
+                             r).double()
+    return t
+
+
+@one_thread
 def _mma(d: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
          passes: int) -> torch.Tensor:
     """d + a @ b (a [..., M, K], b [..., K, N], d f32 [..., M, N]) as a
     chain of mma.sync.m16n8k8 steps into the accumulator d: for each 8 of
     K, each tf32 pass (a_lo b_hi, a_hi b_lo, a_hi b_hi; a_hi b_hi alone at
     1 pass) sums its 8 products exactly and adds them to d, the result
-    rounded toward zero to f32. That is a model of the tensor core's
-    truncating accumulation, not its exact behaviour (see
-    `backward_tf32`)."""
+    rounded toward zero to f32 (held in f64 along the chain, where it is
+    exact). That is a model of the tensor core's truncating accumulation,
+    not its exact behaviour (see `backward_tf32`)."""
     from .attention_bench import split_tf32
 
     if passes not in (1, 3):
@@ -141,12 +174,14 @@ def _mma(d: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     ah, al = (x.double() for x in split_tf32(a))
     bh, bl = (x.double() for x in split_tf32(b))
     steps = ((al, bh), (ah, bl), (ah, bh)) if passes == 3 else ((ah, bh),)
+    d = d.double()
     for k in range(0, a.shape[-1], 8):
         for x, y in steps:
-            d = _trunc_f32(d.double() + x[..., k:k + 8] @ y[..., k:k + 8, :])
-    return d
+            d = _cut_f32(d + x[..., k:k + 8] @ y[..., k:k + 8, :])
+    return d.to(torch.float32)
 
 
+@one_thread
 def backward_tf32(qkv: torch.Tensor, mask: torch.Tensor, dctx: torch.Tensor,
                   n_heads: int, passes: int = 3,
                   accumulate: str = "steps") -> torch.Tensor:
@@ -233,6 +268,7 @@ def backward_tf32(qkv: torch.Tensor, mask: torch.Tensor, dctx: torch.Tensor,
                       for x in (dq, dk, dv)], dim=-1)
 
 
+@one_thread
 def wide_backward_tf32(qkv: torch.Tensor, mask: torch.Tensor,
                        dctx: torch.Tensor, n_heads: int, passes: int = 3,
                        chunked: bool = True) -> torch.Tensor:

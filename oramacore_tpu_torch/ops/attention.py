@@ -26,11 +26,12 @@ the dtype it is given (the card's check runs it in f64).
   unchanged, and the padded columns of O, dQ, dK and dV are zero); a
   width above 128 takes the "wide" instances (`launch_wide`,
   `launch_backward_wide`, csrc/attention_wide.cuh: a 16 x hd accumulator
-  a warp no longer fits in registers, so they stream the head's columns;
-  the forward in f32 on the CUDA cores, the backward pair on the tensor
-  cores in 3xTF32, tiled by `wide_backward_tiles_for`). A CPU tensor
-  runs the plain version at any width (forward calls above 128 counted
-  in `PLAIN_WIDTH_CALLS`).
+  a warp no longer fits in registers, so they stream the head's columns,
+  all three on the tensor cores in 3xTF32, tiled by `wide_tiles_for` and
+  `wide_backward_tiles_for`; a width that is not a multiple of 4 is
+  zero-padded to one, `wide_width`, with the true width's divisor). A
+  CPU tensor runs the plain version at any width (forward calls above
+  128 counted in `PLAIN_WIDTH_CALLS`).
 - A batch row whose mask is all zero (the padding rows of a power-of-two
   batch) gets the mean of V in every query row, as in JAX: -1e9 is added
   to every score, and at 1e9 the f32 ulp is 64, so all its scores round
@@ -233,10 +234,10 @@ _WIDE_THREADS = 256
 
 
 class WideTiles(NamedTuple):
-    """How both wide backward kernels tile a call (see
-    `wide_backward_tiles_for`); the wrapper launches with every field but
-    `blocks_per_sm`."""
-    rows: int        # rows of its own side of one (b, h) a block owns (16)
+    """How the wide kernels tile a call (see `wide_tiles_for`, the
+    forward's, and `wide_backward_tiles_for`, both backward kernels'); the
+    wrapper launches with every field but `blocks_per_sm`."""
+    rows: int        # rows of its own side of one (b, h) a block owns
     chunk: int       # head columns a phase-A stage holds (C)
     row_tiles: int   # blocks along the rows of one (b, h)
     grid: int        # blocks launched: B H row_tiles
@@ -245,14 +246,44 @@ class WideTiles(NamedTuple):
     blocks_per_sm: int   # resident blocks an SM by shared memory
 
 
+def _wide_smem(rows: int, chunk: int, L: int, ops: int) -> int:
+    """Shared-memory bytes of a wide block (attention_wide.cuh's
+    TileLayout) that owns `rows` rows with `ops` operands a side: `ops`
+    score arrays of round128(L) + 4 floats a row, and a ring of 2 stages
+    of ops x (rows + 128) rows of chunk + 4 floats."""
+    stride = -(-L // _WIDE_TILE) * _WIDE_TILE + 4
+    stage = ops * (rows + _WIDE_TILE) * (chunk + 4)
+    return 4 * (ops * rows * stride + 2 * stage)
+
+
 def wide_backward_smem(chunk: int, L: int) -> int:
     """Shared-memory bytes of a wide backward block (the kernels'
     WideTile): two score rows of round128(L) + 4 floats for each of the 16
     rows, and a ring of 2 stages of (2 x 16 + 2 x 128) rows of chunk + 4
     floats."""
-    stride = -(-L // _WIDE_TILE) * _WIDE_TILE + 4
-    stage = (2 * _WIDE_ROWS + 2 * _WIDE_TILE) * (chunk + 4)
-    return 4 * (2 * _WIDE_ROWS * stride + 2 * stage)
+    return _wide_smem(_WIDE_ROWS, chunk, L, 2)
+
+
+def _wide_chunk(hd: int, smem_of, blocks: int) -> tuple:
+    """(chunk, smem, blocks an SM by shared memory): the first of
+    `WIDE_CHUNKS` whose block `smem_of(chunk)` fits `blocks` an SM, taking
+    chunks of 32 columns only where they compute no more padded columns
+    than 16 (hd mod 32 is 0 or above 16)."""
+    for chunk in WIDE_CHUNKS:
+        if chunk == 32 and 0 < hd % 32 <= 16:
+            continue
+        smem = smem_of(chunk)
+        per_sm = _SMEM_SM // (smem + _SMEM_RESERVED)
+        if per_sm >= blocks:
+            break
+    return chunk, smem, per_sm
+
+
+def _check_wide_call(L: int, hd: int) -> None:
+    if hd < 1:
+        raise ValueError(f"head width {hd} is not positive")
+    if not 1 <= L <= MAX_LEN:
+        raise ValueError(f"sequence length {L} is outside [1, {MAX_LEN}]")
 
 
 def wide_backward_tiles_for(B: int, n_heads: int, L: int,
@@ -262,20 +293,64 @@ def wide_backward_tiles_for(B: int, n_heads: int, L: int,
     blocks an SM (16 resident warps), taking chunks of 32 columns only
     where they compute no more padded columns than 16 (hd mod 32 is 0 or
     above 16)."""
-    if hd < 1:
-        raise ValueError(f"head width {hd} is not positive")
-    if not 1 <= L <= MAX_LEN:
-        raise ValueError(f"sequence length {L} is outside [1, {MAX_LEN}]")
-    for chunk in WIDE_CHUNKS:
-        if chunk == 32 and 0 < hd % 32 <= 16:
-            continue
-        smem = wide_backward_smem(chunk, L)
-        per_sm = _SMEM_SM // (smem + _SMEM_RESERVED)
-        if per_sm >= 2:
-            break
+    _check_wide_call(L, hd)
+    chunk, smem, per_sm = _wide_chunk(
+        hd, lambda c: wide_backward_smem(c, L), 2)
     row_tiles = -(-L // _WIDE_ROWS)
     return WideTiles(_WIDE_ROWS, chunk, row_tiles, B * n_heads * row_tiles,
                      smem, min(per_sm, 2048 // _WIDE_THREADS))
+
+
+# the wide forward's tiling (csrc/encoder_attention.cu, head widths above
+# 128): a block of 8 warps owns 16 or 32 query rows of one (b, h) (one or
+# two m16 tiles a warp) and keeps their scores against all L keys (one
+# float a pair); its ring holds the block's Q rows and a tile of 128 K
+# rows, a chunk of columns each. The (rows, chunk) pairs the .cu compiles;
+# the blocks an SM each launch bound asks for, by rows
+WIDE_FWD_ROWS = (16, 32)
+_WIDE_FWD_BLOCKS = {16: 3, 32: 2}
+
+
+def wide_smem(rows: int, chunk: int, L: int) -> int:
+    """Shared-memory bytes of a wide forward block (the kernel's
+    TileLayout): one score row of round128(L) + 4 floats for each of its
+    rows, and a ring of 2 stages of (rows + 128) rows of chunk + 4
+    floats."""
+    return _wide_smem(rows, chunk, L, 1)
+
+
+_SMS = 132   # streaming multiprocessors of the H100
+
+
+def wide_rows(B: int, n_heads: int, L: int) -> int:
+    """Query rows a wide forward block owns: 32 (two m16 tiles a warp,
+    each split fragment of K and V feeding two products, half the re-reads
+    of K and V), unless L <= 16 (half of each block would be padding) or
+    32-row blocks would number fewer than the card's SMs, where twice as
+    many 16-row blocks fill more of it. On the card (NVIDIA H100 80GB
+    HBM3, `attention_bench --wide --sweep`) 32 rows ran faster at every
+    sweep case but those two kinds."""
+    if L <= 16 or B * n_heads * -(-L // 32) < _SMS:
+        return 16
+    return 32
+
+
+def wide_tiles_for(B: int, n_heads: int, L: int, hd: int,
+                   rows=None) -> WideTiles:
+    """The wide forward kernel's tiling of a call: `rows` query rows a
+    block (`wide_rows` when None; 16 or 32) and the first of
+    `WIDE_CHUNKS` that fits the blocks an SM its launch bound asks for (3
+    at 16 rows, 2 at 32), taking chunks of 32 columns only where they
+    compute no more padded columns than 16."""
+    _check_wide_call(L, hd)
+    rows = wide_rows(B, n_heads, L) if rows is None else rows
+    if rows not in WIDE_FWD_ROWS:
+        raise ValueError(f"rows {rows} are not one of {WIDE_FWD_ROWS}")
+    chunk, smem, per_sm = _wide_chunk(
+        hd, lambda c: wide_smem(rows, c, L), _WIDE_FWD_BLOCKS[rows])
+    row_tiles = -(-L // rows)
+    return WideTiles(rows, chunk, row_tiles, B * n_heads * row_tiles, smem,
+                     min(per_sm, 2048 // _WIDE_THREADS))
 
 
 _lib = None
@@ -298,7 +373,8 @@ def load_kernels() -> ctypes.CDLL:
             i64, ptr]
         lib.encoder_attention_launch.restype = ctypes.c_int
         lib.encoder_attention_wide_launch.argtypes = [
-            ptr, ptr, ptr, i64, i64, i64, i64, ctypes.c_float, ptr]
+            ptr, ptr, ptr, i64, i64, i64, i64, i64, i64, i64, i64, i64,
+            ctypes.c_float, ptr]
         lib.encoder_attention_wide_launch.restype = ctypes.c_int
         _lib = lib
     return _lib
@@ -371,13 +447,13 @@ def route(hd: int) -> str:
     """How the wrappers run a head width on the card: "kernel" (a
     tensor-core kernel width), "padded" (zero-padded to `padded_width`)
     or "wide" (above 128: the instances of `launch_wide` and
-    `launch_backward_wide`, at the true width)."""
+    `launch_backward_wide`, at `wide_width`)."""
     w = padded_width(hd)
     return "wide" if w is None else "kernel" if w == hd else "padded"
 
 
 def wide_width(hd: int) -> int:
-    """The width the wide backward kernels run a head width above 128 at:
+    """The width the wide kernels run a head width above 128 at:
     hd rounded up to a multiple of 4, so each head's rows are 16-byte
     copies (the kernels take any width, a ragged one by 4-byte copies
     that cost about 4 times as much)."""
@@ -391,8 +467,11 @@ def pad_heads(t: torch.Tensor, n_heads: int, hd: int,
     ctx or dctx)."""
     B, L, C = t.shape
     parts = C // (n_heads * hd)
-    out = t.new_zeros((B, L, parts, n_heads, width))
-    out[..., :hd] = t.reshape(B, L, parts, n_heads, hd)
+    x = t.reshape(B, L, parts * n_heads, hd)
+    # one write of each element (faster on the card than a zero fill and a
+    # copy into it)
+    out = torch.cat([x, x.new_zeros((B, L, parts * n_heads, width - hd))],
+                    dim=-1)
     return out.reshape(B, L, parts * n_heads * width)
 
 
@@ -421,7 +500,9 @@ def encoder_attention(qkv: torch.Tensor, mask: torch.Tensor,
     tensor runs the plain version at any head width (above 128 counted in
     PLAIN_WIDTH_CALLS). On the card the route is chosen by the head width
     before any launch (`route`): the kernel, the kernel on zero-padded
-    heads, or, above 128, the wide kernel."""
+    heads, or, above 128, the wide kernel (at `wide_width`: a width that
+    is not a multiple of 4 zero-padded to one, with the true width's
+    divisor, and sliced back)."""
     B, L, D, hd = plain_shapes(qkv, mask, n_heads)
     how = route(hd)
     if _device_of((qkv, mask)).type == "cpu":
@@ -429,7 +510,12 @@ def encoder_attention(qkv: torch.Tensor, mask: torch.Tensor,
             PLAIN_WIDTH_CALLS["encoder_attention_plain"] += 1
         return encoder_attention_plain(qkv, mask, n_heads)
     if how == "wide":
-        return launch_wide(qkv, mask, n_heads)
+        w = wide_width(hd)
+        if w == hd:
+            return launch_wide(qkv, mask, n_heads)
+        ctx = launch_wide(pad_heads(qkv, n_heads, hd, w), mask, n_heads,
+                          div_hd=hd)
+        return unpad_heads(ctx, n_heads, hd, w)
     if how == "padded":
         w = padded_width(hd)
         ctx = launch(pad_heads(qkv, n_heads, hd, w), mask, n_heads,
@@ -490,20 +576,24 @@ def _check_wide(qkv, mask, dctx=None):
     return dev
 
 
-def launch_wide(qkv: torch.Tensor, mask: torch.Tensor,
-                n_heads: int) -> torch.Tensor:
-    """One launch of the wide forward instance (any head width; the
-    wrapper sends those above 128) on CUDA tensors: divisor f32(sqrt(hd)).
-    Counted as `encoder_attention`."""
+def launch_wide(qkv: torch.Tensor, mask: torch.Tensor, n_heads: int,
+                div_hd=None, rows=None) -> torch.Tensor:
+    """One launch of the wide forward kernel (any head width; the wrapper
+    sends those above 128, at `wide_width`) on CUDA tensors, tiled by
+    `wide_tiles_for` (`rows` query rows a block, its own choice when
+    None), divisor f32(sqrt(div_hd)) (the head width when None). Counted
+    as `encoder_attention`."""
     B, L, D, hd = plain_shapes(qkv, mask, n_heads)
     dev = _check_wide(qkv, mask)
     lib = load_kernels()
+    tl = wide_tiles_for(B, n_heads, L, hd, rows)
     ctx = torch.empty((B, L, D), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.encoder_attention_wide_launch(
             qkv.data_ptr(), mask.data_ptr(), ctx.data_ptr(), B, L, n_heads,
-            hd, float(np.float32(np.sqrt(hd))), stream)
+            hd, tl.rows, tl.chunk, tl.row_tiles, tl.grid, tl.smem,
+            float(np.float32(np.sqrt(div_hd or hd))), stream)
     _raise_on(err, "encoder_attention")
     _build.count_launch(LAUNCHES, "encoder_attention")
     return ctx

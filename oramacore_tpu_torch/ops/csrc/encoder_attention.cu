@@ -538,103 +538,321 @@ extern "C" int encoder_attention_launch(const void* qkv, const void* mask,
 }
 
 // ---------------------------------------------------------------------------
-// Head widths above 128 (attention_wide.cuh): one block of 128 threads a
-// tile of 16 query rows of one (b, h). The block forms the 16 x L scores
-// tile by tile (dot_tile over the head's columns, a 128-column chunk at a
-// time), takes the softmax a warp a row, then O = P V, thread t owning
-// column c + t of each 128-column chunk c and reading V's rows once.
-// f32 FFMA throughout: the tensor-core instances above keep a warp's
-// 16 x hd accumulator in registers, which no width above 128 fits.
+// Head widths above 128 (any hd >= 1 is taken): 3xTF32 mma.sync with the
+// head's columns streamed, on the machinery that the wide gradient kernels
+// share (attention_wide.cuh; encoder_attention_backward.cu's
+// attention_dq_kernel<C> runs the same three phases with dP beside S).
+//
+// The instances above keep a warp's 16 x hd O accumulator in registers,
+// which no width above 128 fits. Here a block of kWideWarps = 8 warps owns
+// R = 16 MT query rows of one (b, h) (MT = 1 or 2 m16 tiles, every warp
+// taking all of them) and keeps their scores against all L keys in shared
+// memory, one float a pair, in rows of score_stride(L) floats.
+// - Phase A, S = Q K^T. Keys come in tiles of kTile = 128, a warp an
+//   n-slice of 16, and the head's columns in chunks of C = 16 or 32: a
+//   chunk of the block's Q rows and of the tile's K rows lands raw through
+//   the two-stage cp.async ring (16-byte copies; chunk s + 1 is copied
+//   while chunk s is multiplied) in rows of C + 4 floats. Each chunk's
+//   products are summed from 0 and added to the tile's sums in rounded f32,
+//   so no sum goes through more than 3 C / 8 truncating steps on the tensor
+//   core (benches/attention_bench.wide_attention_tf32 models both). When a
+//   tile's sums are complete, s = sum / div + bias (an IEEE quotient; -1e9
+//   added for a masked key) goes to the score rows, and 0 for keys past L.
+// - Phase B, a warp a row: the row's max m over its L keys, e = exp(s - m)
+//   in place and their sum l, then P = e / l (an IEEE quotient). A row
+//   whose keys are all masked holds L equal scores and gets P = 1 / L: the
+//   mean of V, as JAX's f32 softmax gives it.
+// - Phase C, O = P V. The head's columns go in passes of at most kPass =
+//   128, a warp an eighth of a pass (up to 2 n8 steps); V's rows of the
+//   pass come through the same ring in tiles of TC rows of kStrideC floats;
+//   A fragments come from the score rows. Each 8-key step's products are
+//   summed from 0 and added in rounded f32 (mma3_add), so the sum over up
+//   to 512 keys does not drift towards 0 as an accumulator on the tensor
+//   core would.
+// With MT = 2 each split fragment of K (phase A) and V (phase C) feeds two
+// products, and a block re-reads its (b, h)'s K and V from L2 half as
+// often. Query rows past L are computed (from zero rows) and not stored.
+//
+// What bounds it on the H100 (ops/attention.attention_work): at hd 256,
+// B = 8, L = 512, H = 4 the products, 8.6 GFLOP at the 3xTF32 rate
+// (52.1 us); at the shorter WIDTH_CASES (hd 160, 320, 130) the bytes. It
+// replaces an f32 FFMA kernel of the same entry point (0ed7058, this file
+// :541-640) that reached 3.5% of that bound at hd 256.
+//
+// Tiling (ops/attention.wide_tiles_for, which the wrapper passes in): the
+// rows R and chunk C (a WIDE_FWD_INSTANCE), the row tiles, the grid and
+// the shared memory; the entry point refuses a launch whose shared memory
+// is not the instance's TileLayout for L.
 // ---------------------------------------------------------------------------
 
 namespace {
 
-__global__ void __launch_bounds__(wide::kThreadsW)
-encoder_attention_kernel(wide::WideArgs a) {
-  using namespace wide;
-  extern __shared__ float wide_smem[];
-  const int Lp = padded_len(a.L);
-  float* S = wide_smem;                  // [16][Lp] scores, then P
-  float* As = S + kRowsA * Lp;
-  float* Bs = As + kRowsA * kChunk;
-  const int bh = blockIdx.x, b = bh / a.H, h = bh % a.H;
-  const int q0 = blockIdx.y * kRowsA;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int stride = 3 * a.H * a.hd;
-  const float* Q = q_of(a, b, h);
-  const float* K = k_of(a, b, h);
-  const float* V = v_of(a, b, h);
-  const int32_t* mk = a.mask + (size_t)b * a.L;
-  float acc[kPairs];
-  for (int k0 = 0; k0 < a.L; k0 += kRowsB) {
-    dot_tile(Q, q0, stride, K, k0, stride, a.L, a.hd, As, Bs, acc);
-    for (int p = 0; p < kPairs; ++p) {
-      const int e = tid + kThreadsW * p;
-      const int j = k0 + e % kRowsB;
-      if (j < a.L) S[(e / kRowsB) * Lp + j] = score_of(acc[p], a.div, mk[j]);
+using wide::frag_a;
+using wide::frag_b_cols;
+using wide::frag_b_rows;
+using wide::kNt;
+using wide::kStrideC;
+using wide::kTile;
+using wide::kWideThreads;
+using wide::kWideWarps;
+using wide::Passes;
+using wide::score_stride;
+using wide::stage_rows;
+
+// a block's shared memory: one score array, one operand a side
+template <int C, int MT>
+using WideFwdTile = wide::TileLayout<C, 16 * MT, 1>;
+
+// Phase A's products of one ring stage (Q's R rows at st, the tile's K
+// rows after them): s = Q K^T over the stage's C columns for this warp's
+// 16 keys, summed from 0 and added in rounded f32, or taken as they are on
+// the first chunk of a tile
+template <int C, int MT>
+__device__ __forceinline__ void chunk_scores(const float* st, int warp,
+                                             int g, int t, bool first,
+                                             float (&s)[MT][2][4]) {
+  constexpr int SA = WideFwdTile<C, MT>::kStrideA;
+  const float* y = st + (16 * MT + 16 * warp) * SA;
+  float cs[MT][2][4];
+#pragma unroll
+  for (int m = 0; m < MT; ++m) {
+#pragma unroll
+    for (int n = 0; n < 2; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) cs[m][n][e] = 0.f;
     }
   }
-  __syncthreads();
-  for (int r = warp; r < kRowsA; r += kThreadsW / 32) {
-    float* row = S + r * Lp;
+#pragma unroll
+  for (int k = 0; k < C; k += 8) {
+    float4 bk[2];
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+      bk[n] = frag_b_rows(y + 8 * n * SA + k, SA, g, t);
+#pragma unroll
+    for (int m = 0; m < MT; ++m) {
+      uint32_t ah[4], al[4];
+      frag_a(st + 16 * m * SA + k, SA, g, t, ah, al);
+#pragma unroll
+      for (int n = 0; n < 2; ++n) mma3(cs[m][n], ah, al, bk[n]);
+    }
+  }
+#pragma unroll
+  for (int m = 0; m < MT; ++m) {
+#pragma unroll
+    for (int n = 0; n < 2; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        s[m][n][e] = first ? cs[m][n][e] : s[m][n][e] + cs[m][n][e];
+    }
+  }
+}
+
+// blocks an SM the launch bound asks for: with MT = 1 shared memory fits 3
+// at every L (74 KB a block at L = 512, C = 32), with MT = 2 two
+template <int MT>
+constexpr int wide_min_blocks() {
+  return MT == 1 ? 3 : 2;
+}
+
+template <int C, int MT>
+__global__ void __launch_bounds__(kWideThreads, wide_min_blocks<MT>())
+encoder_attention_wide_kernel(wide::WideArgs a, int row_tiles, bool vec) {
+  using Y = WideFwdTile<C, MT>;
+  constexpr int R = 16 * MT, SA = Y::kStrideA, TC = Y::tc(1);
+  static_assert(TC >= 8, "a phase-C stage holds a k-step");
+  extern __shared__ __align__(16) float smem[];
+  const int L = a.L, hd = a.hd, Ls = score_stride(L);
+  float* Sb = smem;              // [R][Ls]: s, then P
+  float* ring = Sb + R * Ls;     // 2 stages
+  const int bh = blockIdx.x / row_tiles, b = bh / a.H, h = bh % a.H;
+  const int q0 = blockIdx.x % row_tiles * R;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int64_t rs = 3 * (int64_t)a.H * hd, os = (int64_t)a.H * hd;
+  const float* Q = wide::q_of(a, b, h);
+  const float* K = wide::k_of(a, b, h);
+  const float* V = wide::v_of(a, b, h);
+  const int32_t* mk = a.mask + (int64_t)b * L;
+
+  // phase A: step s takes key tile s / nch, head columns chunk s % nch
+  const int nch = (hd + C - 1) / C;
+  const int nA = (L + kTile - 1) / kTile * nch;
+  auto stage_a = [&](int s) {
+    float* st = ring + (s & 1) * Y::kStage;
+    const int k0 = s / nch * kTile, c0 = s % nch * C;
+    stage_rows(st, SA, Q, rs, q0, R, L, c0, C, hd, vec);
+    stage_rows(st + R * SA, SA, K, rs, k0, kTile, L, c0, C, hd, vec);
+  };
+  float sc[MT][2][4];
+  stage_a(0);
+  cp_async_commit();
+  for (int s = 0; s < nA; ++s) {
+    if (s + 1 < nA) stage_a(s + 1);
+    cp_async_commit();
+    cp_async_wait_prior();
+    __syncthreads();
+    chunk_scores<C, MT>(ring + (s & 1) * Y::kStage, warp, g, t,
+                        s % nch == 0, sc);
+    if (s % nch == nch - 1) {   // the tile's sums are complete
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+        const int j = s / nch * kTile + 16 * warp + 8 * n + 2 * t;
+        const bool in0 = j < L, in1 = j + 1 < L;
+        const float b0 = in0 && mk[j] > 0 ? 0.f : kMasked;
+        const float b1 = in1 && mk[j + 1] > 0 ? 0.f : kMasked;
+#pragma unroll
+        for (int m = 0; m < MT; ++m) {
+#pragma unroll
+          for (int u = 0; u < 2; ++u) {
+            const float x0 = in0 ? __fdiv_rn(sc[m][n][2 * u], a.div) + b0
+                                 : 0.f;
+            const float x1 = in1 ? __fdiv_rn(sc[m][n][2 * u + 1], a.div) + b1
+                                 : 0.f;
+            *reinterpret_cast<float2*>(Sb + (16 * m + g + 8 * u) * Ls + j) =
+                make_float2(x0, x1);
+          }
+        }
+      }
+    }
+    __syncthreads();
+  }
+
+  // phase C's first stage is copied while phase B runs
+  const Passes ps(hd);
+  const int nkc = (L + TC - 1) / TC, nC = ps.n * nkc, nt = ps.wc / 8;
+  auto stage_c = [&](int s) {
+    stage_rows(ring + (s & 1) * Y::kStage, kStrideC, V, rs, s % nkc * TC, TC,
+               L, s / nkc * kWideWarps * ps.wc, kWideWarps * ps.wc, hd, vec);
+  };
+  stage_c(0);
+  cp_async_commit();
+
+  // phase B: a warp a row
+  for (int r = warp; r < R; r += kWideWarps) {
+    float* row = Sb + r * Ls;
     float m = -INFINITY;
-    for (int j = lane; j < a.L; j += 32) m = fmaxf(m, row[j]);
-    m = warp_max(m);
+    for (int j = lane; j < L; j += 32) m = fmaxf(m, row[j]);
+    m = wide::warp_max(m);
     float l = 0.f;
-    for (int j = lane; j < a.L; j += 32) {
+    for (int j = lane; j < L; j += 32) {
       const float e = expf(row[j] - m);
       row[j] = e;
       l += e;
     }
-    l = warp_sum(l);
-    for (int j = lane; j < a.L; j += 32) row[j] = __fdiv_rn(row[j], l);
+    l = wide::warp_sum(l);
+    for (int j = lane; j < L; j += 32) row[j] = __fdiv_rn(row[j], l);
   }
-  __syncthreads();
-  const int rows = min(kRowsA, a.L - q0);
-  for (int c0 = 0; c0 < a.hd; c0 += kChunk) {
-    const int col = c0 + tid;
-    if (col >= a.hd) break;
-    float o[kRowsA];
-    for (int r = 0; r < kRowsA; ++r) o[r] = 0.f;
-    for (int j = 0; j < a.L; ++j) {
-      const float v = V[(size_t)j * stride + col];
-      for (int r = 0; r < kRowsA; ++r) o[r] = fmaf(S[r * Lp + j], v, o[r]);
+
+  // phase C: O = P V, this warp's columns of each pass
+  float acc[MT][kNt][4];
+  for (int s = 0; s < nC; ++s) {
+    if (s + 1 < nC) stage_c(s + 1);
+    cp_async_commit();
+    cp_async_wait_prior();
+    __syncthreads();
+    const int kc = s % nkc;
+    if (kc == 0) {
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+#pragma unroll
+        for (int n = 0; n < kNt; ++n) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[m][n][e] = 0.f;
+        }
+      }
     }
-    float* out = a.out + ((size_t)b * a.L + q0) * a.H * a.hd +
-                 (size_t)h * a.hd + col;
-    for (int r = 0; r < rows; ++r) out[(size_t)r * a.H * a.hd] = o[r];
+    const float* vst = ring + (s & 1) * Y::kStage + warp * ps.wc;
+#pragma unroll
+    for (int k = 0; k < TC; k += 8) {
+      float4 bv[kNt];
+#pragma unroll
+      for (int n = 0; n < kNt; ++n) {
+        bv[n] = n < nt ? frag_b_cols(vst + k * kStrideC + 8 * n, kStrideC,
+                                     g, t)
+                       : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        uint32_t ah[4], al[4];
+        frag_a(Sb + 16 * m * Ls + kc * TC + k, Ls, g, t, ah, al);
+#pragma unroll
+        for (int n = 0; n < kNt; ++n) {
+          if (n < nt) mma3_add(acc[m][n], ah, al, bv[n]);
+        }
+      }
+    }
+    if (kc == nkc - 1) {
+      const int c0 = s / nkc * kWideWarps * ps.wc + warp * ps.wc + 2 * t;
+      float* out = a.out + (int64_t)b * L * os + (int64_t)h * hd;
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+#pragma unroll
+        for (int n = 0; n < kNt; ++n) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int row = q0 + 16 * m + g + (e >= 2 ? 8 : 0);
+            const int col = c0 + 8 * n + (e & 1);
+            if (n < nt && row < L && col < hd)
+              out[(int64_t)row * os + col] = acc[m][n][e];
+          }
+        }
+      }
+    }
+    __syncthreads();
   }
+}
+
+template <int C, int MT>
+int launch_wide(const wide::WideArgs& a, int64_t row_tiles, int64_t grid,
+                int64_t smem, bool vec, cudaStream_t stream) {
+  if (smem != (int64_t)WideFwdTile<C, MT>::floats(a.L) *
+                  (int64_t)sizeof(float))
+    return (int)cudaErrorInvalidValue;
+  static int64_t allowed = 0;   // one attribute call per larger size
+  const int err =
+      wide::allow_smem(encoder_attention_wide_kernel<C, MT>, smem, allowed);
+  if (err != (int)cudaSuccess) return err;
+  encoder_attention_wide_kernel<C, MT><<<(unsigned)grid, kWideThreads, smem,
+                                         stream>>>(a, (int)row_tiles, vec);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Any head width hd >= 1 (the wrapper sends those above 128), 1 <= L <=
-// 512, div = f32(sqrt(hd)); contiguous f32 qkv [B, L, 3 H hd], ctx [B, L,
-// H hd], int32 mask [B, L]. Enqueues on `stream`; returns
+// The (chunk, rows) pairs ops/attention.wide_tiles_for picks;
+// tests/test_torch_attention_wide_forward.py holds the tiling to this list.
+#define WIDE_FWD_INSTANCE(C_, R_)                                        \
+  if (chunk == C_ && rows == R_)                                         \
+    return launch_wide<C_, R_ / 16>(a, row_tiles, grid, smem, vec,       \
+                                    (cudaStream_t)stream);
+
+// Head widths above 128 (any hd >= 1 is taken; the wrapper sends those
+// above 128, zero-padded to a multiple of 4), 1 <= L <= 512, div =
+// f32(sqrt(w)) of the true width w; contiguous f32 qkv [B, L, 3 H hd], ctx
+// [B, L, H hd], int32 mask [B, L], and the tiling of
+// ops/attention.wide_tiles_for: the rows and chunk of a WIDE_FWD_INSTANCE,
+// row_tiles = ceil(L / rows), grid = B H row_tiles, smem the instance's
+// TileLayout for L (refused otherwise). Enqueues on `stream`; returns
 // cudaGetLastError() (0 on success), a refused launch never running.
-extern "C" int encoder_attention_wide_launch(const void* qkv,
-                                             const void* mask, void* ctx,
-                                             int64_t B, int64_t L, int64_t H,
-                                             int64_t hd, float div,
-                                             void* stream) {
+extern "C" int encoder_attention_wide_launch(
+    const void* qkv, const void* mask, void* ctx, int64_t B, int64_t L,
+    int64_t H, int64_t hd, int64_t rows, int64_t chunk, int64_t row_tiles,
+    int64_t grid, int64_t smem, float div, void* stream) {
   if (B <= 0 || L <= 0) return 0;
   if (L > 512 || H <= 0 || hd <= 0 || B * H > 2147483647LL ||
       B * L * 3 * H * hd > (int64_t)1 << 40 ||
-      !(div > 0.f && div < INFINITY)) {
+      !(div > 0.f && div < INFINITY) || (rows != 16 && rows != 32) ||
+      row_tiles != (L + rows - 1) / rows || grid != B * H * row_tiles ||
+      grid > 2147483647LL) {
     return (int)cudaErrorInvalidValue;
   }
   wide::WideArgs a{(const float*)qkv, (const int32_t*)mask, nullptr,
                    (float*)ctx, nullptr, (int)B, (int)L, (int)H, (int)hd,
                    div};
-  const size_t smem = (size_t)(wide::kRowsA * wide::padded_len((int)L) +
-                               wide::kStageFloats) * sizeof(float);
-  const cudaError_t err = cudaFuncSetAttribute(
-      static_cast<void (*)(wide::WideArgs)>(encoder_attention_kernel),
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((unsigned)(B * H),
-                  (unsigned)((L + wide::kRowsA - 1) / wide::kRowsA));
-  encoder_attention_kernel<<<grid, wide::kThreadsW, smem,
-                             (cudaStream_t)stream>>>(a);
-  return (int)cudaGetLastError();
+  const bool vec = hd % 4 == 0 && (uintptr_t)qkv % 16 == 0;
+  WIDE_FWD_INSTANCE(32, 32)
+  WIDE_FWD_INSTANCE(16, 32)
+  WIDE_FWD_INSTANCE(32, 16)
+  WIDE_FWD_INSTANCE(16, 16)
+  return (int)cudaErrorInvalidValue;
 }

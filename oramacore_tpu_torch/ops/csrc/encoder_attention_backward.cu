@@ -217,22 +217,6 @@ __device__ __forceinline__ void c_as_a(const float (&c)[4], uint32_t (&ah)[4],
   }
 }
 
-// d += a b in 3xTF32 as mma3 does, but the three products summed from 0
-// and added to d by one rounded f32 add an element. The tensor core
-// truncates each sum it takes into its accumulator to f32, so a sum over
-// hundreds of keys or queries taken into d by mma3 drifts towards 0 by up
-// to an ulp of d a step (5e-5 in dK and dV at BGEBase's L = 512); here
-// the truncations fall on one step's small sum and d's roundings err
-// both ways.
-__device__ __forceinline__ void mma3_add(float (&d)[4],
-                                         const uint32_t (&ah)[4],
-                                         const uint32_t (&al)[4], float4 b) {
-  float p[4] = {0.f, 0.f, 0.f, 0.f};
-  mma3(p, ah, al, b);
-#pragma unroll
-  for (int e = 0; e < 4; ++e) d[e] += p[e];
-}
-
 __device__ __forceinline__ float quad_max(float x) {
   x = fmaxf(x, __shfl_xor_sync(kAll, x, 1));
   return fmaxf(x, __shfl_xor_sync(kAll, x, 2));
@@ -703,14 +687,7 @@ attention_dkv_kernel(const float* __restrict__ qkv,     // [B, L, 3D]
 // instance's layout for `stages` (G groups of DqTile / DkvTile floats), or
 // the launch is refused. The attribute is raised to the largest size asked
 // of the instance so far.
-template <typename Kernel>
-int allow_smem(Kernel kernel, int64_t smem, int64_t& allowed) {
-  if (smem <= allowed) return (int)cudaSuccess;
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err == cudaSuccess) allowed = smem;
-  return (int)err;
-}
+using wide::allow_smem;
 
 template <int HD, int W, int G, int T, bool EXACT>
 int launch_dq(const float* qkv, const int32_t* mask, const float* dctx,
@@ -929,6 +906,9 @@ extern "C" int encoder_attention_backward_dkv_launch(
 // with 4 n8 steps a warp; n8 steps past L skipped behind a branch, dS
 // split once in phase B and a staging loop specialised to the chunk.
 //
+// The ring, the fragments and the passes are attention_wide.cuh's, which
+// the wide forward (encoder_attention.cu) shares.
+//
 // Tiling (ops/attention.wide_backward_tiles_for, which the wrapper passes
 // in): 16 rows a block, the chunk C (a WIDE_INSTANCE), the row tiles, the
 // grid and the shared memory; the entry points refuse a shared-memory size
@@ -937,94 +917,24 @@ extern "C" int encoder_attention_backward_dkv_launch(
 
 namespace {
 
-constexpr int kWideWarps = 8;
-constexpr int kWideThreads = 32 * kWideWarps;
+using wide::frag_a;
+using wide::frag_b_cols;
+using wide::frag_b_rows;
+using wide::kNt;
+using wide::kPass;
+using wide::kStrideC;
+using wide::kTile;
+using wide::kWideThreads;
+using wide::kWideWarps;
+using wide::Passes;
+using wide::score_stride;
+using wide::stage_rows;
+
 constexpr int kRows = 16;                 // own rows a block: one m16 tile
-constexpr int kTile = 16 * kWideWarps;    // phase A: other-side rows a tile
-constexpr int kPass = 128;                // phase C: head columns a pass
-constexpr int kStrideC = kPass + 8;       // phase C: floats a staged row
 
-// floats a row of scores takes: L rounded up to whole tiles, plus 4 (an A
-// fragment's reads of 8 rows x 4 columns fall on 32 banks)
-__host__ __device__ constexpr int score_stride(int L) {
-  return (L + kTile - 1) / kTile * kTile + 4;
-}
-
+// a block's shared memory: two score arrays, two operands a side
 template <int C>
-struct WideTile {
-  static constexpr int kStrideA = C + 4;               // phase A row
-  // a ring stage: the own rows' two operands and the tile's two, a chunk
-  static constexpr int kStage = (2 * kRows + 2 * kTile) * kStrideA;
-  // phase C: other-side rows a stage holds with `ops` operands of a pass,
-  // the largest power of 2 up to kTile that fits a stage
-  __host__ __device__ static constexpr int tc(int ops) {
-    int t = kTile;
-    while (ops * t * kStrideC > kStage) t /= 2;
-    return t;
-  }
-  __host__ __device__ static constexpr int floats(int L) {
-    return 2 * kRows * score_stride(L) + 2 * kStage;
-  }
-};
-
-// rows r0 .. r0 + n - 1 (zero from L on) and head columns c0 .. c0 + w - 1
-// (zero from hd on) of `src` (row stride ld) into dst (row stride sd) by
-// the block's threads through cp.async: 16 bytes a copy where `vec` (hd a
-// multiple of 4, the operands 16-byte aligned), else 4
-__device__ __forceinline__ void stage_rows(float* dst, int sd,
-                                           const float* src, int64_t ld,
-                                           int r0, int n, int L, int c0,
-                                           int w, int hd, bool vec) {
-  if (vec) {
-    const int nv = w / 4;
-    for (int e = threadIdx.x; e < n * nv; e += kWideThreads) {
-      const int r = e / nv, c = 4 * (e % nv);
-      const bool ok = r0 + r < L && c0 + c < hd;
-      cp_async16(dst + r * sd + c,
-                 ok ? src + (int64_t)(r0 + r) * ld + c0 + c : src, ok);
-    }
-  } else {
-    for (int e = threadIdx.x; e < n * w; e += kWideThreads) {
-      const int r = e / w, c = e % w;
-      const bool ok = r0 + r < L && c0 + c < hd;
-      cp_async4(dst + r * sd + c,
-                ok ? src + (int64_t)(r0 + r) * ld + c0 + c : src, ok);
-    }
-  }
-}
-
-__device__ __forceinline__ float4 split2(float b0, float b1) {
-  float4 r;
-  split(b0, r.x, r.z);
-  split(b1, r.y, r.w);
-  return r;
-}
-
-// the A fragment of 16 rows x 8 columns at p (row stride ld), split
-__device__ __forceinline__ void frag_a(const float* p, int ld, int g, int t,
-                                       uint32_t (&ah)[4], uint32_t (&al)[4]) {
-  const float x[4] = {p[g * ld + t], p[(g + 8) * ld + t], p[g * ld + t + 4],
-                      p[(g + 8) * ld + t + 4]};
-#pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    float hi, lo;
-    split(x[e], hi, lo);
-    ah[e] = __float_as_uint(hi);
-    al[e] = __float_as_uint(lo);
-  }
-}
-
-// the B fragment (n 8 x k 8) of mma3 from 8 rows n holding k along them
-__device__ __forceinline__ float4 frag_b_rows(const float* p, int ld, int g,
-                                              int t) {
-  return split2(p[g * ld + t], p[g * ld + t + 4]);
-}
-
-// ... from 8 rows k holding n along them
-__device__ __forceinline__ float4 frag_b_cols(const float* p, int ld, int g,
-                                              int t) {
-  return split2(p[t * ld + g], p[(t + 4) * ld + g]);
-}
+using WideTile = wide::TileLayout<C, kRows, 2>;
 
 // Phase A's products of one ring stage (own rows: operands x0 at st, x1 at
 // st + kRows rows; the tile: y0 at st + 2 kRows rows, y1 at st + (2 kRows
@@ -1070,17 +980,6 @@ __device__ __forceinline__ void chunk_products(const float* st, int warp,
     }
   }
 }
-
-// phase C's columns: passes of at most kPass, a warp `wc` of them (whole
-// n8 steps, at most kNt)
-constexpr int kNt = kPass / (8 * kWideWarps);
-struct Passes {
-  int n, wc;
-  __device__ explicit Passes(int hd) {
-    n = (hd + kPass - 1) / kPass;
-    wc = ((hd + n - 1) / n + 8 * kWideWarps - 1) / (8 * kWideWarps) * 8;
-  }
-};
 
 template <int C>
 __global__ void __launch_bounds__(kWideThreads, 2)

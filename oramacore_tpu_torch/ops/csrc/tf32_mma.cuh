@@ -89,4 +89,20 @@ __device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ah)[4],
   mma_tf32(d, ah, b.x, b.y);
 }
 
+// d += a b in 3xTF32 as mma3 does, but the three products summed from 0
+// and added to d by one rounded f32 add an element. The tensor core
+// truncates each sum it takes into its accumulator to f32, so a sum over
+// hundreds of keys or queries taken into d by mma3 drifts towards 0 by up
+// to an ulp of d a step (5e-5 in dK and dV at BGEBase's L = 512); here
+// the truncations fall on one step's small sum and d's roundings err
+// both ways.
+__device__ __forceinline__ void mma3_add(float (&d)[4],
+                                         const uint32_t (&ah)[4],
+                                         const uint32_t (&al)[4], float4 b) {
+  float p[4] = {0.f, 0.f, 0.f, 0.f};
+  mma3(p, ah, al, b);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) d[e] += p[e];
+}
+
 }  // namespace

@@ -13,9 +13,10 @@ Tolerances: `train_bench.BWD_TOL` = 5e-5 (rtol and atol) against f64, the
 gate the card holds the kernels to; 1e-5 against JAX's f32 vjp, as the
 plain version is held (`test_torch_attention_grad.py`). A single tf32
 pass must miss the gate: the control that shows it would catch the
-kernels using 1xTF32. Running sums of dK and dV on the tensor core (the
-first design) drift further than the kernels' per-step sums, though the
-emulator's truncation model is milder than the card's.
+kernels using 1xTF32. (Running sums of dK and dV on the tensor core, the
+first design, drift further than the kernels' per-step sums:
+`test_torch_attention_grad_drift.py`.) The emulator's step
+(`train_bench._mma`, `_cut_f32`) gives the bits its first form gave.
 """
 
 import os
@@ -81,27 +82,6 @@ def test_backward_single_pass_misses_the_gate(hd, L):
     assert float(err.max()) > tb.BWD_TOL
 
 
-@pytest.mark.parametrize("hd", [64, 128])
-def test_backward_tf32_running_sums_drift_further(hd):
-    """At L = 512 the kernels' design (dK and dV summed per 8-query step
-    from 0, then added rounded) against the first design's running sums
-    on the tensor core: under the emulator's truncation model both stay
-    within the gate and the running sums are off by more than twice as
-    much in dK and dV. (The card read 5.14e-5 and 6.6e-6 at BGEBase: the
-    model is milder than the card, see `backward_tf32`.)"""
-    case = dict(B=1, L=512, H=2, hd=hd, padded=0)
-    qkv, mask, dctx = tb.backward_inputs(case, 160, "cpu")
-    ref = tb.backward_reference(qkv, mask, dctx, 2)
-    D = 2 * hd
-    errs = {}
-    for acc in ("steps", "running"):
-        got = tb.backward_tf32(qkv, mask, dctx, 2, accumulate=acc)
-        torch.testing.assert_close(got.double(), ref, rtol=tb.BWD_TOL,
-                                   atol=tb.BWD_TOL)
-        errs[acc] = float((got.double() - ref)[..., D:].abs().max())
-    assert errs["running"] > 2 * errs["steps"], errs
-
-
 def test_backward_tf32_refuses_other_accumulations():
     qkv, mask, dctx = _torch(*_inputs(32, 16, seed=1))
     with pytest.raises(ValueError):
@@ -149,3 +129,55 @@ def test_backward_tiles_refuse_what_the_kernels_cannot_run():
         at.backward_tiles_for(1, 1, 16, 8)
     with pytest.raises(ValueError):
         at.backward_tiles_for(1, 1, 513, 32)
+
+
+def _trunc_f32_first(x):
+    """The emulator's f64 -> f32 rounding toward zero as first written."""
+    r = x.to(torch.float32)
+    return torch.where(r.double().abs() > x.abs(),
+                       torch.nextafter(r, torch.zeros_like(r)), r)
+
+
+def _mma_first(d, a, b, passes):
+    """train_bench._mma as first written (on PyTorch's threads as set)."""
+    from oramacore_tpu_torch.benches.attention_bench import split_tf32
+
+    ah, al = (x.double() for x in split_tf32(a))
+    bh, bl = (x.double() for x in split_tf32(b))
+    steps = ((al, bh), (ah, bl), (ah, bh)) if passes == 3 else ((ah, bh),)
+    for k in range(0, a.shape[-1], 8):
+        for x, y in steps:
+            d = _trunc_f32_first(d.double() + x[..., k:k + 8]
+                                 @ y[..., k:k + 8, :])
+    return d
+
+
+def _words(x):
+    return x.contiguous().view(torch.int32)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_emulator_step_is_bit_for_bit_its_first_form(seed):
+    """`_cut_f32` (the mantissa cut, with the rounding of its first form
+    where the cut is not that rounding) and `_mma` (on one thread, its
+    chain held in f64) give every bit their first forms give: on values
+    spread over the whole f64 range (f32 subnormals, values beyond the f32
+    range, +-0, +-inf, NaN) and on chains of products of seeded operands
+    whose magnitudes span 2^-150 to 2^132 (f32 subnormal and overflowing
+    sums), at 1 and 3 passes."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=20_000) * np.exp2(rng.uniform(-160, 140, 20_000))
+    x = torch.from_numpy(np.concatenate([x, [
+        0.0, -0.0, np.inf, -np.inf, np.nan, 3.5e38, -3.41e38, 1e-40,
+        -1e-45, 2.0 ** -126, 2.0 ** -126 * (1 - 2.0 ** -30), 2.0 ** -150,
+        np.finfo(np.float32).max * (1 + 2.0 ** -30)]]))
+    assert torch.equal(_words(tb._cut_f32(x).to(torch.float32)),
+                       _words(_trunc_f32_first(x)))
+    scale = torch.from_numpy(np.exp2(np.array([-75, -70, -64, 0, 20, 66])
+                                     [rng.permutation(6)][:, None, None]))
+    a = (torch.from_numpy(rng.normal(size=(6, 16, 24))) * scale).float()
+    b = (torch.from_numpy(rng.normal(size=(6, 24, 8))) * scale).float()
+    d = (torch.from_numpy(rng.normal(size=(6, 16, 8))) * scale ** 2).float()
+    for passes in (1, 3):
+        assert torch.equal(_words(tb._mma(d, a, b, passes)),
+                           _words(_mma_first(d, a, b, passes)))

@@ -13,7 +13,9 @@ Tolerances: `train_bench.BWD_TOL` = 5e-5 (rtol and atol) against f64, the
 gate the card holds the kernels to; 1e-5 against JAX's f32 vjp, as the
 plain version is held (`test_torch_attention_grad.py`). A single tf32
 pass must miss the gate: the control that shows it would catch the
-kernels using 1xTF32.
+kernels using 1xTF32. The emulator's results are cached on their inputs
+(`tests/torch_attention_cases.py`), which the drift test
+(`test_torch_attention_wide_drift.py`) shares.
 """
 
 import os
@@ -26,10 +28,16 @@ import torch
 from oramacore_tpu_torch.benches import train_bench as tb
 from oramacore_tpu_torch.ops import attention as at
 from tests.test_torch_attention_grad import _inputs, _jax_vjp
+from tests.torch_attention_cases import (
+    wide_backward,
+    wide_inputs,
+    wide_reference,
+)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(REPO, "oramacore_tpu_torch", "ops", "csrc",
                       "encoder_attention_backward.cu")
+HEADER = os.path.join(os.path.dirname(SOURCE), "attention_wide.cuh")
 TOL = 1e-5
 
 
@@ -43,12 +51,11 @@ def test_wide_backward_tf32_matches_reference_and_jax(hd, L):
     """Three passes per product: within the card's gate of the f64
     reference and within 1e-5 of JAX's vjp, with a full row, partly masked
     rows and a row whose keys are all masked (P uniform, dS not zero)."""
-    qkv, mask, dctx = _inputs(hd, L, seed=300 + hd + L)
-    tq, tm, td = _torch(qkv, mask, dctx)
-    got = tb.wide_backward_tf32(tq, tm, td, 2)
+    (qkv, mask, dctx), (tq, _, _) = wide_inputs(hd, L, 300 + hd + L)
+    got = wide_backward(hd, L, 300 + hd + L)
     assert got.dtype == torch.float32 and got.shape == tq.shape
     assert torch.isfinite(got).all()
-    ref = tb.backward_reference(tq, tm, td, 2)
+    ref = wide_reference(hd, L, 300 + hd + L)
     torch.testing.assert_close(got.double(), ref, rtol=tb.BWD_TOL,
                                atol=tb.BWD_TOL)
     np.testing.assert_allclose(got.numpy(), _jax_vjp(qkv, mask, dctx, 2),
@@ -60,29 +67,10 @@ def test_wide_backward_tf32_matches_reference_and_jax(hd, L):
 def test_wide_backward_single_pass_misses_the_gate(hd, L):
     """The negative control: one tf32 pass per product, on the same
     inputs, is off by more than the gate allows."""
-    qkv, mask, dctx = _torch(*_inputs(hd, L, seed=300 + hd + L))
-    ref = tb.backward_reference(qkv, mask, dctx, 2)
-    got = tb.wide_backward_tf32(qkv, mask, dctx, 2, passes=1)
+    ref = wide_reference(hd, L, 300 + hd + L)
+    got = wide_backward(hd, L, 300 + hd + L, passes=1)
     err = (got.double() - ref).abs() - tb.BWD_TOL * ref.abs()
     assert float(err.max()) > tb.BWD_TOL
-
-
-@pytest.mark.parametrize("hd", [256, 320])
-def test_wide_backward_chunked_sums_over_the_head_drift_less(hd):
-    """S and dP summed a column chunk at a time from 0 (the kernels)
-    against one chain over the whole head on the tensor core: under the
-    emulator's truncation model both stay within the gate here, and the
-    whole-head chains are off by more than twice as much (the card
-    truncates harder than the model: see `backward_tf32`)."""
-    qkv, mask, dctx = _torch(*_inputs(hd, 65, seed=300 + hd + 65))
-    ref = tb.backward_reference(qkv, mask, dctx, 2)
-    errs = {}
-    for chunked in (True, False):
-        got = tb.wide_backward_tf32(qkv, mask, dctx, 2, chunked=chunked)
-        torch.testing.assert_close(got.double(), ref, rtol=tb.BWD_TOL,
-                                   atol=tb.BWD_TOL)
-        errs[chunked] = float((got.double() - ref).abs().max())
-    assert errs[False] > 2 * errs[True], errs
 
 
 def _instances():
@@ -94,9 +82,13 @@ def _instances():
 
 
 def _constant(name):
-    with open(SOURCE) as f:
-        return int(re.search(rf"constexpr int {name} = (\d+);",
-                             f.read()).group(1))
+    """A constant of the wide kernels, in the .cu file or in the header it
+    shares with the wide forward."""
+    src = ""
+    for path in (SOURCE, HEADER):
+        with open(path) as f:
+            src += f.read()
+    return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
 
 
 def test_wide_backward_tiles_fit_and_cover():

@@ -13,8 +13,10 @@ tensor runs the plain version at any width. Here:
   gradient are zero;
 - the wrappers, with the device taken for CUDA, hand the launchers the
   padded tensors and the true divisor (the launchers replaced by the
-  plain arithmetic they run), and at hd 160, 256 and 320 hand the wide
-  launchers the true tensors; CPU tensors at hd 160 run the plain
+  plain arithmetic they run), at hd 160, 256 and 320 hand the wide
+  launchers the true tensors, and at a ragged width above 128 (130, 131)
+  hand both wide launchers heads zero-padded to a multiple of 4 with the
+  true divisor, then slice back; CPU tensors at hd 160 run the plain
   version, counted.
 """
 
@@ -101,10 +103,10 @@ def _as_if_on_the_card(monkeypatch):
         return (at.encoder_attention_backward_plain(
             qkv, mask, dctx, n_heads, div_hd=div_hd), None)
 
-    def launch_wide(qkv, mask, n_heads):
+    def launch_wide(qkv, mask, n_heads, div_hd=None):
         B, L, D, hd = at.plain_shapes(qkv, mask, n_heads)
-        calls.append(("wide forward", hd, None))
-        return at.encoder_attention_plain(qkv, mask, n_heads)
+        calls.append(("wide forward", hd, div_hd))
+        return at.encoder_attention_plain(qkv, mask, n_heads, div_hd=div_hd)
 
     def launch_backward_wide(qkv, mask, dctx, n_heads, div_hd=None):
         B, L, D, hd = at.plain_shapes(qkv, mask, n_heads)
@@ -167,8 +169,8 @@ def test_widths_above_128_launch_the_wide_kernels(hd, monkeypatch):
 @pytest.mark.parametrize("hd", [130, 131])
 def test_ragged_widths_above_128_pad_the_backward_to_a_multiple_of_4(
         hd, monkeypatch):
-    """A width above 128 that is not a multiple of 4: the forward runs at
-    its true width, the backward on heads zero-padded to the next multiple
+    """A width above 128 that is not a multiple of 4: the backward (and
+    the forward, next test) runs on heads zero-padded to the next multiple
     of 4 (16-byte rows) with the true width's divisor, sliced back."""
     qkv, mask, dctx, H = _inputs(hd, seed=hd, H=2, L=8)
     want_d = at.encoder_attention_backward_plain(qkv, mask, dctx, H)
@@ -177,9 +179,39 @@ def test_ragged_widths_above_128_pad_the_backward_to_a_multiple_of_4(
     torch.testing.assert_close(at.encoder_attention_backward(qkv, mask, dctx,
                                                              H),
                                want_d, rtol=0, atol=1e-6)
-    assert calls == [("wide forward", hd, None),
+    assert calls == [("wide forward", at.wide_width(hd), hd),
                      ("wide backward", at.wide_width(hd), hd)]
     assert at.wide_width(hd) == 132
+
+
+@pytest.mark.parametrize("hd", [130, 131])
+def test_ragged_widths_above_128_pad_the_forward_to_a_multiple_of_4(
+        hd, monkeypatch):
+    """The forward at a ragged width above 128: the wide launcher gets
+    the heads zero-padded to 132 and the true width's divisor, and the
+    wrapper slices each head's first hd columns back; the padded heads'
+    own divisor would give another attention."""
+    qkv, mask, _, H = _inputs(hd, seed=300 + hd, H=2, L=8)
+    want = at.encoder_attention_plain(qkv, mask, H)
+    w = at.wide_width(hd)
+    padded = at.pad_heads(qkv, H, hd, w)
+    other = at.unpad_heads(at.encoder_attention_plain(padded, mask, H), H,
+                           hd, w)
+    assert (other - want).abs().max() > 1e-4
+    seen = []
+    calls = _as_if_on_the_card(monkeypatch)
+    launch = at.launch_wide
+
+    def launch_wide(qkv, mask, n_heads, div_hd=None):
+        seen.append(qkv)
+        return launch(qkv, mask, n_heads, div_hd)
+
+    monkeypatch.setattr(at, "launch_wide", launch_wide)
+    got = at.encoder_attention(qkv, mask, H)
+    assert calls == [("wide forward", 132, hd)]
+    torch.testing.assert_close(seen[0], padded, rtol=0, atol=0)
+    assert got.shape == qkv[..., :H * hd].shape
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
 
 
 def test_widths_above_128_run_the_plain_version_on_cpu_tensors():

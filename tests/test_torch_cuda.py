@@ -1200,8 +1200,9 @@ def test_encoder_attention_padded_head_widths(cuda, hd):
 @pytest.mark.parametrize("L", [1, 17, 65, 512])
 def test_encoder_attention_wide_head_widths(cuda, hd, L):
     """Head widths above 128, a ragged one (130: its columns are not
-    16-byte aligned) among them: the wide instances (the forward in f32,
-    the backward on the tensor cores in 3xTF32); forward within 1e-5 of
+    16-byte aligned, so the wrappers zero-pad them to 132) among them: the
+    wide instances (forward and backward on the tensor cores in 3xTF32);
+    forward within 1e-5 of
     the f64 reference, the backward within 5e-5 (BWD_TOL), one launch of
     each kernel, and nothing runs the plain version on the card."""
     from oramacore_tpu_torch.benches import train_bench as tb
@@ -1413,6 +1414,53 @@ def test_encoder_attention_wide_backward_refuses_another_layout(cuda):
         torch.testing.assert_close(
             dqkv.double(), tb.backward_reference(qkv, mask, dctx, H),
             rtol=tb.BWD_TOL, atol=tb.BWD_TOL)
+
+
+def test_encoder_attention_wide_forward_refuses_another_layout(cuda):
+    """The tiling `wide_tiles_for` passes is what the wide forward's entry
+    point takes: it launches with it at 16 and at 32 query rows a block
+    (chunks of 32 at hd 160 and 256, of 16 at hd 132), each within 1e-5 of
+    the f64 reference, and refuses its shared memory 16 bytes off, rows
+    and chunks it does not compile, and a grid or row tiles that do not
+    cover the call."""
+    import numpy as np
+
+    from oramacore_tpu_torch.benches.encoder_bench import (
+        attention_inputs,
+        attention_reference,
+    )
+    from oramacore_tpu_torch.ops import attention as at
+
+    lib = at.load_kernels()
+    stream = torch.cuda.current_stream().cuda_stream
+    for case in (dict(B=3, L=40, H=2, hd=160, padded=1),
+                 dict(B=2, L=300, H=1, hd=132, padded=1),
+                 dict(B=2, L=512, H=2, hd=256, padded=0)):
+        B, L, H, hd = case["B"], case["L"], case["H"], case["hd"]
+        qkv, mask = attention_inputs(case, 5, cuda)
+        div = float(np.float32(np.sqrt(hd)))
+        ref = attention_reference(qkv, mask, H)
+        for rows in at.WIDE_FWD_ROWS:
+            ctx = torch.zeros((B, L, H * hd), device=cuda)
+            tl = at.wide_tiles_for(B, H, L, hd, rows)
+            other = 48 - rows
+            good = (tl.rows, tl.chunk, tl.row_tiles, tl.grid, tl.smem)
+            bad = [(tl.rows, tl.chunk, tl.row_tiles, tl.grid, tl.smem + 16),
+                   (tl.rows, tl.chunk, tl.row_tiles, tl.grid, tl.smem - 16),
+                   (tl.rows, 64, tl.row_tiles, tl.grid, tl.smem),
+                   (64, tl.chunk, -(-L // 64), B * H * -(-L // 64), tl.smem),
+                   (other, tl.chunk, -(-L // other), B * H * -(-L // other),
+                    tl.smem),
+                   (tl.rows, tl.chunk, tl.row_tiles + 1, tl.grid, tl.smem),
+                   (tl.rows, tl.chunk, tl.row_tiles, tl.grid - 1, tl.smem)]
+            for tiling, ok in [(t, False) for t in bad] + [(good, True)]:
+                err = lib.encoder_attention_wide_launch(
+                    qkv.data_ptr(), mask.data_ptr(), ctx.data_ptr(), B, L, H,
+                    hd, *tiling, div, stream)
+                assert (err == 0) == ok, (case, rows, tiling, err)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(ctx.double(), ref, rtol=1e-5,
+                                       atol=1e-5)
 
 
 def test_training_step_on_the_card(cuda):
