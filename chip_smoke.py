@@ -1053,7 +1053,9 @@ def profile_reading(fn):
     """One torch.profiler reading of fn (a warm-up step, then the
     profiled call between PROFILE_EDGE_S gaps): the wrappers' LAUNCHES
     during that call, and (device ms, count, name) of each device
-    kernel in the profile."""
+    kernel in the profile (the device ranges of `record_function`
+    annotations, which the port's spans open under a profiler, are not
+    kernels and are left out)."""
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
 
@@ -1076,6 +1078,7 @@ def profile_reading(fn):
         (getattr(e, "self_device_time_total", 0) / 1e3, e.count, e.key)
         for e in got["events"] if str(e.device_type).endswith("CUDA")
         and not e.key.startswith("ProfilerStep")
+        and not getattr(e, "is_user_annotation", False)
     ]
     return launched, kernels
 

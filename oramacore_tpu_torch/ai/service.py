@@ -25,6 +25,7 @@ from typing import Any, Dict, List, Optional
 from ..server import transport as web
 
 from ..config import OramacoreConfig
+from ..metrics import ANSWER_TIME
 from ..types import Interaction, InteractionMessage
 from .answer import AnswerStateMachine
 from .autoquery import AdvancedAutoqueryStateMachine
@@ -153,7 +154,7 @@ class AIService:
     ):
         self._check_read(collection_id, key)
         sm = self._answer_machine(collection_id, key)
-        t0 = time.time()
+        t0 = time.perf_counter()
         resp = web.StreamResponse(
             headers={
                 "Content-Type": "text/event-stream",
@@ -196,6 +197,7 @@ class AIService:
         except ConnectionError:
             pass
         finally:
+            ANSWER_TIME.observe(time.perf_counter() - t0)
             try:
                 holder.set_assistant_response("".join(answer_parts))
                 if interaction.system_prompt_id:

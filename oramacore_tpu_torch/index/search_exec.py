@@ -19,7 +19,11 @@ flat vector slab (`search_topk_hybrid`) or the int8 IVF layout
 (`search_topk_hybrid_int8`), from the tuples of
 `index/vector_index.py`'s `flat_device_rows` / `int8_device_rows`.
 `SharedBatchExecutor.search_topk_shared` takes the same tuples
-(`vec_rows`, `vec_rows_int8`) for its batched hybrid tails.
+(`vec_rows`, `vec_rows_int8`) for its batched hybrid tails, and times its
+stages as spans of `utils/trace.py` under one `exec.shared` root:
+`exec.analyze`, `exec.pack`, `exec.drain` (while a profiler records),
+`exec.upload`, `exec.score` and `exec.tail` (these two with CUDA events
+while a profiler records) and `exec.download`.
 
 `PrunedPlanMixin.search_topk_pruned` runs the pruned full-text tier
 (ops/pruned.py) on plans built with `with_prefix=True`; `HybridSearchTopK`
@@ -67,6 +71,7 @@ import torch
 from .string_index import DEFAULT_B, QueryPlan, StringIndex
 
 from .. import resolve_device
+from ..utils.trace import span, tracing
 from ..ops.bm25 import (
     MAX_RANGE_LEN,
     NEG_F32,
@@ -1812,116 +1817,159 @@ class SharedBatchExecutor(StringSearchTopK):
         candidates: Optional[int] = None,       # int8 tail: V per query
         token_weight_of: Optional[Dict[str, float]] = None,
     ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
-        slab = self._get_device_slab(index)
-        capb = round_up_pow2(cap, 128)
-        nd = max(float(n_docs), 1.0)
+        hybrid = vec_rows_int8 is not None or vec_rows is not None
+        with span("exec.shared", batch=len(tokens_per_query), hybrid=hybrid):
+            slab = self._get_device_slab(index)
+            capb = round_up_pow2(cap, 128)
+            nd = max(float(n_docs), 1.0)
 
-        # champion tokens: FULLY covered by precomputed dense rows (any
-        # live/uncovered range falls the whole token back to ranged
-        # scanning, keeping matched-token counts exact)
-        u_ranges, u_champs, token_map_global, classes, B, T = (
-            analyze_shared_batch(
-                index, tokens_per_query, properties, boost, field_params,
-                exact, tolerance, impact_cap,
-                token_weight_of=token_weight_of,
+            # champion tokens: FULLY covered by precomputed dense rows (any
+            # live/uncovered range falls the whole token back to ranged
+            # scanning, keeping matched-token counts exact)
+            with span("exec.analyze") as sp:
+                u_ranges, u_champs, token_map_global, classes, B, T = (
+                    analyze_shared_batch(
+                        index, tokens_per_query, properties, boost,
+                        field_params, exact, tolerance, impact_cap,
+                        token_weight_of=token_weight_of,
+                    )
+                )
+                sp.fields.update(
+                    terms=len(u_ranges),
+                    champion_terms=len(u_champs) - u_champs.count(None),
+                )
+
+            has_masks = doc_masks is not None and any(
+                m is not None for m in doc_masks
             )
-        )
-
-        has_masks = doc_masks is not None and any(
-            m is not None for m in doc_masks
-        )
-        mask_dev = None
-        if has_masks:
-            masks = np.ones((B, capb), bool)
-            for i, m in enumerate(doc_masks):
-                if m is not None:
-                    masks[i, : len(m)] = m
-                    masks[i, len(m):] = False
-            mask_dev = self._to_dev(masks)
-
-        scores = torch.zeros((B, capb), dtype=torch.float32, device=self.device)
-        matched = torch.zeros((B, capb), dtype=torch.float32, device=self.device)
-
-        for lr_class, uids in classes.items():
-            if not uids:
-                continue
-            cu = self.CHUNK_BY_CLASS[lr_class]
-            st, ln, wt, fb, av, tmap, lrb = pack_shared_class(
-                u_ranges, uids, token_map_global, B, T, cu
-            )
-            desc = [self._to_dev(a) for a in (st, ln, wt, fb, av, tmap)]
+            mask_dev = None
             if has_masks:
-                bm25_shared_partial_masked(
-                    *slab, *desc, mask_dev, nd, scores, matched,
-                    lr=lrb, cap=capb, cu=cu, exact=exact,
-                )
-            else:
-                bm25_shared_partial(
-                    *slab, *desc, nd, scores, matched,
-                    lr=lrb, cap=capb, cu=cu, exact=exact,
-                )
+                with span("exec.pack"):
+                    masks = np.ones((B, capb), bool)
+                    for i, m in enumerate(doc_masks):
+                        if m is not None:
+                            masks[i, : len(m)] = m
+                            masks[i, len(m):] = False
+                (mask_dev,) = self._upload(masks)
 
-        # ---- champion class: dense rows, zero posting gathers ----------
-        champ_uids = [ui for ui, c in enumerate(u_champs) if c]
-        if champ_uids:
-            champs_dev = self._get_device_champs(index, capb)
-            NC = max(len(u_champs[ui]) for ui in champ_uids)
-            ch_rows = np.full((len(champ_uids), NC), -1, np.int32)
-            ch_w = np.zeros((len(champ_uids), NC), np.float32)
-            for ei, ui in enumerate(champ_uids):
-                for cj, (ci, w) in enumerate(u_champs[ui]):
-                    ch_rows[ei, cj] = ci
-                    ch_w[ei, cj] = w
-            args = (
-                champs_dev, self._to_dev(ch_rows), self._to_dev(ch_w),
-                self._to_dev(np.asarray(champ_uids, np.int32)),
-                self._to_dev(token_map_global),
-            )
-            if has_masks:
-                bm25_shared_champions_masked(
-                    *args, mask_dev, nd, scores, matched
-                )
-            else:
-                bm25_shared_champions(*args, nd, scores, matched)
+            scores = torch.zeros((B, capb), dtype=torch.float32, device=self.device)
+            matched = torch.zeros((B, capb), dtype=torch.float32, device=self.device)
 
-        thr = np.zeros((B,), np.float32)
-        if thresholds is not None:
-            for i, t in enumerate(thresholds):
-                thr[i] = t or 0.0
-        has_omc = omc is not None
-        if has_omc:
-            omc_dev = self._get_device_omc(omc, omc_key, capb)
-        else:
-            omc_dev = torch.ones((capb,), dtype=torch.float32, device=self.device)
-        kb = min(round_up_pow2(k, 8), capb)
-        if vec_rows_int8 is not None or vec_rows is not None:
-            # batched-hybrid tail: vector side + min-max fusion + OMC +
-            # top-k (ops/hybrid.py)
-            tail = (scores, matched, self._to_dev(thr))
-            q_sim = (
-                self._to_dev(np.asarray(queries, np.float32)),
-                self._to_dev(np.asarray(similarities, np.float32)),
-                mask_dev, omc_dev,
-            )
-            kw = dict(cap=capb, k=kb, has_mask=has_masks, has_omc=has_omc,
-                      **_rescale_kw(rescale))
-            if vec_rows_int8 is not None:
-                *layout, window, nprobe = vec_rows_int8
-                vals, idx, counts = hybrid_finalize_topk_int8(
-                    *tail, *layout, *q_sim,
-                    V=_ivf_candidates(candidates, int(layout[0].shape[0])),
-                    nprobe=nprobe, window=window, **kw,
-                )
+            for lr_class, uids in classes.items():
+                if not uids:
+                    continue
+                cu = self.CHUNK_BY_CLASS[lr_class]
+                chunks = max(1, -(-len(uids) // cu))
+                with span("exec.pack", lr_class=lr_class, tokens=len(uids),
+                          chunks=chunks) as sp:
+                    st, ln, wt, fb, av, tmap, lrb = pack_shared_class(
+                        u_ranges, uids, token_map_global, B, T, cu
+                    )
+                    # counted from the packed lengths: a pass over the
+                    # analysis' range lists costs more than all the spans
+                    sp.fields.update(ranges=int(np.count_nonzero(ln)),
+                                     postings=int(ln.sum()))
+                desc = self._upload(st, ln, wt, fb, av, tmap)
+                with span("exec.score", device=self.device, lr_class=lr_class,
+                          chunks=chunks):
+                    if has_masks:
+                        bm25_shared_partial_masked(
+                            *slab, *desc, mask_dev, nd, scores, matched,
+                            lr=lrb, cap=capb, cu=cu, exact=exact,
+                        )
+                    else:
+                        bm25_shared_partial(
+                            *slab, *desc, nd, scores, matched,
+                            lr=lrb, cap=capb, cu=cu, exact=exact,
+                        )
+
+            # ---- champion class: dense rows, zero posting gathers ----------
+            champ_uids = [ui for ui, c in enumerate(u_champs) if c]
+            if champ_uids:
+                champs_dev = self._get_device_champs(index, capb)
+                with span("exec.pack", lr_class="champion",
+                          tokens=len(champ_uids), chunks=1):
+                    NC = max(len(u_champs[ui]) for ui in champ_uids)
+                    ch_rows = np.full((len(champ_uids), NC), -1, np.int32)
+                    ch_w = np.zeros((len(champ_uids), NC), np.float32)
+                    for ei, ui in enumerate(champ_uids):
+                        for cj, (ci, w) in enumerate(u_champs[ui]):
+                            ch_rows[ei, cj] = ci
+                            ch_w[ei, cj] = w
+                args = (champs_dev, *self._upload(
+                    ch_rows, ch_w, np.asarray(champ_uids, np.int32),
+                    token_map_global,
+                ))
+                with span("exec.score", device=self.device,
+                          lr_class="champion", chunks=1):
+                    if has_masks:
+                        bm25_shared_champions_masked(
+                            *args, mask_dev, nd, scores, matched
+                        )
+                    else:
+                        bm25_shared_champions(*args, nd, scores, matched)
+
+            with span("exec.pack"):
+                thr = np.zeros((B,), np.float32)
+                if thresholds is not None:
+                    for i, t in enumerate(thresholds):
+                        thr[i] = t or 0.0
+            has_omc = omc is not None
+            if has_omc:
+                omc_dev = self._get_device_omc(omc, omc_key, capb)
             else:
-                vals, idx, counts = hybrid_finalize_topk(
-                    *tail, *vec_rows, *q_sim, **kw,
+                omc_dev = torch.ones((capb,), dtype=torch.float32, device=self.device)
+            kb = min(round_up_pow2(k, 8), capb)
+            if hybrid:
+                # batched-hybrid tail: vector side + min-max fusion + OMC +
+                # top-k (ops/hybrid.py)
+                thr_dev, q_dev, sim_dev = self._upload(
+                    thr, np.asarray(queries, np.float32),
+                    np.asarray(similarities, np.float32),
                 )
-        else:
-            vals, idx, counts = finalize_topk(
-                scores, matched, self._to_dev(thr), omc_dev, k=kb
-            )
-        return (
-            vals[:, :k].cpu().numpy(),
-            idx[:, :k].cpu().numpy(),
-            counts[:B].cpu().numpy(),
-        )
+                tail = (scores, matched, thr_dev)
+                q_sim = (q_dev, sim_dev, mask_dev, omc_dev)
+                kw = dict(cap=capb, k=kb, has_mask=has_masks, has_omc=has_omc,
+                          **_rescale_kw(rescale))
+                rows = (vec_rows_int8 if vec_rows_int8 is not None
+                        else vec_rows)[0].shape[0]
+                with span("exec.tail", device=self.device, k=kb, rows=int(rows)):
+                    if vec_rows_int8 is not None:
+                        *layout, window, nprobe = vec_rows_int8
+                        vals, idx, counts = hybrid_finalize_topk_int8(
+                            *tail, *layout, *q_sim,
+                            V=_ivf_candidates(candidates, int(rows)),
+                            nprobe=nprobe, window=window, **kw,
+                        )
+                    else:
+                        vals, idx, counts = hybrid_finalize_topk(
+                            *tail, *vec_rows, *q_sim, **kw,
+                        )
+            else:
+                (thr_dev,) = self._upload(thr)
+                with span("exec.tail", device=self.device, k=kb, rows=0):
+                    vals, idx, counts = finalize_topk(
+                        scores, matched, thr_dev, omc_dev, k=kb
+                    )
+            with span("exec.download") as sp:
+                out = (
+                    vals[:, :k].cpu().numpy(),
+                    idx[:, :k].cpu().numpy(),
+                    counts[:B].cpu().numpy(),
+                )
+                sp.fields["bytes"] = sum(a.nbytes for a in out)
+            return out
+
+    def _upload(self, *arrays: np.ndarray) -> List[torch.Tensor]:
+        """Host arrays to the device, as one `exec.upload` span. The
+        copies are blocking, so the first waits for the device to finish
+        what was queued; while tracing, that wait is an `exec.drain`
+        span of its own, and `exec.upload` times the copies alone."""
+        if tracing():
+            with span("exec.drain"):
+                if self.device.type == "cuda":
+                    torch.cuda.current_stream(self.device).synchronize()
+        with span("exec.upload", copies=len(arrays)) as sp:
+            out = [self._to_dev(a) for a in arrays]
+            sp.fields["bytes"] = sum(t.nbytes for t in out)
+        return out

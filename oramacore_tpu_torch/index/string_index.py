@@ -40,6 +40,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from .. import metrics
 from ..native import ROUTES
 from ..ops.bm25 import MAX_RANGE_LEN
 from ..utils.gc_pause import gc_paused
@@ -61,10 +62,6 @@ MAX_SEGMENTS = 8
 # impact, tf/flen) appended to the segment, for the pruned tier's
 # candidate nomination. Main ranges stay DOC-SORTED.
 PREFIX_LEN = 65536
-
-# token range lists cut at MAX_RANGES after coalescing (the JAX package
-# counts these in its metrics.RANGE_TRUNCATIONS)
-RANGE_TRUNCATIONS = 0
 
 _log = logging.getLogger("oramacore_tpu_torch.string_index")
 
@@ -141,8 +138,7 @@ def _coalesce_and_cap(
     """Bound a token's posting ranges at MAX_RANGES without silent loss:
     coalesce start-adjacent ranges with identical field params first,
     then truncate, keeping the first-matched (closest under tolerance)
-    ranges, with a count in RANGE_TRUNCATIONS and a warning."""
-    global RANGE_TRUNCATIONS
+    ranges, with a count in metrics.RANGE_TRUNCATIONS and a warning."""
     if len(ranges) <= MAX_RANGES:
         return ranges
     srt = sorted(range(len(ranges)), key=lambda i: ranges[i][0])
@@ -158,7 +154,7 @@ def _coalesce_and_cap(
         merged.append((s, l, w, fb, av, i))
     merged.sort(key=lambda m: m[5])  # restore closest-first priority
     if len(merged) > MAX_RANGES:
-        RANGE_TRUNCATIONS += 1
+        metrics.RANGE_TRUNCATIONS.inc({})
         _log.warning(
             "token %r matched %d posting ranges (%d after coalescing); "
             "truncated to %d closest-match ranges",

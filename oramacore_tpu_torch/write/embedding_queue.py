@@ -26,6 +26,7 @@ import time
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 from ..embeddings import EmbeddingsService, Intent
+from ..metrics import EMBEDDING_CALCULATION_TIME
 
 logger = logging.getLogger("oramacore_tpu_torch.write.embedding_queue")
 
@@ -125,8 +126,10 @@ class EmbeddingQueue:
                     "model": model,
                     "vectors": [c.astype("float32").tolist() for c in chunks],
                 })
+        dt = time.perf_counter() - t0
         self.batches += 1
-        self.seconds += time.perf_counter() - t0
+        self.seconds += dt
+        EMBEDDING_CALCULATION_TIME.observe(dt)
 
     def flush_and_wait(self, timeout: float = 30.0) -> bool:
         """Wait until every submitted job is done (emitted, or in a

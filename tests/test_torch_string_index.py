@@ -273,15 +273,20 @@ def test_the_corpus_reaches_every_branch(monkeypatch):
 
 def test_range_truncations_count_and_warn(caplog):
     """_coalesce_and_cap cuts at MAX_RANGES after coalescing, counts the
-    cut in RANGE_TRUNCATIONS and warns, as the JAX function does (there
-    with its metrics counter)."""
+    cut in the exported counter `query_range_truncations_total` and
+    warns, as the JAX function does."""
+    from oramacore_tpu_torch.metrics import RANGE_TRUNCATIONS
+
+    def count():
+        return RANGE_TRUNCATIONS._values.get((), 0.0)
+
     n = tsi.MAX_RANGES + 10
     ranges = [(10 * i, 5, 1.0, 0.75, 3.0) for i in range(n)]   # not adjacent
-    before = tsi.RANGE_TRUNCATIONS
+    before = count()
     got = tsi._coalesce_and_cap(ranges, "tok")
     assert got == jsi._coalesce_and_cap(ranges, "tok") == ranges[:tsi.MAX_RANGES]
-    assert tsi.RANGE_TRUNCATIONS == before + 1
+    assert count() == before + 1
     assert "truncated" in caplog.text
     adjacent = [(5 * i, 5, 1.0, 0.75, 3.0) for i in range(n)]   # one run
     assert tsi._coalesce_and_cap(adjacent, "tok") == [(0, 5 * n, 1.0, 0.75, 3.0)]
-    assert tsi.RANGE_TRUNCATIONS == before + 1
+    assert count() == before + 1
