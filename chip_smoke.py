@@ -419,6 +419,16 @@ KERNELS = (
          replaces="oramacore_tpu/ops/pallas_gather.py:38", path="bench",
          mesh=False),
     # kernels for jitted JAX code (XLA, no pallas_call)
+    dict(name="assign_rows_accumulate",
+         module="oramacore_tpu_torch.ops.assign_rows", route="cuda",
+         source="oramacore_tpu_torch/ops/csrc/assign_rows.cu",
+         replaces="oramacore_tpu/ops/bm25.py:528", jitted=True,
+         path="main", mesh=True),
+    dict(name="count_present",
+         module="oramacore_tpu_torch.ops.assign_rows", route="cuda",
+         source="oramacore_tpu_torch/ops/csrc/assign_rows.cu",
+         replaces="oramacore_tpu/ops/bm25.py:528", jitted=True,
+         path="main", mesh=True),
     dict(name="rescore_bsearch",
          module="oramacore_tpu_torch.ops.pruned", route="cuda",
          source="oramacore_tpu_torch/ops/csrc/pruned_rescore.cu",
@@ -660,8 +670,9 @@ def phase_kernels(idx, batches, slab, card):
     # and edge cases from a generator of their own
     cases = {"synthetic": [rb.synthetic_case(rng, tuple(slab))]}
     t0 = time.perf_counter()
+    rows_launches = []
     cases["batch"] = rb.capture_batch(idx, batches[0], batches[1], dev,
-                                      N_DOCS)
+                                      N_DOCS, rows=rows_launches)
     print(f"  recorded {len(cases['batch'])} launches of one steady "
           f"search_topk_shared B={len(batches[1])} batch in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
@@ -689,6 +700,30 @@ def phase_kernels(idx, batches, slab, card):
         ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
         bound_by=r["bound_by"], library_ms=None,
         max_abs_err=max(x["max_abs_err"] for x in res.values()))
+
+    # assign_rows_accumulate: every launch of the same steady B=1024 batch
+    # of the main path, as recorded above, beside the addmm_ pair it
+    # replaced on the same operands (benches/assign_bench.py)
+    from oramacore_tpu_torch.benches import assign_bench as ab
+
+    try:
+        r = ab.check_and_time(rows_launches, reps=5)
+    except AssertionError as e:
+        raise SmokeFailure(f"assign_rows_accumulate: {e}") from e
+    check(True, f"assign_rows_accumulate [batch]: {len(rows_launches)} "
+                f"launches, df and matched equal the plain versions' and "
+                f"scores are within rtol 1e-6 (max abs err {r['max_abs_err']:.3g})")
+    ab.report("batch", r, card)
+    share("assign_rows_accumulate [batch]", r["ms"], r["bound_ms"],
+          r["bound_by"], card)
+    del rows_launches
+    out["assign_rows_accumulate"] = dict(
+        ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+        bound_by=r["bound_by"], library_ms=r["products_ms"],
+        max_abs_err=r["max_abs_err"])
+    out["count_present"] = dict(
+        ms=r["count_ms"], plain_ms=None, bound_ms=r["count_bound_ms"],
+        bound_by="bytes", library_ms=None, max_abs_err=0.0)
 
     # gather_windows: the TPU kernel's contract on the slab's doc (int32)
     # and tf (f32) columns, NS=4096, w=1024; a copy, so exact
@@ -791,9 +826,15 @@ def drive_main_path(idx, batches, n_docs, device, card, filter_seed=3):
 
     rng = np.random.default_rng(filter_seed)
     masks = rng.integers(0, 2, (B, n_docs), dtype=np.uint8).view(bool)
+    before = launch_counts()
     filtered, filt_s = run(batches[0], doc_masks=list(masks))
+    launched = {k: n - before[k] for k, n in launch_counts().items()
+                if n > before[k]}
     print(f"  search_topk_shared B={B} with a 50% filter per query: "
-          f"{filt_s * 1e3:.1f} ms [{card}]", flush=True)
+          f"{filt_s * 1e3:.1f} ms; kernel launches {launched} [{card}]",
+          flush=True)
+    check(launched.get("assign_rows_accumulate", 0) > 0,
+          "the filtered batch launched assign_rows_accumulate")
 
     queries = batches[0][:N_CHECKED]
     plans = [plan_query(idx, q, ["body"], {}, use_champions=True)
@@ -1018,6 +1059,8 @@ KERNEL_FUNCTIONS = {
     "score_windows": "score_windows_kernel",
     "score_ranges_accumulate": "score_ranges_accumulate_kernel",
     "gather_windows": "gather_windows_kernel",
+    "assign_rows_accumulate": "assign_rows_accumulate_kernel",
+    "count_present": "count_present_kernel",
     "rescore_bsearch": "rescore_bsearch_kernel",
     "rescore_worklist": "worklist_tail_kernel",
     "facet_hist": "facet_hist_kernel",

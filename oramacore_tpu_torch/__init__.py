@@ -61,10 +61,10 @@ __version__ = "0.1.0"
 def require_cuda() -> None:
     """Raise unless a CUDA card is usable, and pin f32 matmuls to full f32.
 
-    The assignment products of the shared path (`ops/bm25.py`) are f32
-    matmuls whose results feed exact match counts and scores compared
-    at 1e-5; TF32 keeps about three decimal digits, so it is switched
-    off here and checked."""
+    The port's f32 matmuls (the masked df product of the shared path in
+    `ops/bm25.py`, the dense vector tails) run in full f32: their results
+    feed exact match counts and scores compared at 1e-5, and TF32 keeps
+    about three decimal digits, so it is switched off here and checked."""
     if not torch.cuda.is_available():
         raise RuntimeError(
             "oramacore_tpu_torch: a CUDA device was requested but "

@@ -131,10 +131,12 @@ class Launch(NamedTuple):
 
 
 def capture_batch(idx, warm_up, queries, device, n_docs,
-                  properties=("body",)) -> List[Launch]:
+                  properties=("body",), rows=None) -> List[Launch]:
     """The kernel's launches in one steady `search_topk_shared` batch
     over `properties` (after one batch of warm-up), with copies of their
-    descriptors."""
+    descriptors. With `rows` a list, the same batch's
+    `assign_rows_accumulate` launches are appended to it too
+    (`benches/assign_bench.py`)."""
     from ..index.search_exec import SharedBatchExecutor
     from ..ops import bm25
 
@@ -156,11 +158,17 @@ def capture_batch(idx, warm_up, queries, device, n_docs,
         return real(p_doc, p_tf, p_exact_tf, p_flen, *desc_acc, exact=exact,
                     max_len=max_len)
 
+    real_rows = bm25.assign_rows_accumulate
+    if rows is not None:
+        from .assign_bench import recorder
+
+        bm25.assign_rows_accumulate = recorder(rows, real_rows)
     bm25.score_ranges_accumulate = record
     try:
         run(queries)
     finally:
         bm25.score_ranges_accumulate = real
+        bm25.assign_rows_accumulate = real_rows
     return launches
 
 

@@ -1752,6 +1752,17 @@ def analyze_shared_batch(
     return u_ranges, u_champs, token_map_global, classes, B, T
 
 
+def touched_pairs(tmap, n_rows, cu):
+    """The (query, chunk) pairs whose rows `assign_rows_accumulate`
+    updates: queries with a slot in [0, n_rows) of the local map `tmap`,
+    counted once per chunk of cu rows that their slots fall in."""
+    chunk = np.where((tmap >= 0) & (tmap < n_rows), tmap // cu, -1)
+    chunk.sort(axis=1)
+    first = np.ones(chunk.shape, bool)
+    first[:, 1:] = chunk[:, 1:] != chunk[:, :-1]
+    return int(np.count_nonzero(first & (chunk >= 0)))
+
+
 def pack_shared_class(u_ranges, uids, token_map_global, B, T, cu):
     """Padded per-class descriptor arrays for the shared kernels:
     (st, ln, wt, fb, av (Up, NRb), tmap (B, T), lrb). Query slots whose
@@ -1785,9 +1796,12 @@ def pack_shared_class(u_ranges, uids, token_map_global, B, T, cu):
 
 class SharedBatchExecutor(StringSearchTopK):
     """Term-deduplicated batched scoring: each unique query token is
-    scored once into a dense per-token row; a (B, U) assignment matmul
-    distributes rows to queries. Exact, with or without per-query
-    filters. Unique tokens are partitioned into range-length classes."""
+    scored once into a dense per-token row, and a kernel adds each
+    query's own term rows into its score and match-count rows
+    (`ops/assign_rows.py`, where the JAX package runs a (B, U)
+    assignment matmul).
+    Exact, with or without per-query filters. Unique tokens are
+    partitioned into range-length classes, scored in chunks of rows."""
 
     LENGTH_CLASSES = SHARED_LENGTH_CLASSES
     CHUNK_BY_CLASS = SHARED_CHUNK_BY_CLASS
@@ -1869,9 +1883,10 @@ class SharedBatchExecutor(StringSearchTopK):
                     # analysis' range lists costs more than all the spans
                     sp.fields.update(ranges=int(np.count_nonzero(ln)),
                                      postings=int(ln.sum()))
+                    pairs = touched_pairs(tmap, len(uids), cu)
                 desc = self._upload(st, ln, wt, fb, av, tmap)
                 with span("exec.score", device=self.device, lr_class=lr_class,
-                          chunks=chunks):
+                          chunks=chunks, pairs=pairs):
                     if has_masks:
                         bm25_shared_partial_masked(
                             *slab, *desc, mask_dev, nd, scores, matched,
@@ -1896,12 +1911,15 @@ class SharedBatchExecutor(StringSearchTopK):
                         for cj, (ci, w) in enumerate(u_champs[ui]):
                             ch_rows[ei, cj] = ci
                             ch_w[ei, cj] = w
+                    # one chunk: the queries with a champion slot
+                    pairs = int(np.isin(token_map_global, champ_uids)
+                                .any(axis=1).sum())
                 args = (champs_dev, *self._upload(
                     ch_rows, ch_w, np.asarray(champ_uids, np.int32),
                     token_map_global,
                 ))
                 with span("exec.score", device=self.device,
-                          lr_class="champion", chunks=1):
+                          lr_class="champion", chunks=1, pairs=pairs):
                     if has_masks:
                         bm25_shared_champions_masked(
                             *args, mask_dev, nd, scores, matched

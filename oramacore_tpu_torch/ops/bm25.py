@@ -14,10 +14,15 @@ posting windows (`slice_all`) and aggregate them into the dense
 (`_aggregate_dense`), because the TPU has no fast scatter. Here both
 stages are one hand-written kernel, `score_ranges_accumulate`
 (ops/score_windows.py), which walks each range for exactly its length and
-atomically adds ntf into the dense row. df / idf / saturation are torch
-elementwise code; the `(B, cu) @ (cu, cap)` assignment products and the
-masked df product stay f32 `torch.matmul` (the package's `require_cuda`
-turns TF32 off for them).
+atomically adds ntf into the dense row. On the shared path, where the
+JAX functions carry each unique term's saturated row to its queries with
+`(B, cu) @ (cu, cap)` assignment matmuls, two more kernels
+(ops/assign_rows.py) count each row's df (`count_present`) and add each
+query's own term rows, saturated, into its rows (`assign_rows_accumulate`,
+which computes the idf from df); the masked df product stays f32
+`torch.matmul` (the package's `require_cuda` turns TF32 off for it). The
+per-query path (`bm25_score_batch`) keeps df / idf / saturation as torch
+elementwise code.
 
 Unlike JAX, the accumulators are updated in place where that saves a
 `(B, cap)` copy: the shared-path functions add into `scores_in` /
@@ -31,6 +36,7 @@ from typing import NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
+from .assign_rows import assign_rows_accumulate, count_present
 from .score_windows import score_ranges_accumulate
 from .vector import top_k_by_key, topk_2level
 
@@ -81,13 +87,20 @@ def _idf(n_docs, df):
     return torch.log1p((n_docs - df + 0.5) / (df + 0.5))
 
 
-def _assignment(token_map: torch.Tensor, uids: torch.Tensor) -> torch.Tensor:
-    """A[b, j] = number of slots t with token_map[b, t] == uids[j], as f32.
-    Padding slots hold an id that no entry of `uids` has (the shared
-    path's sentinel U, or -1), so they count for nothing."""
-    return (token_map[:, :, None] == uids[None, None, :]).sum(
-        dim=1, dtype=torch.float32
-    )
+def _masked_df(acc, mask_f, axis=None):
+    """(rows, B) df under per-query filters: df[u, b] = present_u . mask_b
+    (a large-K f32 product), summed over the shards on a mesh."""
+    df = (acc > 0.0).to(torch.float32) @ mask_f.T
+    return df if axis is None else axis.psum(df)
+
+
+def _entry_map(token_map: torch.Tensor, entry_token: torch.Tensor) -> torch.Tensor:
+    """(B, T) index into `entry_token` of each slot's id, -1 for a slot
+    whose id no entry has (padding -1 among them). Entries are distinct."""
+    hit = token_map[:, :, None] == entry_token[None, None, :]
+    idx = torch.arange(1, entry_token.shape[0] + 1, device=token_map.device,
+                       dtype=torch.int32)
+    return ((hit * idx).sum(dim=2, dtype=torch.int32) - 1).contiguous()
 
 
 def _champion_acc(champs, ch_rows, ch_w):
@@ -313,8 +326,9 @@ def bm25_search_grouped_packed(
 
 # ---------------------------------------------------------------------------
 # Shared (term-deduplicated) batched scoring: each UNIQUE token of a batch
-# is scored once into a dense row; a (B, U) assignment matmul distributes
-# the rows to queries (see oramacore_tpu/ops/bm25.py for the derivation).
+# is scored once into a dense row, and `assign_rows_accumulate` adds each
+# query's own term rows into its rows (see oramacore_tpu/ops/bm25.py for
+# the derivation, which does that step as a (B, U) assignment matmul).
 # ---------------------------------------------------------------------------
 
 def _ranged_chunk_acc(p_doc, p_tf, p_exact_tf, p_flen, u_starts, u_lens,
@@ -351,16 +365,11 @@ def bm25_shared_partial(
             p_doc, p_tf, p_exact_tf, p_flen, u_starts, u_lens, u_weights,
             u_field_b, u_avg, rows, lr=lr, cap=cap, exact=exact,
         )  # (cu, cap)
-        present = (acc > 0.0).to(torch.float32)
-        df = present.sum(dim=1)
+        df = count_present(acc)
         if axis is not None:
             df = axis.psum(df)  # global df over doc shards
-        df = df.clamp(min=1.0)
-        sat = _idf(n_docs, df)[:, None] * (K1 + 1.0) * acc / (K1 + acc) * present
-        uid = torch.arange(rows.start, rows.stop, device=token_map.device)
-        A = _assignment(token_map, uid)                        # (B, cu)
-        scores_in.addmm_(A, sat)
-        matched_in.addmm_(A, present)
+        assign_rows_accumulate(acc, df, token_map, scores_in, matched_in,
+                               row0=rows.start, n_docs=n_docs, k1=K1)
     return scores_in, matched_in
 
 
@@ -386,16 +395,9 @@ def bm25_shared_partial_masked(
             p_doc, p_tf, p_exact_tf, p_flen, u_starts, u_lens, u_weights,
             u_field_b, u_avg, rows, lr=lr, cap=cap, exact=exact,
         )
-        present = (acc > 0.0).to(torch.float32)              # (cu, cap)
-        g = (K1 + 1.0) * acc / (K1 + acc) * present            # no idf yet
-        df = present @ mask_f.T                                # (cu, B)
-        if axis is not None:
-            df = axis.psum(df)
-        df = df.clamp(min=1.0)
-        uid = torch.arange(rows.start, rows.stop, device=token_map.device)
-        A = _assignment(token_map, uid)                        # (B, cu)
-        scores_in.addmm_(A * _idf(n_docs, df).T, g)
-        matched_in.addmm_(A, present)
+        assign_rows_accumulate(acc, _masked_df(acc, mask_f, axis), token_map,
+                               scores_in, matched_in, row0=rows.start,
+                               n_docs=n_docs, k1=K1)
     # the per-query mask zeroes contributions of filtered-out docs
     scores_in.mul_(mask_f)
     matched_in.mul_(mask_f)
@@ -413,15 +415,12 @@ def bm25_shared_champions(
     matched_in,   # f32[B, cap], updated in place
 ):
     """Champion class: heavy tokens score from precomputed dense rows (no
-    posting gather), then reach the queries through the same assignment
-    matmul as the ranged classes."""
+    posting gather), then reach the queries through the same row kernel
+    as the ranged classes."""
     acc = _champion_acc(champs, ch_rows, ch_w)               # (U, cap)
-    present = (acc > 0.0).to(torch.float32)
-    df = present.sum(dim=1).clamp(min=1.0)
-    sat = _idf(n_docs, df)[:, None] * (K1 + 1.0) * acc / (K1 + acc) * present
-    A = _assignment(token_map, entry_token)                  # (B, U)
-    scores_in.addmm_(A, sat)
-    matched_in.addmm_(A, present)
+    assign_rows_accumulate(acc, count_present(acc),
+                           _entry_map(token_map, entry_token),
+                           scores_in, matched_in, row0=0, n_docs=n_docs, k1=K1)
     return scores_in, matched_in
 
 
@@ -434,12 +433,9 @@ def bm25_shared_champions_masked(
     semantics)."""
     mask_f = doc_mask.to(torch.float32)
     acc = _champion_acc(champs, ch_rows, ch_w)
-    present = (acc > 0.0).to(torch.float32)
-    g = (K1 + 1.0) * acc / (K1 + acc) * present
-    df = (present @ mask_f.T).clamp(min=1.0)                 # (U, B)
-    A = _assignment(token_map, entry_token)
-    scores_in.addmm_(A * _idf(n_docs, df).T, g)
-    matched_in.addmm_(A, present)
+    assign_rows_accumulate(acc, _masked_df(acc, mask_f),
+                           _entry_map(token_map, entry_token),
+                           scores_in, matched_in, row0=0, n_docs=n_docs, k1=K1)
     scores_in.mul_(mask_f)
     matched_in.mul_(mask_f)
     return scores_in, matched_in

@@ -1899,10 +1899,10 @@ class ShardedBatchExec(ShardedStringExec):
     """SharedBatchExecutor contract over the doc-sharded mesh: each
     unique token's postings are scored once PER SHARD into local dense
     rows (global df via psum inside ops/bm25.bm25_shared_partial), the
-    assignment products distribute shard-locally, and one finalize step
-    does threshold + OMC + local top-k + all_gather merge. Champion
-    tokens revert to ranged classes (champion rows are global-doc-space
-    dense)."""
+    row kernel `assign_rows_accumulate` adds each query's own term rows
+    shard-locally, and one finalize step does threshold + OMC + local
+    top-k + all_gather merge. Champion tokens revert to ranged classes
+    (champion rows are global-doc-space dense)."""
 
     def _get_shared_step(self, *, lr, cap_l, cu, exact, has_mask):
         def shard_fn(ax, p_doc, p_tf, p_etf, p_flen, st, ln, wt, fb, av,

@@ -201,6 +201,105 @@ def test_wrapper_raises_instead_of_falling_back(cuda):
                          torch.zeros((1, 4), device=cuda), w=4)
 
 
+# (B, T, rows, cap, row0, df per query): the cqadup class-1024 chunk
+# shape; caps that are not a multiple of the 2,048-doc tile, one of them
+# not of 4 (the element-by-element walks); a per-query df
+ASSIGN_CARD_CASES = {
+    "B512_cu64_cap2^19": (512, 8, 64, 1 << 19, 64, False),
+    "cap_off_tile": (300, 6, 16, (1 << 19) - 1028, 0, False),
+    "cap_odd": (77, 5, 8, 100_003, 8, False),
+    "df_per_query": (512, 8, 64, (1 << 19) - 4, 128, True),
+    "B_past_one_round": (2100, 3, 8, 20_000, 16, False),   # 2,048 a round
+}
+
+
+@pytest.mark.parametrize("case", list(ASSIGN_CARD_CASES))
+def test_assign_rows_accumulate_kernel(cuda, case):
+    """The kernels against their plain versions: df and matched exactly;
+    scores within rtol 1e-6, since both add each slot's f32 saturation in
+    slot order with bm25.py's operand order, so only a differently
+    rounded division or log could part them, by an ulp per term."""
+    from oramacore_tpu_torch.ops import assign_rows as ar
+
+    B, T, rows, cap, row0, per_query = ASSIGN_CARD_CASES[case]
+    rng = np.random.default_rng(7)
+    acc = torch.rand((rows, cap), device=cuda) - 0.02   # some below 0
+    acc *= torch.rand((rows, cap), device=cuda) < 0.05
+    before = dict(ar.LAUNCHES)
+    df = ar.count_present(acc)
+    torch.cuda.synchronize()
+    assert torch.equal(df, ar.count_present_plain(acc))
+    if per_query:
+        df = torch.from_numpy(rng.integers(0, 30_000, (rows, B)).astype(
+            np.float32)).to(cuda)
+    # a chunk among 20: most slots name other chunks' rows or padding
+    tmap = rng.integers(-1, 20 * rows, (B, T)).astype(np.int32)
+    tmap[0, :2] = row0                      # the same term twice
+    tmap[1, 0], tmap[2, 0] = row0, row0 + rows - 1
+    tmap = torch.from_numpy(tmap).to(cuda)
+    scores = torch.rand((B, cap), device=cuda)
+    matched = torch.randint(0, 3, (B, cap), device=cuda).float()
+    ps, pm = scores.clone(), matched.clone()
+    ar.assign_rows_accumulate(acc, df, tmap, scores, matched, row0=row0,
+                              n_docs=600_000.0, k1=1.2)
+    torch.cuda.synchronize()
+    assert ar.LAUNCHES["assign_rows_accumulate"] == \
+        before["assign_rows_accumulate"] + 1
+    assert ar.LAUNCHES["count_present"] == before["count_present"] + 1
+    ar.assign_rows_accumulate_plain(acc, df, tmap, ps, pm, row0, 600_000.0,
+                                    1.2)
+    assert torch.equal(matched, pm)
+    torch.testing.assert_close(scores, ps, rtol=1e-6, atol=0)
+    assert not torch.equal(matched, torch.zeros_like(matched))
+
+
+def test_shared_path_launches_assign_rows_once_a_chunk(cuda):
+    """bm25_shared_partial launches the df count and the row kernel once
+    per chunk and bm25_shared_champions once each, and both equal their
+    CPU runs."""
+    from oramacore_tpu_torch.ops import assign_rows as ar
+    from oramacore_tpu_torch.ops import bm25
+
+    rng = np.random.default_rng(8)
+    n, cap, B, T, cu, U = 1 << 18, 50_000, 64, 4, 8, 24
+    cpu = [t.cpu() for t in _slab(rng, n, cap, "cpu")]
+    slab = (cpu[0], cpu[1], cpu[1], cpu[2])
+    starts = rng.integers(0, n - 4096, (U, 2)).astype(np.int32)
+    lens = rng.integers(0, 4096, (U, 2)).astype(np.int32)
+    desc = [torch.from_numpy(a) for a in (
+        starts, lens, rng.uniform(0.5, 2, (U, 2)).astype(np.float32),
+        rng.uniform(0.3, 0.9, (U, 2)).astype(np.float32),
+        rng.uniform(5, 40, (U, 2)).astype(np.float32),
+        rng.integers(0, U + 1, (B, T)).astype(np.int32))]
+    champs = torch.rand((5, cap)) * (torch.rand((5, cap)) < 0.1)
+    ch = [torch.from_numpy(a) for a in (
+        rng.integers(0, 5, (6, 2)).astype(np.int32),
+        rng.uniform(0.5, 2, (6, 2)).astype(np.float32),
+        np.array([1, 4, 6, 9, 12, 30], np.int32),
+        rng.choice([-1, 1, 4, 6, 9, 12, 30, 2], (B, T)).astype(np.int32))]
+    out = {}
+    for dev in ("cpu", cuda):
+        go = lambda ts: [t.to(dev) for t in ts]
+        s = torch.zeros((B, cap), device=dev)
+        m = torch.zeros((B, cap), device=dev)
+        before = dict(ar.LAUNCHES)
+        bm25.bm25_shared_partial(*go(slab), *go(desc), 60_000.0, s, m,
+                                 lr=4096, cap=cap, cu=cu, exact=False)
+        bm25.bm25_shared_champions(*go([champs, *ch]), 60_000.0, s, m)
+        if dev != "cpu":
+            torch.cuda.synchronize()
+        out[str(dev)] = (s.cpu(), m.cpu(), {k: n - before[k]
+                                            for k, n in ar.LAUNCHES.items()})
+    assert out["cpu"][2] == dict(assign_rows_accumulate=0, count_present=0)
+    assert out["cuda"][2] == dict(assign_rows_accumulate=U // cu + 1,
+                                  count_present=U // cu + 1)
+    assert torch.equal(out["cuda"][1], out["cpu"][1])
+    # the chunks' atomic ntf sums reorder on the card (rtol 1e-5 / atol
+    # 1e-6, as for score_ranges_accumulate)
+    torch.testing.assert_close(out["cuda"][0], out["cpu"][0], rtol=1e-5,
+                               atol=1e-6)
+
+
 @pytest.mark.parametrize("dtype", [torch.int32, torch.float32])
 def test_gather_windows_kernel(cuda, dtype):
     """Aligned starts (the TPU contract), starts that are not multiples of

@@ -571,17 +571,19 @@ def test_kernel_table_covers_every_wrapper_and_perf_row():
         else:
             assert "pl.pallas_call" in text, path
             replaced.add(path)
-    # rescore_bsearch, rescore_worklist (the pruned tier), facet_hist,
+    # assign_rows_accumulate and count_present (the shared path's
+    # assignment products and the df around them), rescore_bsearch, rescore_worklist (the pruned tier), facet_hist,
     # facet_hist_multi (its facets), encoder_attention (the text encoder),
     # encoder_attention_backward_dq and _dkv (its training step)
-    assert jitted == 7
+    assert jitted == 9
     assert table["encoder_attention_backward_dq"]["replaces"] == \
         "scripts/train_semantic_encoder_v2.py:304"
     # the kernels phase 20's mesh path launches (once a shard), whose
     # rows of PERF.md's tables give their mesh launches
     mesh = {n for n, k in table.items() if k["mesh"]}
-    assert mesh == {"score_ranges_accumulate", "rescore_bsearch",
-                    "rescore_worklist", "facet_hist", "encoder_attention"}
+    assert mesh == {"score_ranges_accumulate", "assign_rows_accumulate",
+                    "count_present", "rescore_bsearch", "rescore_worklist",
+                    "facet_hist", "encoder_attention"}
     with open(os.path.join(REPO, "PERF.md")) as f:
         rows = [line for line in f if line.startswith("|")]
     for name in mesh:
@@ -619,6 +621,12 @@ def test_profile_counts_name_each_kernel():
         ("void encoder_attention_kernel<32, 4, 64>(float const*)", 4),
         ("void encoder_attention_kernel<64, 1, 32>(float const*)", 4),
         ("ampere_sgemm_128x64_nn", 16),
+        ("void (anonymous namespace)::assign_rows_accumulate_kernel<true>("
+         "float const*, long, long, float const*)", 73),
+        ("_ZN12_GLOBAL__N_129assign_rows_accumulate_kernelILb0EEEvPKfllS2_ll"
+         "fPKilliffPfS5_l", 1),
+        ("void (anonymous namespace)::count_present_kernel<true>(float const*, "
+         "long, float*)", 69),
         # mangled names, as the profiler gives a ctypes library's kernels
         ("_Z21gather_windows_kernelPKiS0_lPil", 7),
         ("_Z22rescore_bsearch_kernelILb1EEvPKiPKfS3_l", 1),
@@ -636,7 +644,9 @@ def test_profile_counts_name_each_kernel():
          "20attention_dkv_kernelILi128EEEvPKfPKiS2_PK6float4Pfiiif", 2),
     ])
     assert got == dict(score_windows=0, score_ranges_accumulate=36,
-                       gather_windows=7, rescore_bsearch=1, rescore_worklist=5,
+                       gather_windows=7, assign_rows_accumulate=74,
+                       count_present=69,
+                       rescore_bsearch=1, rescore_worklist=5,
                        facet_hist=4, facet_hist_multi=3, encoder_attention=10,
                        encoder_attention_backward_dq=9,
                        encoder_attention_backward_dkv=10)

@@ -11,7 +11,8 @@ spans of `SharedBatchExecutor.search_topk_shared`, on the CPU.
   opened, nothing is kept and no event is made.
 - One executor call, full text and hybrid, keeps one `exec.shared` root
   whose children are its stages in order, with counters equal to what
-  `analyze_shared_batch` and `pack_shared_class` return for the batch;
+  `analyze_shared_batch` and `pack_shared_class` return for the batch
+  (`pairs`: the distinct (query, chunk) pairs of the packed slot map);
   each upload is preceded by an `exec.drain` that waits for a CUDA
   stream apart from the copies, only while tracing.
 - `chip_smoke.profile_reading` sums kernels, not the spans' device-side
@@ -114,13 +115,17 @@ def _expected_children(index, n_rows):
         arrays = texec.pack_shared_class(u_ranges, uids, tmap, B, T, cu)[:6]
         chunks = arrays[0].shape[0] // cu
         ranges = [r for u in uids for r in u_ranges[u]]
+        # (query, chunk) pairs: the distinct chunks of each query's slots
+        pairs = sum(len({int(u) // cu for u in row if u < len(uids)})
+                    for row in arrays[5])
         out += [("exec.pack", dict(lr_class=lr_class, tokens=len(uids),
                                    chunks=chunks, ranges=len(ranges),
                                    postings=sum(r[1] for r in ranges))),
                 ("exec.drain", {}),
                 ("exec.upload", dict(copies=6, bytes=sum(a.nbytes
                                                          for a in arrays))),
-                ("exec.score", dict(lr_class=lr_class, chunks=chunks))]
+                ("exec.score", dict(lr_class=lr_class, chunks=chunks,
+                                    pairs=pairs))]
     champs = [ui for ui, c in enumerate(u_champs) if c]
     nc = max(len(u_champs[ui]) for ui in champs)
     out += [("exec.pack", dict(lr_class="champion", tokens=len(champs),
@@ -128,7 +133,9 @@ def _expected_children(index, n_rows):
             ("exec.drain", {}),
             ("exec.upload", dict(copies=4, bytes=len(champs) * (8 * nc + 4)
                                  + tmap.nbytes)),
-            ("exec.score", dict(lr_class="champion", chunks=1)),
+            ("exec.score", dict(lr_class="champion", chunks=1,
+                                pairs=sum(any(int(g) in champs for g in row)
+                                          for row in tmap))),
             ("exec.pack", {}),
             ("exec.drain", {})]
     if n_rows is not None:
